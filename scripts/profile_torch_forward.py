@@ -1,0 +1,98 @@
+"""Where the time of one port forward goes on the GPU.
+
+Profiles warm b=1 forwards of yolov3-416 (``tests/data/yolov3.cfg``, random
+weights from ``--seed``) with the input already on the device, in int8
+(``-quantized``, cpu policy) and fp32, and prints per mode: host wall time
+per forward (CUDA-synchronised, profiler off), device busy time per forward
+(sum of GPU kernel and copy time under ``torch.profiler``), their ratio, and
+the device time of the largest kernels. Needs one CUDA device.
+
+Usage: ``python scripts/profile_torch_forward.py [--seed 7] [--iters 20]``
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from yolo2_light_tpu_torch.apps.detect import build_params  # noqa: E402
+from yolo2_light_tpu_torch.models.network import Predictor  # noqa: E402
+from yolo2_light_tpu_torch.params import save_random_weights  # noqa: E402
+
+CFG = os.path.join(ROOT, "tests", "data", "yolov3.cfg")
+
+
+def profile_mode(cfg: str, weights: str, mode: str, seed: int, iters: int,
+                 top: int = 8) -> None:
+    spec, params, _ = build_params(cfg, weights, quantized=mode == "int8",
+                                   echo=False)
+    pred = Predictor(spec, params, mode, device="cuda")
+    x = torch.from_numpy(np.random.RandomState(seed).rand(
+        1, spec.net.h, spec.net.w, spec.net.c).astype(np.float32)).cuda()
+    for _ in range(5):
+        pred(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pred(x)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters * 1e3
+
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            pred(x)
+        torch.cuda.synchronize()
+    per_kernel: dict = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_kernel[e.name][0] += e.self_device_time_total / 1e3 / n
+            per_kernel[e.name][1] += 1
+    busy = sum(v[0] for v in per_kernel.values())
+    launches = sum(v[1] for v in per_kernel.values()) // n
+    print(f"{mode}: wall {wall:.3f} ms/forward (mean of {iters}, profiler "
+          f"off); device busy {busy:.3f} ms/forward "
+          f"({100 * busy / wall:.1f}% of wall); {launches} device "
+          "operations/forward")
+    for name, (ms, count) in sorted(per_kernel.items(),
+                                    key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ms:8.3f} ms  {100 * ms / busy:5.1f}%  x{count // n:4d}  "
+              f"{name[:100]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_forward: needs a CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "yolov3.weights")
+        save_random_weights(CFG, weights, seed=args.seed)
+        for mode in ("int8", "fp32"):
+            profile_mode(CFG, weights, mode, args.seed, args.iters)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,96 @@
+"""The port never imports JAX, directly or through the modules it reuses, and
+its chip check refuses to run without a CUDA device."""
+
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import yolo2_light_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(yolo2_light_tpu_torch.__file__)
+
+
+def _port_modules():
+    mods = ["yolo2_light_tpu_torch"]
+    for info in pkgutil.walk_packages([PKG], "yolo2_light_tpu_torch."):
+        if not info.name.endswith("__main__"):
+            mods.append(info.name)
+    return mods
+
+
+def test_port_modules_are_found():
+    mods = _port_modules()
+    for m in ("yolo2_light_tpu_torch.ops.int8_conv",
+              "yolo2_light_tpu_torch.ops._build",
+              "yolo2_light_tpu_torch.models.layers",
+              "yolo2_light_tpu_torch.models.network",
+              "yolo2_light_tpu_torch.params",
+              "yolo2_light_tpu_torch.apps.detect",
+              "yolo2_light_tpu_torch.apps.cli"):
+        assert m in mods
+
+
+def test_port_imports_with_jax_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import importlib\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "loaded = sorted(k for k, v in sys.modules.items()\n"
+            "                if v is not None and (k == 'jax'\n"
+            "                or k.startswith(('jax.', 'jaxlib'))))\n"
+            "assert not loaded, loaded\n"
+            "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "ok"
+
+
+def test_no_jax_import_statements():
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in sources:
+        with open(path) as f:
+            for line in f:
+                s = line.strip()
+                assert not s.startswith(("import jax", "from jax")), (path, s)
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        for line in f:
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1]
+                assert not (mod == "yolo2_light_tpu"
+                            or mod.startswith("yolo2_light_tpu.")), s
+
+
+def _chip_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"],
+                          capture_output=True, text=True, cwd=cwd,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=""))
+
+
+def test_chip_smoke_fails_without_cuda():
+    import torch
+    if torch.cuda.is_available():
+        import pytest
+        pytest.skip("checks the behaviour of a host without a CUDA device")
+    r = _chip_smoke(REPO)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    r = _chip_smoke(str(tmp_path))
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

@@ -1,0 +1,203 @@
+"""The port's Predictor against the JAX Predictor, head map for head map, and
+the yolov3-416 cfg the port's chip check runs.
+
+Tolerance rtol=1e-4/atol=1e-5 (as tests/test_parallel.py uses between two
+float32 programs): the float32 convs (every conv in fp32 mode; layer 0 and
+the LINEAR head convs in int8 mode) sum the same products in another order
+than XLA, and sigmoid/exp differ by a few ULP. The int8 convs themselves are
+bit-exact (tests/test_torch_int8_conv.py). A quantization-bin flip would
+show here as an error far above the tolerance and is classified as F7
+(ROADMAP), never hidden by widening it.
+"""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from yolo2_light_tpu.cfg import ShortcutSpec, parse_network_cfg
+from yolo2_light_tpu.models.network import Predictor as JaxPredictor
+from yolo2_light_tpu.quant import quantize_params
+from yolo2_light_tpu.weights import fuse_conv_batchnorm, random_params
+from yolo2_light_tpu_torch.models import network as TN
+from yolo2_light_tpu_torch.models.network import Predictor
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+YOLOV3 = os.path.join(DATA, "yolov3.cfg")
+
+
+def shrunk_yolov3(tmp_path, size=64, div=8):
+    """yolov3.cfg at ``size`` x ``size`` with every non-head ``filters=``
+    divided by ``div`` (the 255-filter detector convs keep their width)."""
+    with open(YOLOV3) as f:
+        text = f.read()
+    text = text.replace("width=416", f"width={size}").replace(
+        "height=416", f"height={size}")
+    text = re.sub(r"filters=(\d+)", lambda m: m.group(0) if m.group(1) == "255"
+                  else f"filters={int(m.group(1)) // div}", text)
+    p = tmp_path / "yolov3-shrunk.cfg"
+    p.write_text(text)
+    return str(p)
+
+
+def _params(spec, mode, seed=3):
+    params = fuse_conv_batchnorm(spec, random_params(spec, seed=seed))
+    return quantize_params(spec, params) if mode == "int8" else params
+
+
+def _compare(cfg, mode):
+    spec = parse_network_cfg(cfg, batch=1)
+    params = _params(spec, mode)
+    x = np.random.RandomState(7).rand(2, spec.net.h, spec.net.w,
+                                      spec.net.c).astype(np.float32)
+    ref = JaxPredictor(spec, params, mode)(x)
+    out = Predictor(spec, params, mode, device="cpu")(x)
+    assert len(out) == len(ref) >= 1
+    for o, r in zip(out, ref):
+        assert (o.index, o.kind) == (r.index, r.kind)
+        assert o.data.dtype == torch.float32
+        np.testing.assert_allclose(o.data.numpy(), np.asarray(r.data),
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "int8"])
+@pytest.mark.parametrize("name", ["mini-yolo3", "mini-yolo2", "mini-res"])
+def test_predictor_matches_jax(name, mode):
+    _compare(os.path.join(DATA, f"{name}.cfg"), mode)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "int8"])
+def test_shrunk_yolov3_matches_jax(tmp_path, mode):
+    _compare(shrunk_yolov3(tmp_path), mode)
+
+
+def test_yolov3_cfg_topology():
+    """tests/data/yolov3.cfg (scripts/gen_yolov3_cfg.py) is darknet's
+    yolov3-416: the counts test_cfg.py expects of the reference file."""
+    spec = parse_network_cfg(YOLOV3, batch=1)
+    assert spec.n == 107
+    assert len(spec.conv_layers()) == 75
+    assert sum(isinstance(l, ShortcutSpec) for l in spec.layers) == 23
+    assert spec.head_indices() == [82, 94, 106]
+    heads = [spec.layers[i] for i in spec.head_indices()]
+    assert [(l.w, l.h, l.c) for l in heads] == [(13, 13, 255), (26, 26, 255),
+                                                (52, 52, 255)]
+    assert [tuple(l.mask) for l in heads] == [(6, 7, 8), (3, 4, 5), (0, 1, 2)]
+    assert all(l.classes == 80 and l.total == 9 for l in heads)
+    assert list(heads[0].anchors) == [10, 13, 16, 30, 33, 23, 30, 61, 62, 45,
+                                      59, 119, 116, 90, 156, 198, 373, 326]
+    # the int8 set of the chip check: 75 convs minus layer 0 minus the 3
+    # linear detector convs
+    int8_set = TN._int8_layer_set(spec, "cpu")
+    assert len(int8_set) == 71
+    assert {l.index for l in spec.conv_layers()} - int8_set == {0, 81, 93,
+                                                                105}
+    classes = {(l.size, l.stride) for l in spec.conv_layers()
+               if l.index in int8_set}
+    assert classes == {(3, 1), (3, 2), (1, 1)}
+    assert all(spec.layers[i].c % 4 == 0 for i in int8_set)
+
+
+def test_yolov3_cfg_is_generated_by_script(tmp_path):
+    import importlib.util
+    path = os.path.join(os.path.dirname(DATA), os.pardir, "scripts",
+                        "gen_yolov3_cfg.py")
+    spec = importlib.util.spec_from_file_location("gen_yolov3_cfg", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = tmp_path / "y.cfg"
+    assert mod.main([str(out)]) == 0
+    with open(YOLOV3) as f:
+        assert out.read_text() == f.read()
+
+
+def test_int8_layer_set_and_consumers_match_jax():
+    from yolo2_light_tpu.models import network as JN
+    for name in ("mini-yolo3", "mini-yolo2", "mini-res", "mini-routeflat",
+                 "mini-dontload"):
+        spec = parse_network_cfg(os.path.join(DATA, f"{name}.cfg"), batch=1,
+                                 quantized=True)
+        for policy in ("cpu", "gpu"):
+            assert (TN._int8_layer_set(spec, policy)
+                    == JN._int8_layer_set(spec, policy))
+        assert TN._consumers(spec) == JN._consumers(spec)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(mode="int8", int8_impl="fused"), "fused"),
+    (dict(mode="int8", int8_policy="gpu"), "int8_policy gpu"),
+    (dict(mode="int8", int8_policy="cpu_old"), "int8_policy cpu_old"),
+    (dict(mode="fp32", turbo=True), "turbo"),
+    (dict(mode="int8", turbo="int8"), "turbo"),
+    (dict(mode="fp32", compute_dtype=torch.bfloat16), "bf16"),
+])
+def test_unported_modes_raise(kwargs, match):
+    spec = parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
+    with pytest.raises(NotImplementedError, match=match):
+        TN.build_forward(spec, **kwargs)
+
+
+def test_unknown_engine_and_policy_are_value_errors():
+    spec = parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
+    with pytest.raises(ValueError, match="int8_impl"):
+        TN.build_forward(spec, "int8", int8_impl="triton")
+    with pytest.raises(ValueError, match="policy"):
+        TN.build_forward(spec, "int8", int8_policy="tpu")
+
+
+def test_xnor_conv_not_yet_ported():
+    spec = parse_network_cfg(os.path.join(DATA, "mini-xnor.cfg"), batch=1)
+    with pytest.raises(NotImplementedError, match="XNOR"):
+        TN.build_forward(spec, "fp32")
+
+
+def test_xnor_cfg_int8_runs_int8_path_like_jax():
+    """Under -quantized every xnor=1 conv of mini-xnor is int8-eligible, and
+    an int8-eligible conv runs the int8 path whatever its xnor flag (JAX
+    network.py dispatch precedence): nothing unported is reached."""
+    _compare(os.path.join(DATA, "mini-xnor.cfg"), "int8")
+
+
+def test_softmax_layer_cfg_not_yet_ported(tmp_path):
+    cfg = tmp_path / "sm.cfg"
+    cfg.write_text("[net]\nwidth=8\nheight=8\nchannels=3\n\n"
+                   "[convolutional]\nfilters=4\nsize=1\nstride=1\n"
+                   "activation=leaky\n\n[softmax]\ngroups=1\n")
+    spec = parse_network_cfg(str(cfg), batch=1)
+    with pytest.raises(NotImplementedError, match="softmax"):
+        TN.build_forward(spec, "fp32")
+
+
+def test_predictor_holds_params_as_buffers_on_its_device():
+    spec = parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
+    pred = Predictor(spec, _params(spec, "int8"), "int8", device="cpu")
+    names = dict(pred.named_buffers())
+    assert names and all(t.device.type == "cpu" for t in names.values())
+    # int8 convs keep only their int8 weights; float convs their f32 weights
+    assert "l2_weights_int8" in names and "l2_weights" not in names
+    assert "l0_weights" in names and "l0_weights_int8" not in names
+    assert names["l2_weights_int8"].shape == (32, 3, 3, 16)
+    p = pred.layer_params()[2]
+    assert isinstance(p["alpha"], float)
+    assert isinstance(p["input_quant_multipler"], float)
+
+
+def test_cuda_predictor_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without a CUDA device")
+    spec = parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(spec, _params(spec, "int8"), "int8", device="cuda")
+
+
+def test_plain_engine_equals_default_on_cpu():
+    spec = parse_network_cfg(os.path.join(DATA, "mini-res.cfg"), batch=1)
+    params = _params(spec, "int8")
+    x = np.random.RandomState(2).rand(1, spec.net.h, spec.net.w,
+                                      3).astype(np.float32)
+    a = Predictor(spec, params, "int8", device="cpu")(x)
+    b = Predictor(spec, params, "int8", device="cpu", int8_impl="plain")(x)
+    for ha, hb in zip(a, b):
+        assert torch.equal(ha.data, hb.data)

@@ -1,0 +1,118 @@
+"""Command-line interface with the reference's usage, ``detector test`` only
+(reference: main/run_detector, src/main.c:584-667):
+
+    python -m yolo2_light_tpu_torch detector test <names> <cfg> [weights] [image]
+        [-thresh T] [-dont_show] [-quantized] [-int8_impl xla|pallas]
+        [-letterbox] [-save PATH] [-int8_policy cpu] [-device cuda|cpu]
+
+``-device`` defaults to ``cuda``; ``cpu`` runs the plain PyTorch versions of
+the kernels. ``map``, ``calibrate`` and ``demo``, and the JAX CLI's other
+flags, are not yet ported: they exit non-zero and say so.
+"""
+
+from __future__ import annotations
+
+import sys
+
+_NOT_PORTED_FLAGS = ("-bf16", "-fp32", "-turbo", "-turbo_int8", "-device_nms",
+                     "-device_resize", "-uint8_ingest", "-no_uint8_ingest")
+_NOT_PORTED_VALUES = ("-xnor_kernel", "-pp", "-pp_tp", "-parallel", "-tp",
+                      "-sp", "-params_cache", "-profile", "-batch", "-k", "-i",
+                      "-c", "-s", "-prefix", "-out_filename",
+                      "-input_calibration", "-calib_method", "-iou_thresh")
+
+
+def _find_flag(args, name):
+    if name in args:
+        args.remove(name)
+        return True
+    return False
+
+
+def _find_value(args, name, default, cast=str):
+    if name in args:
+        i = args.index(name)
+        val = args[i + 1]
+        del args[i:i + 2]
+        return cast(val)
+    return default
+
+
+def main(argv=None) -> int:
+    try:
+        return _main(argv)
+    except FileNotFoundError as e:
+        # reference: file_error() prints and exit(0)s
+        # (src/additionally.c:1610-1614)
+        print(f"Couldn't open file: {e.filename or e}", file=sys.stderr)
+        return 0
+    except (ValueError, NotImplementedError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+
+
+def _main(argv=None) -> int:
+    args = list(sys.argv[1:] if argv is None else argv)
+    if len(args) < 1:
+        print("usage: yolo2_light_tpu_torch <function>", file=sys.stderr)
+        return 0
+    if args[0] != "detector":
+        print(f"Not an option: {args[0]}", file=sys.stderr)
+        return 1
+    args = args[1:]
+    for flag in _NOT_PORTED_FLAGS + _NOT_PORTED_VALUES:
+        if flag in args:
+            raise NotImplementedError(
+                f"{flag} is not yet ported to yolo2_light_tpu_torch")
+
+    dont_show = _find_flag(args, "-dont_show")
+    quantized = _find_flag(args, "-quantized")
+    letterbox = _find_flag(args, "-letterbox")
+    thresh = _find_value(args, "-thresh", 0.25, float)
+    save_path = _find_value(args, "-save", "predictions")
+    int8_policy = _find_value(args, "-int8_policy", "cpu")
+    int8_impl = _find_value(args, "-int8_impl", "xla")
+    device = _find_value(args, "-device", "cuda")
+    if int8_impl not in ("xla", "pallas", "fused"):
+        raise ValueError(f"unknown int8_impl {int8_impl!r} "
+                         "(expected xla or pallas)")
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"unknown device {device!r} (expected cuda or cpu)")
+
+    if len(args) < 2:
+        print("usage: yolo2_light_tpu_torch detector [test/map/calibrate/demo] "
+              "[names/datacfg] [cfg] [weights (optional)]", file=sys.stderr)
+        return 1
+    sub = args[0]
+    if sub in ("map", "calibrate", "demo"):
+        raise NotImplementedError(
+            f"detector {sub} is not yet ported to yolo2_light_tpu_torch")
+    if sub != "test":
+        print(f"Not an option: {sub}", file=sys.stderr)
+        return 1
+    obj_names = args[1]
+    cfg = args[2] if len(args) > 2 else None
+    weights = args[3] if len(args) > 3 else None
+    filename = args[4] if len(args) > 4 else None
+    if cfg is None:
+        print("error: missing cfg file", file=sys.stderr)
+        return 1
+    if device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            print("error: CUDA is not available; pass -device cpu to run the "
+                  "plain PyTorch path", file=sys.stderr)
+            return 1
+
+    from yolo2_light_tpu.datacfg import load_names
+
+    from .detect import run
+    names = load_names(obj_names)
+    run(names, cfg, weights, filename, thresh=thresh, quantized=quantized,
+        dont_show=dont_show, int8_policy=int8_policy, save_path=save_path,
+        letter=letterbox, int8_impl=int8_impl, device=device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,135 @@
+"""Single-image detection app (reference: test_detector_cpu, src/main.c:156-247).
+
+Pipeline: parse cfg -> load weights -> fuse BN -> (quantize INT8) -> resize
+image (darknet bilinear) -> forward on the device -> decode -> NMS -> print +
+draw. Everything but the forward is the JAX package's NumPy host code.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+
+from yolo2_light_tpu.cfg import ConvSpec, SoftmaxSpec, parse_network_cfg
+from yolo2_light_tpu.io import image as im_io
+from yolo2_light_tpu.post import boxes as post
+from yolo2_light_tpu.quant import quantize_params
+from yolo2_light_tpu.weights import (fuse_conv_batchnorm, load_weights,
+                                     random_params)
+
+from ..models.network import Predictor
+
+
+def build_params(cfgfile: str, weightfile, quantized: bool = False,
+                 seed: int = 0, echo: bool = True, quant_banner: bool = False):
+    """Init chain (reference: src/main.c:160-171 and :4552-4561):
+    parse -> load/init -> BN-fuse -> (INT8-quantize), with the reference's
+    construction-time prints when ``echo``; random params from ``seed`` when
+    there is no ``weightfile``. XNOR binarization is not part of it yet: the
+    forward refuses XNOR convs."""
+    spec = parse_network_cfg(cfgfile, batch=1, quantized=quantized,
+                             echo_table=echo)
+    mode = "int8" if quantized else "fp32"
+    if weightfile:
+        params = load_weights(spec, weightfile, verbose=echo)
+    else:
+        params = random_params(spec, seed=seed)
+    params = fuse_conv_batchnorm(spec, params)
+    if quantized:
+        if echo and quant_banner:
+            print("\n\n Quantinization! \n")
+        params = quantize_params(spec, params, echo=echo)
+    return spec, params, mode
+
+
+def build_predictor(cfgfile: str, weightfile, quantized: bool = False,
+                    int8_policy: str = "cpu", int8_impl: str = "xla",
+                    device="cuda"):
+    spec, params, mode = build_params(cfgfile, weightfile, quantized,
+                                      quant_banner=True)
+    pred = Predictor(spec, params, mode, device=device,
+                     int8_policy=int8_policy, int8_impl=int8_impl)
+    return spec, pred
+
+
+def forward_echo(spec) -> str:
+    """The quantized forward's per-layer stdout block, one line per conv
+    (reference: yolov2_forward_network_quantized.c:1039,1070)."""
+    parts = []
+    for l in spec.layers:
+        if isinstance(l, ConvSpec):
+            parts.append(f"\n {l.index} - CONVOLUTIONAL \t\t l.size = {l.size}  \n")
+        elif isinstance(l, SoftmaxSpec):
+            parts.append("\n layer: 4 \n")
+    return "".join(parts)
+
+
+def detect_image(pred, spec, filename: str, thresh: float, nms: float,
+                 names, letter: bool = False, echo_layers: bool = False):
+    """Run one image through the predictor; returns (dets, image, elapsed).
+    ``elapsed`` covers the forward and the copy of the head maps to the host."""
+    im = im_io.load_image(filename, 3)
+    if letter:
+        sized = im_io.letterbox_image(im, spec.net.w, spec.net.h)
+    else:
+        sized = im_io.resize_image(im, spec.net.w, spec.net.h)
+    t0 = time.time()
+    heads = pred(im_io.to_batch(sized))
+    head_outputs = [h.data[0].cpu().numpy() for h in heads]
+    elapsed = time.time() - t0
+    if echo_layers:
+        print(forward_echo(spec), end="")
+    head_specs = pred.head_specs()
+    dets = post.get_network_boxes(head_outputs, head_specs,
+                                  im.shape[1], im.shape[0],
+                                  spec.net.w, spec.net.h, thresh,
+                                  relative=True, letter=letter)
+    classes = head_specs[-1].classes if head_specs else 0
+    if nms:
+        post.do_nms_sort(dets, classes, nms)
+    return dets, im, elapsed
+
+
+def run(names, cfgfile: str, weightfile, filename, thresh: float = 0.24,
+        quantized: bool = False, dont_show: bool = True,
+        int8_policy: str = "cpu", save_path: str = "predictions",
+        letter: bool = False, int8_impl: str = "xla", device="cuda") -> str:
+    """Single-image detect; with no filename, loops reading image paths from
+    stdin (reference: test_detector_cpu while(1) fgets loop,
+    src/main.c:176-186). Returns the last image's detection text."""
+    spec, pred = build_predictor(cfgfile, weightfile, quantized,
+                                 int8_policy=int8_policy, int8_impl=int8_impl,
+                                 device=device)
+    nms = 0.2 if quantized else 0.4  # reference: src/main.c:174,213
+    head_specs = pred.head_specs()
+    classes = head_specs[-1].classes if head_specs else 0
+    text = ""
+    while True:
+        fname = filename
+        if fname is None:
+            print("Enter Image Path: ", end="", flush=True)
+            line = sys.stdin.readline()
+            if not line:
+                return text
+            fname = line.strip()
+            if not fname:
+                continue
+        dets, im, elapsed = detect_image(pred, spec, fname, thresh, nms, names,
+                                         letter=letter, echo_layers=quantized)
+        print(f"{fname}: Predicted in {elapsed:f} seconds.")
+        text = post.format_detections(dets, names, thresh, im.shape[1],
+                                      im.shape[0])
+        if text:
+            print(text)
+        im_io.draw_detections(im, dets, names, thresh, classes)
+        im_io.save_image_png(im, save_path)
+        if not dont_show:
+            rgb = np.clip(im * 255.0, 0, 255).astype(np.uint8)
+            if not im_io.show_image_window(rgb, "predictions"):
+                print(f"Not compiled with OpenCV, saving to {save_path}.png "
+                      "instead", file=sys.stderr)
+                im_io.save_image_png(im, save_path)
+        if filename is not None:
+            return text

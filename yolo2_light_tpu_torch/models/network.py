@@ -1,0 +1,255 @@
+"""Network forward: ModelSpec -> ``forward(params, x)`` in PyTorch.
+
+Counterpart of ``yolo2_light_tpu/models/network.py``. PyTorch runs eagerly,
+so the forward is a Python loop over the static spec that calls one op per
+layer; the int8 convs launch the hand-written kernel of ``ops/int8_conv``.
+
+Ported modes:
+
+* ``fp32``: dense convs in full float32 (TF32 off);
+* ``int8`` with ``int8_policy="cpu"``: every conv except index 0 and the
+  LINEAR-activation convs runs the int8 path (reference dispatch:
+  src/yolov2_forward_network_quantized.c:1036-1037). The input of each int8
+  conv is quantized where the conv reads it (consumer side); the JAX
+  package's producer-side chaining gives bit-identical values.
+
+Everything else the JAX package's ``build_forward`` offers raises
+``NotImplementedError`` naming what is not yet ported; nothing falls back.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from yolo2_light_tpu.cfg import (ConvSpec, MaxpoolSpec, ModelSpec, RegionSpec,
+                                 ReorgSpec, RouteSpec, ShortcutSpec,
+                                 SoftmaxSpec, UpsampleSpec, YoloSpec)
+
+from ..ops import int8_conv
+from ..params import params_to_torch
+from . import layers as L
+
+# "xla" and "pallas" name the JAX package's engines; on the port both run
+# the hand kernel. "plain" runs the kernel's plain PyTorch version on any
+# device: the reference the kernel path is checked against.
+INT8_IMPLS = ("xla", "pallas", "plain")
+
+
+class HeadOutput(NamedTuple):
+    """Post-activation output of a detection head, cell-major.
+
+    ``data``: [B, H, W, n, entries] where entries = 4 coords + 1 obj + classes.
+    """
+    index: int
+    kind: str          # "yolo" | "region"
+    data: torch.Tensor
+
+
+def _int8_layer_set(spec: ModelSpec, policy: str) -> set:
+    """Indices of the convs that run the int8 path under ``policy``."""
+    out = set()
+    for l in spec.layers:
+        if not isinstance(l, ConvSpec):
+            continue
+        if policy == "cpu":
+            if l.index >= 1 and l.activation != "linear":
+                out.add(l.index)
+        elif policy == "gpu":
+            if l.quantized:
+                out.add(l.index)
+        else:
+            raise ValueError(f"unknown int8 policy {policy!r}")
+    return out
+
+
+def _consumers(spec: ModelSpec) -> dict:
+    """layer index -> indices of layers reading its output (routes read their
+    sources; shortcuts read from_index and the preceding layer; every other
+    non-first layer reads its predecessor)."""
+    consumers: dict[int, list] = {i: [] for i in range(spec.n)}
+    for l in spec.layers:
+        if isinstance(l, RouteSpec):
+            for j in l.layers:
+                consumers[j].append(l.index)
+        elif isinstance(l, ShortcutSpec):
+            consumers[l.from_index].append(l.index)
+            consumers[l.index - 1].append(l.index)
+        elif l.index > 0:
+            consumers[l.index - 1].append(l.index)
+    return consumers
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to "
+                               "yolo2_light_tpu_torch")
+
+
+def _check_ported(spec: ModelSpec, mode: str, int8_policy: str,
+                  int8_impl: str, compute_dtype, turbo) -> set:
+    """Raise on anything this port does not run yet; returns the int8 set."""
+    if mode not in ("fp32", "int8"):
+        raise ValueError(f"unknown mode {mode!r} (expected fp32 or int8)")
+    if int8_impl not in INT8_IMPLS + ("fused",):
+        raise ValueError(f"unknown int8_impl {int8_impl!r} "
+                         f"(expected one of {', '.join(INT8_IMPLS)})")
+    if int8_policy not in ("cpu", "gpu", "cpu_old"):
+        raise ValueError(f"unknown int8 policy {int8_policy!r}")
+    if mode == "int8" and int8_impl == "fused":
+        raise _not_ported("-int8_impl fused (the fused residual-stage kernel)")
+    if mode == "int8" and int8_policy != "cpu":
+        raise _not_ported(f"-int8_policy {int8_policy}")
+    if compute_dtype != torch.float32:
+        raise _not_ported(f"compute dtype {compute_dtype} (-bf16)")
+    if turbo:
+        raise _not_ported("-turbo / -turbo_int8")
+    int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else set()
+    for l in spec.layers:
+        if isinstance(l, ConvSpec) and l.xnor and l.index not in int8_set:
+            raise _not_ported(f"XNOR conv (xnor=1, layer {l.index})")
+        if isinstance(l, SoftmaxSpec):
+            raise _not_ported(f"[softmax] layer {l.index}")
+        if isinstance(l, RegionSpec) and l.softmax_tree is not None:
+            raise _not_ported(f"region softmax tree (layer {l.index})")
+    return int8_set
+
+
+def build_forward(spec: ModelSpec, mode: str = "fp32", *,
+                  int8_policy: str = "cpu", int8_impl: str = "xla",
+                  compute_dtype=torch.float32, turbo=False):
+    """Return ``forward(params, x) -> (heads, aux)``.
+
+    ``x``: [B, H, W, C] float32, NHWC, values in [0,1]. ``params``: the
+    per-layer list of ``params.params_to_torch``. ``heads`` is a tuple of
+    HeadOutput; ``aux["final"]`` is the last layer's output.
+    """
+    int8_set = _check_ported(spec, mode, int8_policy, int8_impl,
+                             compute_dtype, turbo)
+    plain = int8_impl == "plain"
+    # outputs a route or a shortcut reads; every other one is dropped once
+    # the next layer has consumed it
+    kept = {j for j, readers in _consumers(spec).items()
+            if any(isinstance(spec.layers[c], (RouteSpec, ShortcutSpec))
+                   for c in readers)}
+    L.set_fp32_precision()
+
+    def forward(params, x):
+        outputs: dict[int, torch.Tensor] = {}
+        heads: list[HeadOutput] = []
+        cur = x
+        for l in spec.layers:
+            i = l.index
+            if isinstance(l, ConvSpec):
+                p = params[i]
+                if i in int8_set:
+                    cur = L.conv2d_int8(
+                        cur, p["weights_int8"], p["biases"], l.stride, l.pad,
+                        l.activation, p["input_quant_multipler"], p["alpha"],
+                        plain=plain)
+                else:
+                    bn = None
+                    if "scales" in p:
+                        bn = (p["scales"], p["rolling_mean"],
+                              p["rolling_variance"])
+                    cur = L.conv2d_fp32(cur, p["weights"], p["biases"],
+                                        l.stride, l.pad, l.activation, bn=bn)
+            elif isinstance(l, MaxpoolSpec):
+                cur = L.maxpool(cur, l.size, l.stride, l.pad, l.out_w, l.out_h)
+            elif isinstance(l, RouteSpec):
+                cur = L.route([outputs[j] for j in l.layers])
+            elif isinstance(l, ReorgSpec):
+                cur = L.reorg(cur, l.stride, l.reverse)
+            elif isinstance(l, UpsampleSpec):
+                cur = L.upsample(cur, l.stride, l.scale)
+            elif isinstance(l, ShortcutSpec):
+                cur = L.shortcut(cur, outputs[l.from_index], l.activation)
+            elif isinstance(l, YoloSpec):
+                b, h, w, _ = cur.shape
+                cur = L.yolo_head(cur, l.n, l.classes)
+                heads.append(HeadOutput(
+                    i, "yolo", cur.reshape(b, h, w, l.n, 5 + l.classes)))
+            elif isinstance(l, RegionSpec):
+                y5 = L.region_head(cur, l.n, l.classes, l.coords, l.softmax)
+                b, h, w = y5.shape[:3]
+                cur = y5.reshape(b, h, w, -1)
+                heads.append(HeadOutput(i, "region", y5))
+            else:
+                raise _not_ported(f"layer {type(l).__name__}")
+            if i in kept:
+                outputs[i] = cur
+        return tuple(heads), {"final": cur}
+
+    return forward
+
+
+class Predictor(nn.Module):
+    """One call, image(s) in, head maps out, on one explicit device.
+
+    The converted params are the module's buffers (``l<index>_<name>``); the
+    int8 scalars (input multiplier, alpha) are plain floats. In int8 mode the
+    int8 convs keep only their int8 weights. On a CUDA device the kernels
+    are built here, so the first forward does not include the build.
+    """
+
+    def __init__(self, spec: ModelSpec, params: list, mode: str = "fp32", *,
+                 device="cuda", int8_policy: str = "cpu",
+                 int8_impl: str = "xla", compute_dtype=torch.float32,
+                 turbo=False):
+        super().__init__()
+        self.spec = spec
+        self.mode = mode
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available (use device='cpu' to "
+                               "run the plain PyTorch path)")
+        self._forward = build_forward(spec, mode, int8_policy=int8_policy,
+                                      int8_impl=int8_impl,
+                                      compute_dtype=compute_dtype, turbo=turbo)
+        int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else ()
+        # each conv keeps the weights of the path it runs
+        host = [None if p is None else
+                {k: v for k, v in p.items()
+                 if k != ("weights" if i in int8_set else "weights_int8")}
+                for i, p in enumerate(params)]
+        self._layout: list = []   # per layer: None or (tensor names, scalars)
+        for i, p in enumerate(params_to_torch(host, self.device)):
+            if p is None:
+                self._layout.append(None)
+                continue
+            names, scalars = [], {}
+            for k, v in p.items():
+                if isinstance(v, torch.Tensor):
+                    self.register_buffer(f"l{i}_{k}", v)
+                    names.append(k)
+                else:
+                    scalars[k] = v
+            self._layout.append((names, scalars))
+        if (self.device.type == "cuda" and mode == "int8"
+                and int8_impl != "plain"):
+            int8_conv.load_kernel()
+
+    def layer_params(self) -> list:
+        """The per-layer param dicts ``forward`` reads, from the buffers."""
+        out = []
+        for i, entry in enumerate(self._layout):
+            if entry is None:
+                out.append(None)
+                continue
+            names, scalars = entry
+            d = dict(scalars)
+            for k in names:
+                d[k] = getattr(self, f"l{i}_{k}")
+            out.append(d)
+        return out
+
+    def forward(self, x) -> tuple:
+        x = torch.as_tensor(x).to(self.device, torch.float32)
+        with torch.inference_mode():
+            heads, _ = self._forward(self.layer_params(), x)
+        return heads
+
+    def head_specs(self):
+        return [l for l in self.spec.layers
+                if isinstance(l, (YoloSpec, RegionSpec))]
