@@ -2,10 +2,11 @@
 
 Profiles warm b=1 forwards of yolov3-416 (``tests/data/yolov3.cfg``, random
 weights from ``--seed``) with the input already on the device, in int8
-(``-quantized``, cpu policy) and fp32, and prints per mode: host wall time
-per forward (CUDA-synchronised, profiler off), device busy time per forward
-(sum of GPU kernel and copy time under ``torch.profiler``), their ratio, and
-the device time of the largest kernels. Needs one CUDA device.
+(``-quantized``, cpu policy; ``int8-fused`` adds ``-int8_impl fused``) and
+fp32, and prints per mode: host wall time per forward (CUDA-synchronised,
+profiler off), device busy time per forward (sum of GPU kernel and copy time
+under ``torch.profiler``), their ratio, the device operations per forward,
+and the device time of the largest kernels. Needs one CUDA device.
 
 Usage: ``python scripts/profile_torch_forward.py [--seed 7] [--iters 20]``
 """
@@ -35,11 +36,16 @@ from yolo2_light_tpu_torch.params import save_random_weights  # noqa: E402
 CFG = os.path.join(ROOT, "tests", "data", "yolov3.cfg")
 
 
-def profile_mode(cfg: str, weights: str, mode: str, seed: int, iters: int,
+MODES = {"int8": ("int8", "xla"), "int8-fused": ("int8", "fused"),
+         "fp32": ("fp32", "xla")}
+
+
+def profile_mode(cfg: str, weights: str, name: str, seed: int, iters: int,
                  top: int = 8) -> None:
+    mode, int8_impl = MODES[name]
     spec, params, _ = build_params(cfg, weights, quantized=mode == "int8",
                                    echo=False)
-    pred = Predictor(spec, params, mode, device="cuda")
+    pred = Predictor(spec, params, mode, device="cuda", int8_impl=int8_impl)
     x = torch.from_numpy(np.random.RandomState(seed).rand(
         1, spec.net.h, spec.net.w, spec.net.c).astype(np.float32)).cuda()
     for _ in range(5):
@@ -64,7 +70,7 @@ def profile_mode(cfg: str, weights: str, mode: str, seed: int, iters: int,
             per_kernel[e.name][1] += 1
     busy = sum(v[0] for v in per_kernel.values())
     launches = sum(v[1] for v in per_kernel.values()) // n
-    print(f"{mode}: wall {wall:.3f} ms/forward (mean of {iters}, profiler "
+    print(f"{name}: wall {wall:.3f} ms/forward (mean of {iters}, profiler "
           f"off); device busy {busy:.3f} ms/forward "
           f"({100 * busy / wall:.1f}% of wall); {launches} device "
           "operations/forward")
@@ -89,7 +95,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         weights = os.path.join(tmp, "yolov3.weights")
         save_random_weights(CFG, weights, seed=args.seed)
-        for mode in ("int8", "fp32"):
+        for mode in MODES:
             profile_mode(CFG, weights, mode, args.seed, args.iters)
     return 0
 

@@ -77,6 +77,35 @@ def test_int8_impl_pallas_prints_same_lines(assets, capsys):
     assert_streams_match(out_p, out_x, drop=("Predicted in",))
 
 
+def test_int8_impl_fused_streams_match_jax_cli(capsys, tmp_path):
+    """``-quantized -int8_impl fused`` on mini-res, whose residual blocks the
+    fused engine takes: the same streams as the JAX CLI's fused engine.
+    Weights from seed 1, as the fixture's; at seed 2 both engines of the two
+    CLIs part (F7 in ROADMAP: the jitted JAX forward's reciprocal multiply
+    and FMA flip int8 bins), while each CLI's fused and unfused engines
+    still agree with each other."""
+    cfg = os.path.join(DATA, "mini-res.cfg")
+    spec = parse_network_cfg(cfg, batch=1)
+    weights = str(tmp_path / "res.weights")
+    save_weights(spec, random_params(spec, seed=1), weights)
+    names = str(tmp_path / "res.names")
+    with open(names, "w") as f:
+        f.write("a\nb\nc\n")
+    args = ["detector", "test", names, cfg, weights, IMAGE, "-thresh", "0.1",
+            "-dont_show", "-quantized", "-int8_impl", "fused"]
+    rc_j, out_j, err_j = _run(jax_main, capsys,
+                              args + ["-save", str(tmp_path / "jax")])
+    rc_t, out_t, err_t = _run(torch_main, capsys,
+                              args + ["-save", str(tmp_path / "torch"),
+                                      "-device", "cpu"])
+    assert rc_j == rc_t == 0
+    assert parse_detection_lines(out_t)[0]
+    assert "\n 10 - CONVOLUTIONAL \t\t l.size = 3  \n" in out_t
+    drop = ("Predicted in",)
+    assert_streams_match(out_t, out_j, drop=drop, context="stdout")
+    assert_streams_match(err_t, err_j, drop=drop, context="stderr")
+
+
 @pytest.mark.parametrize("sub", ["map", "calibrate", "demo"])
 def test_other_apps_not_yet_ported(capsys, sub):
     rc, _, err = _run(torch_main, capsys,
@@ -85,7 +114,6 @@ def test_other_apps_not_yet_ported(capsys, sub):
 
 
 @pytest.mark.parametrize("flag", [["-bf16"], ["-turbo"], ["-pp", "2"],
-                                  ["-int8_impl", "fused", "-quantized"],
                                   ["-int8_policy", "gpu", "-quantized"]])
 def test_unported_flags_exit_nonzero(assets, capsys, flag):
     d, names, weights = assets
@@ -97,7 +125,8 @@ def test_unported_flags_exit_nonzero(assets, capsys, flag):
 
 
 def test_bad_values_exit_nonzero(capsys):
-    for args in (["-int8_impl", "triton"], ["-device", "tpu"]):
+    for args in (["-int8_impl", "triton"], ["-int8_impl", "plain"],
+                 ["-device", "tpu"]):
         rc, _, err = _run(torch_main, capsys,
                           ["detector", "test", "n", "c.cfg"] + args)
         assert rc == 1 and "Error:" in err

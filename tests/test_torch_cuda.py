@@ -1,6 +1,7 @@
-"""Tests of the port that need an NVIDIA GPU: the int8 conv kernel against
-its plain PyTorch version on the card, the wrapper's refusals, and the
-Predictor's kernel path against its plain path and the CPU.
+"""Tests of the port that need an NVIDIA GPU: the int8 conv kernel and the
+fused residual-block kernel against their plain PyTorch versions on the
+card, the wrappers' refusals, and the Predictor's kernel paths against its
+plain path and the CPU.
 
 They skip without a CUDA device. This file imports neither JAX nor the JAX
 package's tests, so it also runs on a machine without JAX:
@@ -16,6 +17,7 @@ import torch
 
 from yolo2_light_tpu_torch.apps.detect import build_params
 from yolo2_light_tpu_torch.models.network import Predictor
+from yolo2_light_tpu_torch.ops import fused_res as FR
 from yolo2_light_tpu_torch.ops import int8_conv as K
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -128,4 +130,110 @@ def test_fp32_card_matches_cpu(dev, name):
     assert not torch.backends.cudnn.allow_tf32
     for a, b in zip(on_card, on_cpu):
         torch.testing.assert_close(a.data.cpu(), b.data, rtol=1e-4,
+                                   atol=1e-5)
+
+
+def _block(dev, seed, b, h, w, c, c2, b1_shift=2.0):
+    """A trunk and one residual block's kernel arguments; b1 > 0 so a wrong
+    halo mask (quantizing the zero-padded trunk) shows on the border."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32) * 4)
+    m1, m2 = np.float32(rng.uniform(8, 24)), np.float32(rng.uniform(8, 24))
+    args = dict(
+        w1=torch.from_numpy(rng.randint(-127, 128, (c2, 1, 1, c)).astype(
+            np.int8)).to(dev),
+        b1=torch.from_numpy((rng.randn(c2) + b1_shift).astype(
+            np.float32)).to(dev),
+        m1=float(m1), alpha1=K.alpha_f32(m1, rng.uniform(64, 256)),
+        w2=torch.from_numpy(rng.randint(-127, 128, (c, 3, 3, c2)).astype(
+            np.int8)).to(dev),
+        b2=torch.from_numpy(rng.randn(c).astype(np.float32)).to(dev),
+        m2=float(m2), alpha2=K.alpha_f32(m2, rng.uniform(64, 256)))
+    return x.to(dev), args
+
+
+@pytest.mark.parametrize("b,h,w,c,c2", [
+    (1, 208, 208, 64, 32),        # yolov3-416's five residual stages
+    (1, 104, 104, 128, 64),
+    (1, 52, 52, 256, 128),
+    (1, 26, 26, 512, 256),
+    (1, 13, 13, 1024, 512),       # clusters of 16 (non-portable size)
+    (2, 11, 9, 36, 20),           # ragged tiles, C2 words not a step multiple
+    (3, 5, 7, 8, 4),
+    (1, 1, 1, 4, 4),
+    (2, 30, 17, 200, 100),        # C not a multiple of the 64-channel slab
+])
+def test_fused_kernel_bit_identical_to_plain(dev, b, h, w, c, c2):
+    x, args = _block(dev, h * c + c2, b, h, w, c, c2)
+    keep = x.clone()
+    out = FR.fused_res_block_cuda(x, **args)
+    ref = FR.res_block_plain(x, **args)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.equal(out, ref)
+    assert torch.equal(x, keep)
+    cpu = FR.res_block_plain(x.cpu(), **{k: v.cpu() if torch.is_tensor(v)
+                                         else v for k, v in args.items()})
+    assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.parametrize("b,h,c,c2", [(1, 104, 128, 64), (2, 13, 64, 32)])
+def test_fused_chain_of_two_alternates_buffers(dev, b, h, c, c2):
+    x, a1 = _block(dev, 11, b, h, h, c, c2)
+    _, a2 = _block(dev, 12, b, h, h, c, c2, b1_shift=-1.0)
+    keep = x.clone()
+    K.reset_launch_counts()
+    out = FR.run_blocks(x, [a1, a2])
+    assert K.LAUNCH_COUNTS["fused_res_block"] == 2
+    ref = FR.res_block_plain(FR.res_block_plain(x, **a1), **a2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("case", ["device", "dtype", "channels", "c2",
+                                  "contiguity", "in_place"])
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take(dev, case):
+    x, args = _block(dev, 3, 1, 6, 6, 8, 4)
+    out, err = None, ValueError
+    if case == "device":
+        x = x.cpu()
+    elif case == "dtype":
+        x, err = x.to(torch.int8), TypeError
+    elif case == "channels":
+        x = x[..., :6].contiguous()
+        args["w1"] = args["w1"][..., :6].contiguous()
+        args["w2"], args["b2"] = args["w2"][:6].contiguous(), args["b2"][:6]
+    elif case == "c2":
+        args["w1"], args["b1"] = args["w1"][:3].contiguous(), args["b1"][:3]
+        args["w2"] = args["w2"][..., :3].contiguous()
+    elif case == "contiguity":
+        x = x.permute(0, 2, 1, 3)
+    else:
+        out = x
+    K.reset_launch_counts()
+    with pytest.raises(err):
+        FR.fused_res_block_cuda(x, out=out, **args)
+    assert K.LAUNCH_COUNTS["fused_res_block"] == 0
+
+
+@pytest.mark.parametrize("name", ["mini-res", "mini-yolo3"])
+def test_fused_predictor_on_card_equals_k1_and_plain_paths(dev, name):
+    """On the card the fused path equals the int8 conv path and the plain
+    path bit for bit. Against the CPU it is held to the bound of
+    test_fp32_card_matches_cpu: layer 0 is a float32 conv, which cuDNN sums
+    in another order than the CPU."""
+    spec, params, _ = build_params(os.path.join(DATA, f"{name}.cfg"), None,
+                                   quantized=True, echo=False)
+    x = np.random.RandomState(5).rand(2, spec.net.h, spec.net.w,
+                                      3).astype(np.float32)
+    K.reset_launch_counts()
+    fused = Predictor(spec, params, "int8", device=dev, int8_impl="fused")(x)
+    n_blocks = K.LAUNCH_COUNTS["fused_res_block"]
+    k1 = Predictor(spec, params, "int8", device=dev)(x)
+    plain = Predictor(spec, params, "int8", device=dev, int8_impl="plain")(x)
+    cpu = Predictor(spec, params, "int8", device="cpu",
+                    int8_impl="fused")(x)
+    assert n_blocks == (3 if name == "mini-res" else 0)
+    for a, b, c, d in zip(fused, k1, plain, cpu):
+        assert torch.equal(a.data, b.data) and torch.equal(a.data, c.data)
+        torch.testing.assert_close(a.data.cpu(), d.data, rtol=1e-4,
                                    atol=1e-5)

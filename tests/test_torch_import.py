@@ -24,6 +24,7 @@ def _port_modules():
 def test_port_modules_are_found():
     mods = _port_modules()
     for m in ("yolo2_light_tpu_torch.ops.int8_conv",
+              "yolo2_light_tpu_torch.ops.fused_res",
               "yolo2_light_tpu_torch.ops._build",
               "yolo2_light_tpu_torch.models.layers",
               "yolo2_light_tpu_torch.models.network",

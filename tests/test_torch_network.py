@@ -126,7 +126,8 @@ def test_int8_layer_set_and_consumers_match_jax():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mode="int8", int8_impl="fused"), "fused"),
+    (dict(mode="int8", int8_impl="fused", int8_policy="gpu"),
+     "int8_policy gpu"),
     (dict(mode="int8", int8_policy="gpu"), "int8_policy gpu"),
     (dict(mode="int8", int8_policy="cpu_old"), "int8_policy cpu_old"),
     (dict(mode="fp32", turbo=True), "turbo"),

@@ -2,11 +2,13 @@
 (reference: main/run_detector, src/main.c:584-667):
 
     python -m yolo2_light_tpu_torch detector test <names> <cfg> [weights] [image]
-        [-thresh T] [-dont_show] [-quantized] [-int8_impl xla|pallas]
+        [-thresh T] [-dont_show] [-quantized] [-int8_impl xla|pallas|fused]
         [-letterbox] [-save PATH] [-int8_policy cpu] [-device cuda|cpu]
 
-``-device`` defaults to ``cuda``; ``cpu`` runs the plain PyTorch versions of
-the kernels. ``map``, ``calibrate`` and ``demo``, and the JAX CLI's other
+``-int8_impl fused`` runs each darknet53 residual block as one launch of the
+fused kernel; ``xla`` and ``pallas`` run every int8 conv on the int8 conv
+kernel. ``-device`` defaults to ``cuda``; ``cpu`` runs the plain PyTorch
+versions of the kernels. ``map``, ``calibrate`` and ``demo``, and the JAX CLI's other
 flags, are not yet ported: they exit non-zero and say so.
 """
 
@@ -75,7 +77,7 @@ def _main(argv=None) -> int:
     device = _find_value(args, "-device", "cuda")
     if int8_impl not in ("xla", "pallas", "fused"):
         raise ValueError(f"unknown int8_impl {int8_impl!r} "
-                         "(expected xla or pallas)")
+                         "(expected xla, pallas or fused)")
     if device not in ("cuda", "cpu"):
         raise ValueError(f"unknown device {device!r} (expected cuda or cpu)")
 

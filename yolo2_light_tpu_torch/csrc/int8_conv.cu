@@ -27,15 +27,18 @@
 // tile and one f32 write of the output. Tensor-core MMA (wgmma) and TMA
 // pipelining are the next steps.
 //
-// Traps handled here: the epilogue uses __fmul_rn/__fadd_rn/__fdiv_rn so nvcc
-// cannot contract q*alpha+bias into an FMA (one rounding instead of two would
-// move y by up to 1 ULP and can flip the next layer's quantization bin); C
-// must be a multiple of 4 (one 32-bit word = 4 channels of one tap), which
-// the Python wrapper checks; the launch allocates nothing and the entry
-// point returns cudaGetLastError() so a refused launch is reported.
+// Traps handled here: the epilogue (int8_epilogue.cuh) uses
+// __fmul_rn/__fadd_rn/__fdiv_rn so nvcc cannot contract q*alpha+bias into an
+// FMA (one rounding instead of two would move y by up to 1 ULP and can flip
+// the next layer's quantization bin); C must be a multiple of 4 (one 32-bit
+// word = 4 channels of one tap), which the Python wrapper checks; the launch
+// allocates nothing and the entry point returns cudaGetLastError() so a
+// refused launch is reported.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "int8_epilogue.cuh"
 
 namespace {
 
@@ -124,7 +127,6 @@ int8_conv_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ w,
     __syncthreads();
   }
 
-  const int round_mask = (1 << shift) - 1;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int p = p0 + ty * 4 + i;
@@ -133,14 +135,8 @@ int8_conv_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ w,
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + tx * 4 + j;
       if (m >= M) continue;
-      const int a = acc[i][j];
-      // C integer division truncates toward zero: add (2^shift - 1) to
-      // negatives before the arithmetic shift.
-      int q = (a + ((a >> 31) & round_mask)) >> shift;
-      q = min(max(q, -32767), 32767);
-      float y = __fadd_rn(__fmul_rn(static_cast<float>(q), alpha), bias[m]);
-      if (leaky && !(y > 0.0f)) y = __fdiv_rn(y, 10.0f);
-      out[static_cast<size_t>(p) * M + m] = y;
+      out[static_cast<size_t>(p) * M + m] =
+          requant_epilogue(acc[i][j], shift, alpha, bias[m], leaky);
     }
   }
 }

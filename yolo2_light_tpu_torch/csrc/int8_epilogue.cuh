@@ -1,0 +1,41 @@
+// The int8-"cpu" quantize and requant epilogue shared by the hand kernels
+// (reference: forward_convolutional_layer_q,
+// src/yolov2_forward_network_quantized.c:527-631).
+//
+// Every float step is an explicitly rounded intrinsic, so nvcc cannot contract
+// q*alpha+bias into an FMA: one rounding instead of two moves y by up to
+// 1 ULP, and that can flip the next layer's quantization bin.
+
+#pragma once
+
+#include <cstdint>
+
+// clamp(trunc(x * m), +-127): the C float->int cast truncates toward zero.
+__device__ __forceinline__ int quantize_i8(float x, float m) {
+  const float t = truncf(__fmul_rn(x, m));
+  return static_cast<int>(fminf(fmaxf(t, -127.0f), 127.0f));
+}
+
+// Four channels quantized and packed into one 32-bit word, channel 0 in the
+// low byte (the memory order of an int8 NHWC row read as int32).
+__device__ __forceinline__ int32_t quantize_pack4(float4 v, float m) {
+  const uint32_t b0 = quantize_i8(v.x, m) & 0xff;
+  const uint32_t b1 = quantize_i8(v.y, m) & 0xff;
+  const uint32_t b2 = quantize_i8(v.z, m) & 0xff;
+  const uint32_t b3 = quantize_i8(v.w, m) & 0xff;
+  return static_cast<int32_t>(b0 | b1 << 8 | b2 << 16 | b3 << 24);
+}
+
+// q = clamp(trunc_div(acc, 2^shift), +-32767); y = q * alpha + bias with two
+// roundings; leaky is y > 0 ? y : y / 10 (IEEE division).
+__device__ __forceinline__ float requant_epilogue(int acc, int shift,
+                                                  float alpha, float bias,
+                                                  bool leaky) {
+  // C integer division truncates toward zero: add (2^shift - 1) to negatives
+  // before the arithmetic shift.
+  int q = (acc + ((acc >> 31) & ((1 << shift) - 1))) >> shift;
+  q = min(max(q, -32767), 32767);
+  float y = __fadd_rn(__fmul_rn(static_cast<float>(q), alpha), bias);
+  if (leaky && !(y > 0.0f)) y = __fdiv_rn(y, 10.0f);
+  return y;
+}

@@ -12,6 +12,9 @@ Ported modes:
   src/yolov2_forward_network_quantized.c:1036-1037). The input of each int8
   conv is quantized where the conv reads it (consumer side); the JAX
   package's producer-side chaining gives bit-identical values.
+  ``int8_impl="fused"`` runs each darknet53 residual block (1x1 conv, 3x3
+  conv, shortcut) as one launch of the kernel of ``ops/fused_res`` and the
+  other int8 convs on ``ops/int8_conv``: bit-identical to the unfused path.
 
 Everything else the JAX package's ``build_forward`` offers raises
 ``NotImplementedError`` naming what is not yet ported; nothing falls back.
@@ -28,14 +31,16 @@ from yolo2_light_tpu.cfg import (ConvSpec, MaxpoolSpec, ModelSpec, RegionSpec,
                                  ReorgSpec, RouteSpec, ShortcutSpec,
                                  SoftmaxSpec, UpsampleSpec, YoloSpec)
 
-from ..ops import int8_conv
+from ..ops import fused_res, int8_conv
 from ..params import params_to_torch
 from . import layers as L
 
-# "xla" and "pallas" name the JAX package's engines; on the port both run
-# the hand kernel. "plain" runs the kernel's plain PyTorch version on any
-# device: the reference the kernel path is checked against.
-INT8_IMPLS = ("xla", "pallas", "plain")
+# "xla", "pallas" and "fused" name the JAX package's engines; on the port
+# "xla" and "pallas" run the int8 conv kernel behind every int8 conv, and
+# "fused" runs the residual blocks on the fused kernel and the other int8
+# convs on the int8 conv kernel. "plain" runs the kernels' plain PyTorch
+# versions on any device: the reference the kernel paths are checked against.
+INT8_IMPLS = ("xla", "pallas", "fused", "plain")
 
 
 class HeadOutput(NamedTuple):
@@ -92,13 +97,11 @@ def _check_ported(spec: ModelSpec, mode: str, int8_policy: str,
     """Raise on anything this port does not run yet; returns the int8 set."""
     if mode not in ("fp32", "int8"):
         raise ValueError(f"unknown mode {mode!r} (expected fp32 or int8)")
-    if int8_impl not in INT8_IMPLS + ("fused",):
+    if int8_impl not in INT8_IMPLS:
         raise ValueError(f"unknown int8_impl {int8_impl!r} "
                          f"(expected one of {', '.join(INT8_IMPLS)})")
     if int8_policy not in ("cpu", "gpu", "cpu_old"):
         raise ValueError(f"unknown int8 policy {int8_policy!r}")
-    if mode == "int8" and int8_impl == "fused":
-        raise _not_ported("-int8_impl fused (the fused residual-stage kernel)")
     if mode == "int8" and int8_policy != "cpu":
         raise _not_ported(f"-int8_policy {int8_policy}")
     if compute_dtype != torch.float32:
@@ -116,6 +119,70 @@ def _check_ported(spec: ModelSpec, mode: str, int8_policy: str,
     return int8_set
 
 
+def _fused_stage_runs(spec: ModelSpec, int8_set: set) -> dict:
+    """Maximal runs of darknet53 residual blocks
+
+        conv1x1(leaky, int8) -> conv3x3(leaky, int8) -> shortcut(linear, from=-3)
+
+    whose interior outputs feed nothing outside the run, as
+    {start_conv_index: [(i_conv1, i_conv2, i_shortcut), ...]}: the JAX
+    package's ``_fused_stage_runs`` without its two TPU-only limits. It
+    splits runs to fit a VMEM budget and drops trunks whose C is not a
+    multiple of 128 (DMA lane tiling); on the card every block is one launch
+    whatever the run's length or width, so a run is only a grouping, and
+    every matching block fuses."""
+    consumers = _consumers(spec)
+
+    def block_at(i):
+        """(i, i+1, i+2) is a fusible residual block starting at conv i."""
+        if i + 2 >= spec.n:
+            return None
+        l1, l2, ls = spec.layers[i], spec.layers[i + 1], spec.layers[i + 2]
+        if not (isinstance(l1, ConvSpec) and l1.size == 1 and l1.stride == 1
+                and l1.pad == 0 and l1.activation == "leaky" and i in int8_set
+                and not l1.xnor):
+            return None
+        if not (isinstance(l2, ConvSpec) and l2.size == 3 and l2.stride == 1
+                and l2.pad == 1 and l2.activation == "leaky"
+                and (i + 1) in int8_set and not l2.xnor
+                and l2.n == l1.c):   # 3x3 output must match the trunk width
+            return None
+        if not (isinstance(ls, ShortcutSpec) and ls.from_index == i - 1
+                and ls.activation == "linear"):
+            return None
+        # interior conv outputs must feed only the block itself
+        if consumers[i] != [i + 1] or consumers[i + 1] != [i + 2]:
+            return None
+        return (i, i + 1, i + 2)
+
+    runs: dict[int, list] = {}
+    i = 1
+    while i + 2 < spec.n:
+        blk = block_at(i)
+        if blk is None:
+            i += 1
+            continue
+        run = [blk]
+        # extend: the previous shortcut's output may feed only the next block
+        while True:
+            e = run[-1][2]
+            nxt = block_at(e + 1)
+            if nxt is None or sorted(consumers[e]) != [e + 1, e + 3]:
+                break
+            run.append(nxt)
+        runs[run[0][0]] = run
+        i = run[-1][2] + 1
+    return runs
+
+
+def _block_args(p1: dict, p2: dict) -> dict:
+    """One residual block's convs' params as ``fused_res_block`` arguments."""
+    return dict(w1=p1["weights_int8"], b1=p1["biases"],
+                m1=p1["input_quant_multipler"], alpha1=p1["alpha"],
+                w2=p2["weights_int8"], b2=p2["biases"],
+                m2=p2["input_quant_multipler"], alpha2=p2["alpha"])
+
+
 def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                   int8_policy: str = "cpu", int8_impl: str = "xla",
                   compute_dtype=torch.float32, turbo=False):
@@ -128,6 +195,13 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
     int8_set = _check_ported(spec, mode, int8_policy, int8_impl,
                              compute_dtype, turbo)
     plain = int8_impl == "plain"
+    # the fused kernel implements the cpu requant only (the gpu policy is
+    # refused above, and would keep its own convs)
+    fused_runs = (_fused_stage_runs(spec, int8_set)
+                  if mode == "int8" and int8_impl == "fused"
+                  and int8_policy == "cpu" else {})
+    fused_skip = {idx for run in fused_runs.values()
+                  for blk in run for idx in blk} - set(fused_runs)
     # outputs a route or a shortcut reads; every other one is dropped once
     # the next layer has consumed it
     kept = {j for j, readers in _consumers(spec).items()
@@ -141,6 +215,16 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
         cur = x
         for l in spec.layers:
             i = l.index
+            if i in fused_runs:
+                run = fused_runs[i]
+                blocks = [_block_args(params[i1], params[i2])
+                          for i1, i2, _ in run]
+                cur = fused_res.run_blocks(cur.contiguous(), blocks)
+                # the run's interior outputs feed nothing outside it
+                outputs[run[-1][2]] = cur
+                continue
+            if i in fused_skip:
+                continue
             if isinstance(l, ConvSpec):
                 p = params[i]
                 if i in int8_set:
@@ -229,6 +313,8 @@ class Predictor(nn.Module):
         if (self.device.type == "cuda" and mode == "int8"
                 and int8_impl != "plain"):
             int8_conv.load_kernel()
+            if int8_impl == "fused":
+                fused_res.load_kernel()
 
     def layer_params(self) -> list:
         """The per-layer param dicts ``forward`` reads, from the buffers."""

@@ -7,13 +7,15 @@ alone (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The library is built at first use into ``build/kernels/`` at the root of the
-checkout, keyed by a hash of its source, and reused while the source is
-unchanged. Nothing here runs at import time; a failed build raises.
+checkout, keyed by a hash of its source and of every ``csrc/*.cuh`` header,
+and reused while they are unchanged. Nothing here runs at import
+time; a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -44,9 +46,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the build of ``csrc/<name>.cu`` lives for its current source."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the build of ``csrc/<name>.cu`` lives for its current source and
+    the current ``csrc/`` headers (a changed header rebuilds every kernel)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"), *headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

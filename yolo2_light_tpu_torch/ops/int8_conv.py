@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -123,15 +124,16 @@ def conv2d_int8_plain(x_int8, w, bias, alpha: float, stride: int, pad: int,
 # ---------------------------------------------------------------------------
 
 
-def load_kernel() -> ctypes.CDLL:
-    """Build (first use) and load ``csrc/int8_conv.cu``."""
+@functools.cache
+def load_kernel():
+    """Build (first use) and load ``csrc/int8_conv.cu``; returns its bound
+    entry point, once per process."""
     from . import _build
-    lib = _build.load(_KERNEL)
-    fn = lib.int8_conv_nhwc
+    fn = _build.load(_KERNEL).int8_conv_nhwc
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    return lib
+    return fn
 
 
 def conv2d_int8_cuda(x_int8, w, bias, alpha: float, stride: int, pad: int,
@@ -174,10 +176,10 @@ def conv2d_int8_cuda(x_int8, w, bias, alpha: float, stride: int, pad: int,
     shift = _shift_of(r_mult)
     out = torch.empty((b, oh, ow, m), dtype=torch.float32,
                       device=x_int8.device)
-    lib = load_kernel()
+    kernel = load_kernel()
     stream = torch.cuda.current_stream(x_int8.device).cuda_stream
     LAUNCH_COUNTS[_KERNEL] += 1
-    rc = lib.int8_conv_nhwc(
+    rc = kernel(
         x_int8.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
         b, h, wd, c, m, oh, ow, ks, stride, pad, alpha, shift,
         int(activation == "leaky"), x_int8.device.index, stream)
