@@ -8,8 +8,8 @@ Phases, each reported on its own lines:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as nvidia-smi reports them.
-2. build: compiles the kernels of ``yolo2_light_tpu_torch/csrc``, one nvcc
-   per source, all started together (timed).
+2. build: compiles the four kernels of ``yolo2_light_tpu_torch/csrc``, one
+   nvcc per source, all started together (each build and the phase timed).
 3. kernels: the int8 conv kernel against its plain PyTorch version on the
    card at yolov3-416's three int8 conv shape classes (3x3 s1, 3x3 s2, 1x1);
    outputs must be bit-identical. Times both with CUDA events.
@@ -30,6 +30,17 @@ Phases, each reported on its own lines:
 6. fp32: the same ``detector test`` without ``-quantized`` (TF32 off), its
    heads checked finite, and the port's card and CPU paths held to each
    other on a small net. Times the warm b=1 forward.
+7. xnor: the popcount kernel (K3) and the bit-packed int8 kernel (K4)
+   against their plain versions, and the dense +-1 engine against both, bit
+   for bit, leaky and linear, at tiny-yolo-obj_xnor-416's seven XNOR conv
+   shapes (b=1). Times each kernel, each conv-level engine (input packing
+   included) and the plain versions. Then ``detector test`` through the CLI
+   on ``tests/data/tiny-yolo-obj_xnor.cfg`` with random weights (seed 7)
+   for each ``-xnor_kernel`` value: one forward must launch K3 7 times for
+   ``pallas``, K4 7 times for ``pallas_mxu``, neither for ``int8``, and K4
+   at the convs ``auto``'s rule gives it; the four engines and the plain
+   versions on the card must give equal head maps and identical detection
+   lines. Times the warm b=1 forward of each engine.
 
 Any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -53,8 +64,9 @@ import torch
 
 from yolo2_light_tpu_torch.apps import cli, detect
 from yolo2_light_tpu_torch.models import layers, network
-from yolo2_light_tpu_torch.ops import _build, fused_res, int8_conv
+from yolo2_light_tpu_torch.ops import _build, fused_res, int8_conv, xnor_gemm
 from yolo2_light_tpu_torch.params import save_random_weights
+from yolo2_light_tpu_torch.xnor import pack_sign_weights
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
@@ -62,6 +74,7 @@ CFG = os.path.join(DATA, "yolov3.cfg")
 SMALL_CFG = os.path.join(DATA, "mini-yolo3.cfg")
 IMAGE = os.path.join(DATA, "dog160.png")
 SEED = 7
+SLEEP_CYCLES = 50_000_000   # about 25 ms of device time to queue behind
 THRESH = "0.25"         # the CLI's default -thresh
 N_CLASSES = 80
 HEAD_GRIDS = [13, 26, 52]
@@ -87,6 +100,33 @@ FUSED_REPLACES = "yolo2_light_tpu/ops/pallas_fused.py:272"  # fused_res_stage
 FUSED_ALSO_REPLACES = ":358"                                # ..._stage_strips
 N_FUSED_BLOCKS = 23     # 1 + 2 + 8 + 8 + 4 residual blocks
 N_UNFUSED_INT8 = 25     # 71 int8 convs minus the blocks' 46
+XNOR_CFG = os.path.join(DATA, "tiny-yolo-obj_xnor.cfg")
+# (label, (B, H, W, C, M)): tiny-yolo-obj_xnor-416's XNOR convs, 3x3/s1/p1
+XNOR_SHAPES = [
+    ("208x208 16->32", (1, 208, 208, 16, 32)),
+    ("104x104 32->64", (1, 104, 104, 32, 64)),
+    ("52x52 64->128", (1, 52, 52, 64, 128)),
+    ("26x26 128->256", (1, 26, 26, 128, 256)),
+    ("13x13 256->512", (1, 13, 13, 256, 512)),
+    ("13x13 512->1024", (1, 13, 13, 512, 1024)),
+    ("13x13 1024->1024", (1, 13, 13, 1024, 1024)),
+]
+XNOR_KERNELS = {   # name: (source, the TPU kernel it replaces)
+    "xnor_gemm": ("yolo2_light_tpu_torch/csrc/xnor_gemm.cu",
+                  "yolo2_light_tpu/ops/pallas_xnor.py:156"),
+    "xnor_gemm_mxu": ("yolo2_light_tpu_torch/csrc/xnor_gemm_mxu.cu",
+                      "yolo2_light_tpu/ops/pallas_xnor.py:280"),
+}
+XNOR_IMPLS = ("int8", "pallas", "pallas_mxu", "auto")
+VOC_CLASSES = 20
+XNOR_THRESH = "0.1"     # with random weights no box reaches 0.25
+# every kernel of csrc/ and the call that binds it
+KERNEL_LOADERS = {
+    "int8_conv": int8_conv.load_kernel,
+    "fused_res": fused_res.load_kernel,
+    "xnor_gemm": lambda: xnor_gemm.load_kernel("xnor_gemm"),
+    "xnor_gemm_mxu": lambda: xnor_gemm.load_kernel("xnor_gemm_mxu"),
+}
 
 
 def say(phase: str, msg: str) -> None:
@@ -99,12 +139,15 @@ def check(cond: bool, what: str) -> None:
 
 
 def event_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls. The
+    calls are queued behind a device-side sleep, so the host's dispatch
+    (tens of microseconds a call) overlaps it and is not timed."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -180,17 +223,24 @@ def phase_device() -> str:
     return line
 
 
+def _timed_build(name: str):
+    t0 = time.perf_counter()
+    path = _build.build(name)
+    return path, time.perf_counter() - t0
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    names = ("int8_conv", "fused_res")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        paths = list(pool.map(_build.build, names))
-    int8_conv.load_kernel()
-    fused_res.load_kernel()
-    for name, path in zip(names, paths):
-        say("build", f"csrc/{name}.cu -> {os.path.relpath(path, ROOT)}")
-    say("build", f"{len(names)} kernels in {time.perf_counter() - t0:.2f} s, "
-        f"built in parallel (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_LOADERS)) as pool:
+        builds = list(pool.map(_timed_build, KERNEL_LOADERS))
+    for load in KERNEL_LOADERS.values():
+        load()
+    for name, (path, sec) in zip(KERNEL_LOADERS, builds):
+        say("build", f"csrc/{name}.cu -> {os.path.relpath(path, ROOT)} "
+            f"({sec:.2f} s)")
+    say("build", f"{len(builds)} kernels in {time.perf_counter() - t0:.2f} s "
+        f"(the builds alone: {sum(s for _, s in builds):.2f} s), built in "
+        f"parallel (nvcc {' '.join(_build.NVCC_FLAGS)})")
 
 
 def phase_kernels() -> list:
@@ -417,6 +467,150 @@ def phase_fp32(tmp: str, weights: str, names_file: str) -> None:
         "(rtol 1e-4, atol 1e-5)")
 
 
+def _xnor_operands(dev, seed: int, b: int, h: int, w: int, c: int,
+                   m: int):
+    """An input map and one XNOR conv's weights in every engine's layout:
+    (x, packed bits, +-1 [O,I,3,3] weights, mean, bias)."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(dev)
+    wt = rng.randn(3, 3, c, m).astype(np.float32)
+    sign = np.where(wt > 0, 1, -1).astype(np.int8)
+    mean = np.abs(wt).mean((0, 1, 2)).astype(np.float32)
+    return (x, torch.from_numpy(pack_sign_weights(sign)).to(dev),
+            torch.from_numpy(sign).permute(3, 2, 0, 1).to(
+                torch.float32).contiguous().to(dev),
+            torch.from_numpy(mean).to(dev),
+            torch.from_numpy(rng.randn(m).astype(np.float32)).to(dev))
+
+
+def phase_xnor_kernels() -> list:
+    dev = torch.device("cuda")
+    rows = []
+    for i, (label, (b, h, w, c, m)) in enumerate(XNOR_SHAPES):
+        x, wp, ws, mean, bias = _xnor_operands(dev, SEED + i, b, h, w, c, m)
+        xp = xnor_gemm.pack_activations(x, c)
+        for act in ("leaky", "linear"):
+            k3 = xnor_gemm.xnor_gemm_cuda(xp, wp, mean, bias, c, 1, 1, act)
+            k4 = xnor_gemm.xnor_gemm_mxu_cuda(xp, wp, mean, bias, c, 1, 1,
+                                              act)
+            p3 = xnor_gemm.xnor_gemm_plain(xp, wp, mean, bias, c, 1, 1, act)
+            p4 = xnor_gemm.xnor_gemm_mxu_plain(xp, wp, mean, bias, c, 1, 1,
+                                               act)
+            dense = layers.conv2d_xnor(x, ws, mean, bias, 1, 1, act)
+            torch.cuda.synchronize()
+            check(torch.equal(k3, p3), f"xnor_gemm != plain at {label} ({act})")
+            check(torch.equal(k4, p4),
+                  f"xnor_gemm_mxu != plain at {label} ({act})")
+            check(torch.equal(dense, k3) and torch.equal(dense, k4),
+                  f"dense +-1 engine != bit kernels at {label} ({act})")
+        row = {"shape": label, "max_abs_err": float(max(
+            (k3 - p3).abs().max(), (k4 - p4).abs().max()))}
+        row["xnor_gemm_ms"] = event_ms(lambda: xnor_gemm.xnor_gemm_cuda(
+            xp, wp, mean, bias, c, 1, 1, "leaky"))
+        row["xnor_gemm_mxu_ms"] = event_ms(
+            lambda: xnor_gemm.xnor_gemm_mxu_cuda(xp, wp, mean, bias, c, 1, 1,
+                                                 "leaky"))
+        for eng in ("popcount", "mxu"):   # input packing + kernel
+            row[f"conv_{eng}_ms"] = event_ms(
+                lambda: xnor_gemm.conv2d_xnor_bits(
+                    x, wp, mean, bias, c_real=c, stride=1, pad=1,
+                    engine=eng))
+        row["dense_ms"] = event_ms(lambda: layers.conv2d_xnor(
+            x, ws, mean, bias, 1, 1, "leaky"))
+        row["xnor_gemm_plain_ms"] = event_ms(
+            lambda: xnor_gemm.xnor_gemm_plain(xp, wp, mean, bias, c, 1, 1),
+            iters=5, warmup=1)
+        row["xnor_gemm_mxu_plain_ms"] = event_ms(
+            lambda: xnor_gemm.xnor_gemm_mxu_plain(xp, wp, mean, bias, c, 1,
+                                                  1), iters=5, warmup=1)
+        say("xnor", f"{label}: K3 == plain, K4 == plain, dense == K3 == K4 "
+            f"(leaky, linear); K3 {row['xnor_gemm_ms']:.4f} ms, K4 "
+            f"{row['xnor_gemm_mxu_ms']:.4f} ms; with input packing K3 "
+            f"{row['conv_popcount_ms']:.4f}, K4 {row['conv_mxu_ms']:.4f}, "
+            f"dense +-1 engine {row['dense_ms']:.4f} ms; plain K3 "
+            f"{row['xnor_gemm_plain_ms']:.4f}, plain K4 "
+            f"{row['xnor_gemm_mxu_plain_ms']:.4f} ms")
+        rows.append(row)
+    return rows
+
+
+def check_region_heads(heads, what: str) -> None:
+    check([h.index for h in heads] == [15], f"{what}: head layers")
+    check(tuple(heads[0].data.shape) == (1, 13, 13, 5, 5 + VOC_CLASSES),
+          f"{what}: head shape {tuple(heads[0].data.shape)}")
+    check(bool(torch.isfinite(heads[0].data).all()),
+          f"{what}: head has non-finite values")
+
+
+def phase_xnor(tmp: str) -> dict:
+    weights = os.path.join(tmp, "tiny-yolo-obj_xnor.weights")
+    save_random_weights(XNOR_CFG, weights, seed=SEED)
+    names = [f"class_{i:02d}" for i in range(VOC_CLASSES)]
+    names_file = os.path.join(tmp, "voc20.names")
+    with open(names_file, "w") as f:
+        f.write("\n".join(names) + "\n")
+    spec, params, _ = detect.build_params(XNOR_CFG, weights, echo=False)
+    xnor_convs = [l for l in spec.conv_layers() if l.xnor]
+    check(len(xnor_convs) == len(XNOR_SHAPES),
+          f"{len(xnor_convs)} XNOR convs in {XNOR_CFG}")
+    n_auto = sum(xnor_gemm.auto_prefers_mxu(l.out_h * l.out_w)
+                 for l in xnor_convs)
+    expect = {"int8": (0, 0), "pallas": (7, 0), "pallas_mxu": (0, 7),
+              "auto": (0, n_auto)}
+    launches, texts = {}, {}
+    for eng in XNOR_IMPLS:
+        int8_conv.reset_launch_counts()
+        rc, out = run_cli(["detector", "test", names_file, XNOR_CFG, weights,
+                           IMAGE, "-xnor_kernel", eng, "-dont_show",
+                           "-thresh", XNOR_THRESH, "-save",
+                           os.path.join(tmp, f"pred_xnor_{eng}")])
+        got = dict(int8_conv.LAUNCH_COUNTS)
+        check(rc == 0, f"detector test -xnor_kernel {eng} exited {rc}")
+        counts = (got.get("xnor_gemm", 0), got.get("xnor_gemm_mxu", 0))
+        check(counts == expect[eng] and sum(got.values()) == sum(counts),
+              f"-xnor_kernel {eng}: launches {got} in one forward, expected "
+              f"xnor_gemm, xnor_gemm_mxu = {expect[eng]}")
+        launches[eng] = counts
+        texts[eng] = detection_text(out)
+        predicted = [l for l in out.splitlines() if "Predicted in" in l][0]
+        say("xnor", f"CLI -xnor_kernel {eng}: {predicted}; launches in one "
+            f"forward: xnor_gemm {counts[0]}, xnor_gemm_mxu {counts[1]}; "
+            f"{len(texts[eng].splitlines())} detection lines")
+    for eng in XNOR_IMPLS[1:]:
+        check_same_lines(texts[eng], texts["int8"],
+                         f"detection lines of -xnor_kernel {eng} and int8")
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        plain_text = detect.run(names, XNOR_CFG, weights, IMAGE,
+                                thresh=float(XNOR_THRESH),
+                                save_path=os.path.join(tmp, "pred_xplain"),
+                                int8_impl="plain", xnor_impl="pallas",
+                                device="cuda")
+    check_same_lines(plain_text.rstrip("\n"), texts["int8"],
+                     "detection lines of the plain path and of int8")
+    say("xnor", "detection lines of the four engines and of the plain path "
+        "are identical")
+
+    preds = {eng: network.Predictor(spec, params, device="cuda",
+                                    xnor_impl=eng) for eng in XNOR_IMPLS}
+    for eng in ("pallas", "pallas_mxu"):
+        preds[f"{eng} plain"] = network.Predictor(
+            spec, params, device="cuda", xnor_impl=eng, int8_impl="plain")
+    x = np.random.RandomState(SEED).rand(1, 416, 416, 3).astype(np.float32)
+    heads = {name: pred(x) for name, pred in preds.items()}
+    check_region_heads(heads["int8"], "xnor int8 engine")
+    for name, h in heads.items():
+        check(torch.equal(h[0].data, heads["int8"][0].data),
+              f"xnor head map of {name} != that of the dense engine")
+    say("xnor", f"head maps of {', '.join(heads)} are equal")
+    times = {eng: forward_ms(preds[eng], x) for eng in XNOR_IMPLS}
+    say("xnor", "warm b=1 forward: " + ", ".join(
+        f"{eng} {ms:.3f} ms" for eng, ms in times.items())
+        + " (median, host clock, synchronised)")
+    return {"pallas": launches["pallas"][0],
+            "pallas_mxu": launches["pallas_mxu"][1]}
+
+
 def main() -> int:
     smi_line = phase_device()
     phase_build()
@@ -433,6 +627,8 @@ def main() -> int:
         fused_launches = phase_fused(tmp, weights, names_file, k1)
         del k1
         phase_fp32(tmp, weights, names_file)
+        xnor_rows = phase_xnor_kernels()
+        xnor_launches = phase_xnor(tmp)
     print(json.dumps({"kernels": [{
         "name": "int8_conv", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "also_replaces": ALSO_REPLACES,
@@ -449,7 +645,20 @@ def main() -> int:
         "ms": sum(r["ms"] for r in fused_rows),
         "plain_ms": sum(r["plain_ms"] for r in fused_rows),
         "unfused_ms": sum(r["unfused_ms"] for r in fused_rows),
-        "shapes": fused_rows}]}), flush=True)
+        "shapes": fused_rows}] + [{
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": xnor_launches[impl],
+        "max_abs_err": max(r["max_abs_err"] for r in xnor_rows),
+        "ms": sum(r[f"{name}_ms"] for r in xnor_rows),
+        "plain_ms": sum(r[f"{name}_plain_ms"] for r in xnor_rows),
+        "dense_ms": sum(r["dense_ms"] for r in xnor_rows),
+        "shapes": [{"shape": r["shape"], "ms": r[f"{name}_ms"],
+                    "with_packing_ms": r[f"conv_{engine}_ms"],
+                    "plain_ms": r[f"{name}_plain_ms"],
+                    "dense_ms": r["dense_ms"]} for r in xnor_rows]}
+        for (name, (source, replaces)), impl, engine in zip(
+            XNOR_KERNELS.items(), ("pallas", "pallas_mxu"),
+            ("popcount", "mxu"))]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Where the time of one port forward goes on the GPU.
 
-Profiles warm b=1 forwards of yolov3-416 (``tests/data/yolov3.cfg``, random
-weights from ``--seed``) with the input already on the device, in int8
+Profiles warm b=1 forwards with the input already on the device, random
+weights from ``--seed``: yolov3-416 (``tests/data/yolov3.cfg``) in int8
 (``-quantized``, cpu policy; ``int8-fused`` adds ``-int8_impl fused``) and
-fp32, and prints per mode: host wall time per forward (CUDA-synchronised,
+fp32, and tiny-yolo-obj_xnor-416 (``tests/data/tiny-yolo-obj_xnor.cfg``) in
+each ``-xnor_kernel`` engine (``xnor-int8``, ``xnor-pallas``,
+``xnor-pallas_mxu``, ``xnor-auto``). Prints per mode: host wall time per forward (CUDA-synchronised,
 profiler off), device busy time per forward (sum of GPU kernel and copy time
 under ``torch.profiler``), their ratio, the device operations per forward,
 and the device time of the largest kernels. Needs one CUDA device.
@@ -34,18 +36,23 @@ from yolo2_light_tpu_torch.models.network import Predictor  # noqa: E402
 from yolo2_light_tpu_torch.params import save_random_weights  # noqa: E402
 
 CFG = os.path.join(ROOT, "tests", "data", "yolov3.cfg")
+XNOR_CFG = os.path.join(ROOT, "tests", "data", "tiny-yolo-obj_xnor.cfg")
+
+# name: (cfg, mode, int8_impl, xnor_impl)
+MODES = {"int8": (CFG, "int8", "xla", "int8"),
+         "int8-fused": (CFG, "int8", "fused", "int8"),
+         "fp32": (CFG, "fp32", "xla", "int8")}
+MODES.update({f"xnor-{eng}": (XNOR_CFG, "fp32", "xla", eng)
+              for eng in ("int8", "pallas", "pallas_mxu", "auto")})
 
 
-MODES = {"int8": ("int8", "xla"), "int8-fused": ("int8", "fused"),
-         "fp32": ("fp32", "xla")}
-
-
-def profile_mode(cfg: str, weights: str, name: str, seed: int, iters: int,
+def profile_mode(weights: str, name: str, seed: int, iters: int,
                  top: int = 8) -> None:
-    mode, int8_impl = MODES[name]
+    cfg, mode, int8_impl, xnor_impl = MODES[name]
     spec, params, _ = build_params(cfg, weights, quantized=mode == "int8",
                                    echo=False)
-    pred = Predictor(spec, params, mode, device="cuda", int8_impl=int8_impl)
+    pred = Predictor(spec, params, mode, device="cuda", int8_impl=int8_impl,
+                     xnor_impl=xnor_impl)
     x = torch.from_numpy(np.random.RandomState(seed).rand(
         1, spec.net.h, spec.net.w, spec.net.c).astype(np.float32)).cuda()
     for _ in range(5):
@@ -93,10 +100,12 @@ def main(argv=None) -> int:
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        weights = os.path.join(tmp, "yolov3.weights")
-        save_random_weights(CFG, weights, seed=args.seed)
+        weights = {}
+        for cfg in {m[0] for m in MODES.values()}:
+            weights[cfg] = os.path.join(tmp, os.path.basename(cfg) + ".w")
+            save_random_weights(cfg, weights[cfg], seed=args.seed)
         for mode in MODES:
-            profile_mode(CFG, weights, mode, args.seed, args.iters)
+            profile_mode(weights[MODES[mode][0]], mode, args.seed, args.iters)
     return 0
 
 

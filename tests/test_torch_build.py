@@ -24,8 +24,8 @@ def test_library_path_changes_with_a_header(tmp_path, monkeypatch):
 
 
 def test_each_kernel_has_its_own_library():
-    paths = {name: _build.library_path(name)
-             for name in ("int8_conv", "fused_res")}
+    names = ("int8_conv", "fused_res", "xnor_gemm", "xnor_gemm_mxu")
+    paths = {name: _build.library_path(name) for name in names}
     for name, path in paths.items():
         assert os.path.basename(path).startswith(f"{name}-")
-    assert len(set(paths.values())) == 2
+    assert len(set(paths.values())) == len(names)

@@ -1,7 +1,7 @@
-"""Tests of the port that need an NVIDIA GPU: the int8 conv kernel and the
-fused residual-block kernel against their plain PyTorch versions on the
-card, the wrappers' refusals, and the Predictor's kernel paths against its
-plain path and the CPU.
+"""Tests of the port that need an NVIDIA GPU: the int8 conv kernel, the
+fused residual-block kernel and the two XNOR bit kernels against their plain
+PyTorch versions on the card, the wrappers' refusals, and the Predictor's
+kernel paths against its plain path and the CPU.
 
 They skip without a CUDA device. This file imports neither JAX nor the JAX
 package's tests, so it also runs on a machine without JAX:
@@ -17,8 +17,11 @@ import torch
 
 from yolo2_light_tpu_torch.apps.detect import build_params
 from yolo2_light_tpu_torch.models.network import Predictor
+from yolo2_light_tpu_torch.models import layers as L
 from yolo2_light_tpu_torch.ops import fused_res as FR
 from yolo2_light_tpu_torch.ops import int8_conv as K
+from yolo2_light_tpu_torch.ops import xnor_gemm as XG
+from yolo2_light_tpu_torch.xnor import pack_sign_weights
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
@@ -237,3 +240,108 @@ def test_fused_predictor_on_card_equals_k1_and_plain_paths(dev, name):
         assert torch.equal(a.data, b.data) and torch.equal(a.data, c.data)
         torch.testing.assert_close(a.data.cpu(), d.data, rtol=1e-4,
                                    atol=1e-5)
+
+
+def _xnor_operands(dev, seed, b, h, w, c, m, ks=3):
+    """Packed input bits, packed and +-1 weights, mean and bias of one XNOR
+    conv."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(dev)
+    sign = np.where(rng.randn(ks, ks, c, m) > 0, 1, -1).astype(np.int8)
+    mean = torch.from_numpy(rng.uniform(0.01, 0.2, m).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(m).astype(np.float32))
+    return (x, torch.from_numpy(pack_sign_weights(sign)).to(dev),
+            torch.from_numpy(sign).permute(3, 2, 0, 1).float().contiguous().to(
+                dev), mean.to(dev), bias.to(dev))
+
+
+@pytest.mark.parametrize("b,h,w,c,m", [
+    (1, 208, 208, 16, 32),        # tiny-yolo-obj_xnor-416's XNOR convs
+    (1, 104, 104, 32, 64),
+    (1, 52, 52, 64, 128),
+    (1, 26, 26, 128, 256),
+    (1, 13, 13, 256, 512),
+    (1, 13, 13, 512, 1024),
+    (1, 13, 13, 1024, 1024),
+    (2, 11, 9, 48, 40),           # half-padded words, M not a tile multiple
+    (2, 7, 5, 16, 3),             # C = 16, M below one n8 tile
+    (3, 1, 1, 33, 70),
+])
+@pytest.mark.parametrize("activation", ["leaky", "linear"])
+def test_xnor_kernels_bit_identical_to_plain(dev, b, h, w, c, m, activation):
+    x, wp, ws, mean, bias = _xnor_operands(dev, h * c + m, b, h, w, c, m)
+    xp = XG.pack_activations(x, c)
+    k3 = XG.xnor_gemm_cuda(xp, wp, mean, bias, c, 1, 1, activation)
+    k4 = XG.xnor_gemm_mxu_cuda(xp, wp, mean, bias, c, 1, 1, activation)
+    p3 = XG.xnor_gemm_plain(xp, wp, mean, bias, c, 1, 1, activation)
+    p4 = XG.xnor_gemm_mxu_plain(xp, wp, mean, bias, c, 1, 1, activation)
+    dense = L.conv2d_xnor(x, ws, mean, bias, 1, 1, activation)
+    torch.cuda.synchronize()
+    assert k3.shape == (b, h, w, m)
+    assert torch.equal(k3, p3) and torch.equal(k4, p4)
+    assert torch.equal(k3, dense) and torch.equal(k4, dense)
+    cpu = XG.xnor_gemm_plain(xp.cpu(), wp.cpu(), mean.cpu(), bias.cpu(), c, 1,
+                             1, activation)
+    assert torch.equal(k3.cpu(), cpu)
+
+
+@pytest.mark.parametrize("ks,stride,pad", [(3, 2, 1), (1, 1, 0), (3, 1, 0)])
+def test_xnor_kernels_other_geometries_match_plain(dev, ks, stride, pad):
+    """The kernels take any size, stride and pad with 0-bit borders, as
+    conv2d_xnor_pallas does (the network gives them stride 1, pad 1 only)."""
+    x, wp, _, mean, bias = _xnor_operands(dev, 9, 2, 9, 8, 40, 24, ks)
+    xp = XG.pack_activations(x, 40)
+    for cuda, plain in ((XG.xnor_gemm_cuda, XG.xnor_gemm_plain),
+                        (XG.xnor_gemm_mxu_cuda, XG.xnor_gemm_mxu_plain)):
+        out = cuda(xp, wp, mean, bias, 40, stride, pad)
+        assert torch.equal(out, plain(xp, wp, mean, bias, 40, stride, pad))
+
+
+@pytest.mark.parametrize("name", ["xnor_gemm", "xnor_gemm_mxu"])
+@pytest.mark.parametrize("case", ["device", "dtype", "mean_dtype", "words",
+                                  "contiguity", "activation"])
+def test_xnor_wrappers_refuse_what_the_kernel_does_not_take(dev, name, case):
+    x, wp, _, mean, bias = _xnor_operands(dev, 4, 1, 6, 6, 40, 8)
+    xp = XG.pack_activations(x, 40)
+    c, act, err = 40, "leaky", ValueError
+    if case == "device":
+        xp = xp.cpu()
+    elif case == "dtype":
+        xp, err = xp.to(torch.int64), TypeError
+    elif case == "mean_dtype":
+        mean, err = mean.double(), TypeError
+    elif case == "words":
+        c = 80                    # 3 words per tap, the map holds 2
+    elif case == "contiguity":
+        xp = xp.permute(0, 2, 1, 3)
+    else:
+        act = "relu"
+    fn = XG.xnor_gemm_cuda if name == "xnor_gemm" else XG.xnor_gemm_mxu_cuda
+    K.reset_launch_counts()
+    with pytest.raises(err):
+        fn(xp, wp, mean, bias, c, 1, 1, act)
+    assert K.LAUNCH_COUNTS[name] == 0
+
+
+@pytest.mark.parametrize("engine", ["int8", "pallas", "pallas_mxu", "auto"])
+def test_xnor_predictor_launch_counts_and_heads(dev, engine):
+    """One forward of tiny-yolo-obj_xnor-416 launches each bit kernel at the
+    seven XNOR convs its engine gives it, and every engine's head map equals
+    the dense engine's and the plain versions'."""
+    cfg = os.path.join(DATA, "tiny-yolo-obj_xnor.cfg")
+    spec, params, _ = build_params(cfg, None, echo=False)
+    convs = [l for l in spec.conv_layers() if l.xnor]
+    x = np.random.RandomState(6).rand(1, 416, 416, 3).astype(np.float32)
+    pred = Predictor(spec, params, device=dev, xnor_impl=engine)
+    K.reset_launch_counts()
+    heads = pred(x)
+    n_auto = sum(XG.auto_prefers_mxu(l.out_h * l.out_w) for l in convs)
+    expect = {"int8": (0, 0), "pallas": (7, 0), "pallas_mxu": (0, 7),
+              "auto": (0, n_auto)}[engine]
+    assert (K.LAUNCH_COUNTS["xnor_gemm"],
+            K.LAUNCH_COUNTS["xnor_gemm_mxu"]) == expect
+    dense = Predictor(spec, params, device=dev)(x)
+    plain = Predictor(spec, params, device=dev, int8_impl="plain",
+                      xnor_impl="pallas" if engine == "int8" else engine)(x)
+    assert torch.equal(heads[0].data, dense[0].data)
+    assert torch.equal(heads[0].data, plain[0].data)

@@ -25,6 +25,8 @@ def test_port_modules_are_found():
     mods = _port_modules()
     for m in ("yolo2_light_tpu_torch.ops.int8_conv",
               "yolo2_light_tpu_torch.ops.fused_res",
+              "yolo2_light_tpu_torch.ops.xnor_gemm",
+              "yolo2_light_tpu_torch.xnor",
               "yolo2_light_tpu_torch.ops._build",
               "yolo2_light_tpu_torch.models.layers",
               "yolo2_light_tpu_torch.models.network",

@@ -149,9 +149,19 @@ def test_unknown_engine_and_policy_are_value_errors():
 
 
 def test_xnor_conv_not_yet_ported():
+    """Nothing of an XNOR cfg is refused: mini-xnor builds in fp32 on every
+    engine, and its default engine matches the JAX Predictor
+    (tests/test_torch_xnor.py holds every engine to it)."""
+    from yolo2_light_tpu.xnor import binarize_params
     spec = parse_network_cfg(os.path.join(DATA, "mini-xnor.cfg"), batch=1)
-    with pytest.raises(NotImplementedError, match="XNOR"):
-        TN.build_forward(spec, "fp32")
+    for engine in TN.XNOR_IMPLS:
+        TN.build_forward(spec, "fp32", xnor_impl=engine)
+    params = binarize_params(spec, _params(spec, "fp32"))
+    x = np.random.RandomState(7).rand(2, 64, 64, 3).astype(np.float32)
+    ref = JaxPredictor(spec, params)(x)
+    out = Predictor(spec, params, device="cpu")(x)
+    np.testing.assert_allclose(out[0].data.numpy(), np.asarray(ref[0].data),
+                               rtol=1e-4, atol=1e-5)
 
 
 def test_xnor_cfg_int8_runs_int8_path_like_jax():

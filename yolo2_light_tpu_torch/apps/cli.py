@@ -3,11 +3,15 @@
 
     python -m yolo2_light_tpu_torch detector test <names> <cfg> [weights] [image]
         [-thresh T] [-dont_show] [-quantized] [-int8_impl xla|pallas|fused]
-        [-letterbox] [-save PATH] [-int8_policy cpu] [-device cuda|cpu]
+        [-xnor_kernel int8|pallas|pallas_mxu|auto] [-letterbox] [-save PATH]
+        [-int8_policy cpu] [-device cuda|cpu]
 
 ``-int8_impl fused`` runs each darknet53 residual block as one launch of the
 fused kernel; ``xla`` and ``pallas`` run every int8 conv on the int8 conv
-kernel. ``-device`` defaults to ``cuda``; ``cpu`` runs the plain PyTorch
+kernel. ``-xnor_kernel`` picks the engine of the XNOR convs: ``int8`` (the
+default) the dense +-1 conv, ``pallas`` the popcount kernel, ``pallas_mxu``
+the bit-packed int8 kernel, ``auto`` the faster of the last and the dense
+conv per layer. ``-device`` defaults to ``cuda``; ``cpu`` runs the plain PyTorch
 versions of the kernels. ``map``, ``calibrate`` and ``demo``, and the JAX CLI's other
 flags, are not yet ported: they exit non-zero and say so.
 """
@@ -18,7 +22,7 @@ import sys
 
 _NOT_PORTED_FLAGS = ("-bf16", "-fp32", "-turbo", "-turbo_int8", "-device_nms",
                      "-device_resize", "-uint8_ingest", "-no_uint8_ingest")
-_NOT_PORTED_VALUES = ("-xnor_kernel", "-pp", "-pp_tp", "-parallel", "-tp",
+_NOT_PORTED_VALUES = ("-pp", "-pp_tp", "-parallel", "-tp",
                       "-sp", "-params_cache", "-profile", "-batch", "-k", "-i",
                       "-c", "-s", "-prefix", "-out_filename",
                       "-input_calibration", "-calib_method", "-iou_thresh")
@@ -74,6 +78,7 @@ def _main(argv=None) -> int:
     save_path = _find_value(args, "-save", "predictions")
     int8_policy = _find_value(args, "-int8_policy", "cpu")
     int8_impl = _find_value(args, "-int8_impl", "xla")
+    xnor_kernel = _find_value(args, "-xnor_kernel", "int8")
     device = _find_value(args, "-device", "cuda")
     if int8_impl not in ("xla", "pallas", "fused"):
         raise ValueError(f"unknown int8_impl {int8_impl!r} "
@@ -112,7 +117,8 @@ def _main(argv=None) -> int:
     names = load_names(obj_names)
     run(names, cfg, weights, filename, thresh=thresh, quantized=quantized,
         dont_show=dont_show, int8_policy=int8_policy, save_path=save_path,
-        letter=letterbox, int8_impl=int8_impl, device=device)
+        letter=letterbox, int8_impl=int8_impl, xnor_impl=xnor_kernel,
+        device=device)
     return 0
 
 

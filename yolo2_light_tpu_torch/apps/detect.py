@@ -20,15 +20,15 @@ from yolo2_light_tpu.weights import (fuse_conv_batchnorm, load_weights,
                                      random_params)
 
 from ..models.network import Predictor
+from ..xnor import binarize_params
 
 
 def build_params(cfgfile: str, weightfile, quantized: bool = False,
                  seed: int = 0, echo: bool = True, quant_banner: bool = False):
     """Init chain (reference: src/main.c:160-171 and :4552-4561):
-    parse -> load/init -> BN-fuse -> (INT8-quantize), with the reference's
-    construction-time prints when ``echo``; random params from ``seed`` when
-    there is no ``weightfile``. XNOR binarization is not part of it yet: the
-    forward refuses XNOR convs."""
+    parse -> load/init -> BN-fuse -> XNOR-binarize -> (INT8-quantize), with
+    the reference's construction-time prints when ``echo``; random params
+    from ``seed`` when there is no ``weightfile``."""
     spec = parse_network_cfg(cfgfile, batch=1, quantized=quantized,
                              echo_table=echo)
     mode = "int8" if quantized else "fp32"
@@ -37,6 +37,7 @@ def build_params(cfgfile: str, weightfile, quantized: bool = False,
     else:
         params = random_params(spec, seed=seed)
     params = fuse_conv_batchnorm(spec, params)
+    params = binarize_params(spec, params)
     if quantized:
         if echo and quant_banner:
             print("\n\n Quantinization! \n")
@@ -46,11 +47,12 @@ def build_params(cfgfile: str, weightfile, quantized: bool = False,
 
 def build_predictor(cfgfile: str, weightfile, quantized: bool = False,
                     int8_policy: str = "cpu", int8_impl: str = "xla",
-                    device="cuda"):
+                    xnor_impl: str = "int8", device="cuda"):
     spec, params, mode = build_params(cfgfile, weightfile, quantized,
                                       quant_banner=True)
     pred = Predictor(spec, params, mode, device=device,
-                     int8_policy=int8_policy, int8_impl=int8_impl)
+                     int8_policy=int8_policy, int8_impl=int8_impl,
+                     xnor_impl=xnor_impl)
     return spec, pred
 
 
@@ -95,13 +97,14 @@ def detect_image(pred, spec, filename: str, thresh: float, nms: float,
 def run(names, cfgfile: str, weightfile, filename, thresh: float = 0.24,
         quantized: bool = False, dont_show: bool = True,
         int8_policy: str = "cpu", save_path: str = "predictions",
-        letter: bool = False, int8_impl: str = "xla", device="cuda") -> str:
+        letter: bool = False, int8_impl: str = "xla", xnor_impl: str = "int8",
+        device="cuda") -> str:
     """Single-image detect; with no filename, loops reading image paths from
     stdin (reference: test_detector_cpu while(1) fgets loop,
     src/main.c:176-186). Returns the last image's detection text."""
     spec, pred = build_predictor(cfgfile, weightfile, quantized,
                                  int8_policy=int8_policy, int8_impl=int8_impl,
-                                 device=device)
+                                 xnor_impl=xnor_impl, device=device)
     nms = 0.2 if quantized else 0.4  # reference: src/main.c:174,213
     head_specs = pred.head_specs()
     classes = head_specs[-1].classes if head_specs else 0

@@ -6,7 +6,8 @@ cited there. Tensors are ``[B, H, W, C]`` like the JAX package's, so the
 tests compare like with like; convolutions run on a permuted NCHW view that
 is channels-last in memory. Conv weights are laid out once at load time by
 ``params.params_to_torch``: fp32 weights as PyTorch's ``[O, I, kh, kw]``,
-int8 weights as the kernel's ``[M, kh, kw, C]``.
+int8 weights as the kernel's ``[M, kh, kw, C]``, XNOR +-1 weights as
+float32 ``[O, I, kh, kw]``.
 """
 
 from __future__ import annotations
@@ -129,6 +130,35 @@ def conv2d_int8(x, weights_int8, biases, stride: int, pad: int,
     if epilogue != activation:
         y = activate(y, activation)
     return y
+
+
+def conv2d_xnor(x, sign_weights, mean_arr, biases, stride: int, pad: int,
+                activation: str):
+    """XNOR (BIT1) conv as a dense +-1 convolution, the ``-xnor_kernel int8``
+    engine (reference: the popcount GEMM (2*popcount(xnor) - K) * mean,
+    src/additionally.c:1185-1242, src/gpu.cu:1566-1741).
+    ``sign_weights``: ``[O, I, kh, kw]`` float32 +-1; ``mean_arr``: the
+    per-filter mean |w| factored out of the product.
+
+    Input binarized to +-1 by (x > 0) (reference: binarize_cpu,
+    src/additionally.c:128-135). Borders: the reference's bit path, taken
+    when stride==1 and pad==1, writes 0 bits for the padding, which decode
+    to -1 (im2col_cpu_custom_bin, src/additionally.c:883-1002); any other
+    stride or pad runs the binarized float conv, whose im2col pads with 0.0.
+
+    The +-1 products sum to integers below 2**24, exact in float32 in any
+    order of addition; cuDNN is kept out, since its algorithm choice may
+    include Winograd or FFT transforms, which round. The leaky slope is
+    0.1*y here, not the int8 path's y/10.
+    """
+    xb = torch.where(x > 0, 1.0, -1.0).permute(0, 3, 1, 2)
+    if stride == 1 and pad == 1:
+        xb = F.pad(xb, (1, 1, 1, 1), value=-1.0)
+        pad = 0
+    with torch.backends.cudnn.flags(enabled=False):
+        acc = F.conv2d(xb, sign_weights, stride=stride, padding=pad)
+    y = acc.permute(0, 2, 3, 1) * mean_arr + biases
+    return activate(y, activation)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,13 @@ Ported modes:
   ``int8_impl="fused"`` runs each darknet53 residual block (1x1 conv, 3x3
   conv, shortcut) as one launch of the kernel of ``ops/fused_res`` and the
   other int8 convs on ``ops/int8_conv``: bit-identical to the unfused path.
+* XNOR convs (``xnor=1``, outside the int8 set) in either mode, on the engine
+  ``xnor_impl`` names: ``int8`` the dense +-1 conv (``layers.conv2d_xnor``),
+  ``pallas`` the popcount kernel and ``pallas_mxu`` the bit-packed int8
+  kernel of ``ops/xnor_gemm`` (both only where stride == 1 and pad == 1, the
+  reference's bit path; every other XNOR conv takes the dense engine), and
+  ``auto`` a per-layer pick between ``pallas_mxu`` and ``int8`` on the GEMM
+  M = batch*oh*ow. All engines are bit-identical.
 
 Everything else the JAX package's ``build_forward`` offers raises
 ``NotImplementedError`` naming what is not yet ported; nothing falls back.
@@ -31,16 +38,18 @@ from yolo2_light_tpu.cfg import (ConvSpec, MaxpoolSpec, ModelSpec, RegionSpec,
                                  ReorgSpec, RouteSpec, ShortcutSpec,
                                  SoftmaxSpec, UpsampleSpec, YoloSpec)
 
-from ..ops import fused_res, int8_conv
+from ..ops import fused_res, int8_conv, xnor_gemm
 from ..params import params_to_torch
 from . import layers as L
 
 # "xla", "pallas" and "fused" name the JAX package's engines; on the port
 # "xla" and "pallas" run the int8 conv kernel behind every int8 conv, and
 # "fused" runs the residual blocks on the fused kernel and the other int8
-# convs on the int8 conv kernel. "plain" runs the kernels' plain PyTorch
-# versions on any device: the reference the kernel paths are checked against.
+# convs on the int8 conv kernel. "plain" runs every kernel's plain PyTorch
+# version instead (the int8 ones and the XNOR engine's), on any device: the
+# reference the kernel paths are checked against.
 INT8_IMPLS = ("xla", "pallas", "fused", "plain")
+XNOR_IMPLS = ("int8", "pallas", "pallas_mxu", "auto")
 
 
 class HeadOutput(NamedTuple):
@@ -93,13 +102,17 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _check_ported(spec: ModelSpec, mode: str, int8_policy: str,
-                  int8_impl: str, compute_dtype, turbo) -> set:
+                  int8_impl: str, xnor_impl: str, compute_dtype,
+                  turbo) -> set:
     """Raise on anything this port does not run yet; returns the int8 set."""
     if mode not in ("fp32", "int8"):
         raise ValueError(f"unknown mode {mode!r} (expected fp32 or int8)")
     if int8_impl not in INT8_IMPLS:
         raise ValueError(f"unknown int8_impl {int8_impl!r} "
                          f"(expected one of {', '.join(INT8_IMPLS)})")
+    if xnor_impl not in XNOR_IMPLS:
+        raise ValueError(f"unknown xnor_impl {xnor_impl!r} "
+                         "(expected int8, pallas, pallas_mxu, or auto)")
     if int8_policy not in ("cpu", "gpu", "cpu_old"):
         raise ValueError(f"unknown int8 policy {int8_policy!r}")
     if mode == "int8" and int8_policy != "cpu":
@@ -110,8 +123,6 @@ def _check_ported(spec: ModelSpec, mode: str, int8_policy: str,
         raise _not_ported("-turbo / -turbo_int8")
     int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else set()
     for l in spec.layers:
-        if isinstance(l, ConvSpec) and l.xnor and l.index not in int8_set:
-            raise _not_ported(f"XNOR conv (xnor=1, layer {l.index})")
         if isinstance(l, SoftmaxSpec):
             raise _not_ported(f"[softmax] layer {l.index}")
         if isinstance(l, RegionSpec) and l.softmax_tree is not None:
@@ -175,6 +186,41 @@ def _fused_stage_runs(spec: ModelSpec, int8_set: set) -> dict:
     return runs
 
 
+def _bit_path(l: ConvSpec) -> bool:
+    """The reference takes its XNOR bit path (0-bit, i.e. -1, borders) only
+    at stride 1 and pad 1; the bit engines run only there."""
+    return l.stride == 1 and l.pad == 1
+
+
+def _xnor_engine(l: ConvSpec, xnor_impl: str, batch: int) -> str:
+    """The engine XNOR conv ``l`` runs at ``batch``: "int8" (the dense +-1
+    conv), "pallas" (K3) or "pallas_mxu" (K4). All are bit-identical, so
+    "auto" is a speed pick on the GEMM M = batch*oh*ow: the bit-packed
+    kernel where M is small, the dense conv above
+    (``ops/xnor_gemm.auto_prefers_mxu``)."""
+    if xnor_impl == "auto":
+        xnor_impl = ("pallas_mxu" if xnor_gemm.auto_prefers_mxu(
+            batch * l.out_h * l.out_w) else "int8")
+    return xnor_impl if _bit_path(l) else "int8"
+
+
+def _dropped_fields(l, int8_set: set, xnor_impl: str) -> frozenset:
+    """Converted params a layer's path does not read: an int8 conv keeps its
+    int8 weights (and ignores xnor=1), a float conv its float weights, an
+    XNOR conv the weights of the engines ``xnor_impl`` may give it."""
+    xnor_fields = {"sign_weights", "packed_weights", "mean_arr"}
+    if l.index in int8_set:
+        return frozenset({"weights"} | xnor_fields)
+    if not (isinstance(l, ConvSpec) and l.xnor):
+        return frozenset({"weights_int8"})
+    keep = {"mean_arr"}
+    if xnor_impl in ("int8", "auto") or not _bit_path(l):
+        keep.add("sign_weights")
+    if xnor_impl != "int8" and _bit_path(l):
+        keep.add("packed_weights")
+    return frozenset({"weights", "weights_int8"} | (xnor_fields - keep))
+
+
 def _block_args(p1: dict, p2: dict) -> dict:
     """One residual block's convs' params as ``fused_res_block`` arguments."""
     return dict(w1=p1["weights_int8"], b1=p1["biases"],
@@ -185,14 +231,15 @@ def _block_args(p1: dict, p2: dict) -> dict:
 
 def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                   int8_policy: str = "cpu", int8_impl: str = "xla",
-                  compute_dtype=torch.float32, turbo=False):
+                  xnor_impl: str = "int8", compute_dtype=torch.float32,
+                  turbo=False):
     """Return ``forward(params, x) -> (heads, aux)``.
 
     ``x``: [B, H, W, C] float32, NHWC, values in [0,1]. ``params``: the
     per-layer list of ``params.params_to_torch``. ``heads`` is a tuple of
     HeadOutput; ``aux["final"]`` is the last layer's output.
     """
-    int8_set = _check_ported(spec, mode, int8_policy, int8_impl,
+    int8_set = _check_ported(spec, mode, int8_policy, int8_impl, xnor_impl,
                              compute_dtype, turbo)
     plain = int8_impl == "plain"
     # the fused kernel implements the cpu requant only (the gpu policy is
@@ -227,7 +274,22 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                 continue
             if isinstance(l, ConvSpec):
                 p = params[i]
-                if i in int8_set:
+                # an int8-eligible conv runs the int8 path even with xnor=1,
+                # as the reference's quantized forwards have no xnor branch
+                if l.xnor and i not in int8_set:
+                    engine = _xnor_engine(l, xnor_impl, cur.shape[0])
+                    if engine == "int8":
+                        cur = L.conv2d_xnor(cur, p["sign_weights"],
+                                            p["mean_arr"], p["biases"],
+                                            l.stride, l.pad, l.activation)
+                    else:
+                        cur = xnor_gemm.conv2d_xnor_bits(
+                            cur, p["packed_weights"], p["mean_arr"],
+                            p["biases"], c_real=l.c, stride=l.stride,
+                            pad=l.pad, activation=l.activation,
+                            engine=("mxu" if engine == "pallas_mxu"
+                                    else "popcount"), plain=plain)
+                elif i in int8_set:
                     cur = L.conv2d_int8(
                         cur, p["weights_int8"], p["biases"], l.stride, l.pad,
                         l.activation, p["input_quant_multipler"], p["alpha"],
@@ -272,15 +334,16 @@ class Predictor(nn.Module):
     """One call, image(s) in, head maps out, on one explicit device.
 
     The converted params are the module's buffers (``l<index>_<name>``); the
-    int8 scalars (input multiplier, alpha) are plain floats. In int8 mode the
-    int8 convs keep only their int8 weights. On a CUDA device the kernels
-    are built here, so the first forward does not include the build.
+    int8 scalars (input multiplier, alpha) are plain floats. Each conv keeps
+    only the weights of the path it runs: in int8 mode the int8 convs their
+    int8 weights, an XNOR conv those of its engines. On a CUDA device the
+    kernels are built here, so the first forward does not include the build.
     """
 
     def __init__(self, spec: ModelSpec, params: list, mode: str = "fp32", *,
                  device="cuda", int8_policy: str = "cpu",
-                 int8_impl: str = "xla", compute_dtype=torch.float32,
-                 turbo=False):
+                 int8_impl: str = "xla", xnor_impl: str = "int8",
+                 compute_dtype=torch.float32, turbo=False):
         super().__init__()
         self.spec = spec
         self.mode = mode
@@ -289,16 +352,12 @@ class Predictor(nn.Module):
             raise RuntimeError("CUDA is not available (use device='cpu' to "
                                "run the plain PyTorch path)")
         self._forward = build_forward(spec, mode, int8_policy=int8_policy,
-                                      int8_impl=int8_impl,
+                                      int8_impl=int8_impl, xnor_impl=xnor_impl,
                                       compute_dtype=compute_dtype, turbo=turbo)
         int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else ()
-        # each conv keeps the weights of the path it runs
-        host = [None if p is None else
-                {k: v for k, v in p.items()
-                 if k != ("weights" if i in int8_set else "weights_int8")}
-                for i, p in enumerate(params)]
+        drops = [_dropped_fields(l, int8_set, xnor_impl) for l in spec.layers]
         self._layout: list = []   # per layer: None or (tensor names, scalars)
-        for i, p in enumerate(params_to_torch(host, self.device)):
+        for i, p in enumerate(params_to_torch(params, self.device, drops)):
             if p is None:
                 self._layout.append(None)
                 continue
@@ -310,11 +369,17 @@ class Predictor(nn.Module):
                 else:
                     scalars[k] = v
             self._layout.append((names, scalars))
-        if (self.device.type == "cuda" and mode == "int8"
-                and int8_impl != "plain"):
-            int8_conv.load_kernel()
-            if int8_impl == "fused":
-                fused_res.load_kernel()
+        if self.device.type == "cuda" and int8_impl != "plain":
+            if mode == "int8":
+                int8_conv.load_kernel()
+                if int8_impl == "fused":
+                    fused_res.load_kernel()
+            if any(isinstance(l, ConvSpec) and l.xnor and _bit_path(l)
+                   and l.index not in int8_set for l in spec.layers):
+                if xnor_impl == "pallas":
+                    xnor_gemm.load_kernel("xnor_gemm")
+                elif xnor_impl in ("pallas_mxu", "auto"):
+                    xnor_gemm.load_kernel("xnor_gemm_mxu")
 
     def layer_params(self) -> list:
         """The per-layer param dicts ``forward`` reads, from the buffers."""

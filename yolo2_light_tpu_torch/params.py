@@ -1,9 +1,10 @@
 """Carry the JAX package's host-side params into the port's tensors.
 
 The init chain stays the JAX package's pure-NumPy code (``cfg``, ``weights``
-load + ``fuse_conv_batchnorm``, ``quant.quantize_params``); this module only
-turns its per-layer list of NumPy dicts into tensors on one device, laid out
-once for the ops that read them.
+load + ``fuse_conv_batchnorm``, ``quant.quantize_params``) plus the port's
+own ``xnor.binarize_params``; this module only turns its per-layer list of
+NumPy dicts into tensors on one device, laid out once for the ops that read
+them.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from yolo2_light_tpu.quant import R_MULT
 from yolo2_light_tpu.weights import random_params, save_weights
 
 from .ops.int8_conv import alpha_f32, relayout_hwio
+from .xnor import pack_sign_weights
 
 
 def save_random_weights(cfgfile: str, path: str, seed: int = 0) -> None:
@@ -24,37 +26,55 @@ def save_random_weights(cfgfile: str, path: str, seed: int = 0) -> None:
     spec = parse_network_cfg(cfgfile, batch=1)
     save_weights(spec, random_params(spec, seed=seed), path)
 
-_FLOAT_KEYS = ("biases", "scales", "rolling_mean", "rolling_variance")
+_FLOAT_KEYS = ("biases", "scales", "rolling_mean", "rolling_variance",
+               "mean_arr")
 
 
-def layer_to_torch(p: dict, device) -> dict:
-    """One conv layer's params:
+def layer_to_torch(p: dict, device, drop=frozenset()) -> dict:
+    """One conv layer's params, without the output fields named in ``drop``:
 
     * ``weights`` HWIO float32 -> ``[O, I, kh, kw]`` (PyTorch's conv layout);
-    * ``biases`` and unfused BN vectors -> float32 tensors;
+    * ``biases``, unfused BN vectors and the XNOR ``mean_arr`` -> float32
+      tensors;
     * with INT8 fields: ``weights_int8`` HWIO -> ``[M, kh, kw, C]`` (the
       kernel's layout), ``input_quant_multipler`` and ``alpha`` =
       float32(R_MULT) / (float32(in_mult) * float32(w_mult)) as Python floats
-      holding float32 values, rounded as the JAX path rounds them.
+      holding float32 values, rounded as the JAX path rounds them;
+    * with XNOR fields: ``sign_weights`` HWIO +-1 -> float32
+      ``[O, I, kh, kw]`` (the dense engine's), and ``packed_weights``, the
+      bit kernels' ``[M, kh, kw, C32]`` int32 packed from ``sign_weights``
+      (a ``packed_weights`` of the JAX package, in the TPU's layout, is not
+      read).
     """
     out = {}
-    if "weights" in p:
+    if "weights" in p and "weights" not in drop:
         w = torch.as_tensor(np.asarray(p["weights"], np.float32))
         out["weights"] = w.permute(3, 2, 0, 1).contiguous().to(device)
     for k in _FLOAT_KEYS:
-        if k in p:
+        if k in p and k not in drop:
             out[k] = torch.as_tensor(np.asarray(p[k], np.float32)).to(device)
-    if "weights_int8" in p:
+    if "weights_int8" in p and "weights_int8" not in drop:
         out["weights_int8"] = relayout_hwio(p["weights_int8"]).to(device)
         out["input_quant_multipler"] = float(
             np.float32(p["input_quant_multipler"]))
         out["alpha"] = alpha_f32(p["input_quant_multipler"],
                                  p["weights_quant_multipler"], R_MULT)
+    if "sign_weights" in p:
+        sign = np.asarray(p["sign_weights"], np.int8)
+        if "sign_weights" not in drop:
+            out["sign_weights"] = torch.as_tensor(sign).permute(
+                3, 2, 0, 1).to(torch.float32).contiguous().to(device)
+        if "packed_weights" not in drop:
+            out["packed_weights"] = torch.as_tensor(
+                pack_sign_weights(sign)).to(device)
     return out
 
 
-def params_to_torch(params: list, device) -> list:
+def params_to_torch(params: list, device, drops=None) -> list:
     """Per-layer list (``None`` for weightless layers) -> list of tensor dicts
-    on ``device``."""
+    on ``device``; ``drops[i]``, where given, names layer i's output fields
+    to leave out."""
     device = torch.device(device)
-    return [None if p is None else layer_to_torch(p, device) for p in params]
+    drops = drops or [frozenset()] * len(params)
+    return [None if p is None else layer_to_torch(p, device, d)
+            for p, d in zip(params, drops)]
