@@ -10,18 +10,25 @@ Phases, each reported on its own lines:
    power limit as nvidia-smi reports them.
 2. build: compiles the four kernels of ``yolo2_light_tpu_torch/csrc``, one
    nvcc per source, all started together (each build and the phase timed).
-3. kernels: the int8 conv kernel against its plain PyTorch version on the
-   card at yolov3-416's three int8 conv shape classes (3x3 s1, 3x3 s2, 1x1);
-   outputs must be bit-identical. Times both with CUDA events.
+3. kernels: the int8 conv kernel in both input forms (f32 input quantized
+   in its loader, the network's path; pre-quantized int8 input, the Pallas
+   signatures') against its plain PyTorch version on the card at yolov3-416's
+   15 int8 conv shape classes (1x1, 3x3/s1 and 3x3/s2 at each output size
+   from 13 to 208), with the split of K across a cluster the planner gives
+   each; outputs must be bit-identical. Times each form, the plain version
+   and, as a yardstick never on the port's path, ``torch._int_mm`` on the
+   same [P, ks*ks*C] x [ks*ks*C, M] int8 product (no gather, no epilogue),
+   each beside the least time the card could take (bytes or operations).
 4. int8: ``detector test ... -quantized`` through the CLI on yolov3-416 with
    random weights (seed 7); the kernel's launch count must rise by the size
-   of the int8 set in that one forward. The same forward with the plain
+   of the int8 set in that one forward, with no separate quantize launch and
+   no input copy in front of any of them. The same forward with the plain
    versions on the card must give equal head maps and identical detection
    lines. Times the warm b=1 forward.
 5. fused: the fused residual-block kernel against its plain version at
    yolov3-416's five residual-block shapes (b1 > 0) and on a chain of two
    blocks at 104x104; bit-identical. Times the kernel, the unfused pair of
-   int8 conv launches with its quantizes and add, and the plain version.
+   int8 conv launches and its add, and the plain version.
    Then ``detector test ... -quantized -int8_impl fused`` through the CLI:
    one forward must launch the fused kernel 23 times and the int8 conv
    kernel 25 times; its head maps must equal those of the int8 conv path
@@ -42,9 +49,19 @@ Phases, each reported on its own lines:
    versions on the card must give equal head maps and identical detection
    lines. Times the warm b=1 forward of each engine.
 
+Every kernel time is printed beside the least time the card could take for
+the same work: the bytes the function must move (each input read once, each
+output written once) over the HBM rate, or its operations over the int8
+tensor-core peak, whichever is longer (the XNOR kernels' +-1 multiply-adds
+count as int8 operations: Hopper publishes no binary rate).
+
 Any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
-preceded by a line with one JSON object describing each kernel.
+preceded by the card's name and power limit and, before that, a line with one
+JSON object describing each of the six TPU kernels' counterparts: its
+launches on the main path, its time, the plain version's, the bound (sums
+over the shapes timed) and the library call's where there is one. Two Pallas
+functions that compute one function share a Hopper kernel and its numbers.
 """
 
 from __future__ import annotations
@@ -75,15 +92,32 @@ SMALL_CFG = os.path.join(DATA, "mini-yolo3.cfg")
 IMAGE = os.path.join(DATA, "dog160.png")
 SEED = 7
 SLEEP_CYCLES = 50_000_000   # about 25 ms of device time to queue behind
+# NVIDIA H100 SXM peaks (data sheet, dense): int8 tensor cores, HBM3
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
 THRESH = "0.25"         # the CLI's default -thresh
 N_CLASSES = 80
 HEAD_GRIDS = [13, 26, 52]
-# (label, (B, H, W, C, M, ks, stride, pad)): yolov3-416's int8 conv classes
+# (label, (B, H, W, C, M, ks, stride, pad)): yolov3-416's 15 int8 conv
+# classes, (size, stride) at each output size, at yolov3's widths
 SHAPES = [
-    ("3x3/s1 52x52x128->256", (1, 52, 52, 128, 256, 3, 1, 1)),
-    ("3x3/s2 416x416x32->208x208x64", (1, 416, 416, 32, 64, 3, 2, 1)),
+    ("1x1/s1 208x208x64->32", (1, 208, 208, 64, 32, 1, 1, 0)),
+    ("1x1/s1 104x104x128->64", (1, 104, 104, 128, 64, 1, 1, 0)),
+    ("1x1/s1 52x52x256->128", (1, 52, 52, 256, 128, 1, 1, 0)),
+    ("1x1/s1 26x26x512->256", (1, 26, 26, 512, 256, 1, 1, 0)),
     ("1x1/s1 13x13x1024->512", (1, 13, 13, 1024, 512, 1, 1, 0)),
+    ("3x3/s1 208x208x32->64", (1, 208, 208, 32, 64, 3, 1, 1)),
+    ("3x3/s1 104x104x64->128", (1, 104, 104, 64, 128, 3, 1, 1)),
+    ("3x3/s1 52x52x128->256", (1, 52, 52, 128, 256, 3, 1, 1)),
+    ("3x3/s1 26x26x256->512", (1, 26, 26, 256, 512, 3, 1, 1)),
+    ("3x3/s1 13x13x512->1024", (1, 13, 13, 512, 1024, 3, 1, 1)),
+    ("3x3/s2 416x416x32->208x208x64", (1, 416, 416, 32, 64, 3, 2, 1)),
+    ("3x3/s2 208x208x64->104x104x128", (1, 208, 208, 64, 128, 3, 2, 1)),
+    ("3x3/s2 104x104x128->52x52x256", (1, 104, 104, 128, 256, 3, 2, 1)),
+    ("3x3/s2 52x52x256->26x26x512", (1, 52, 52, 256, 512, 3, 2, 1)),
+    ("3x3/s2 26x26x512->13x13x1024", (1, 26, 26, 512, 1024, 3, 2, 1)),
 ]
+IN_MULT, W_MULT = 40.0, 16.0
 KERNEL_SOURCE = "yolo2_light_tpu_torch/csrc/int8_conv.cu"
 REPLACES = "yolo2_light_tpu/ops/pallas_int8.py:141"        # conv3x3_int8_tiled
 ALSO_REPLACES = "yolo2_light_tpu/ops/pallas_int8.py:71"    # conv3x3_int8_fused
@@ -97,7 +131,7 @@ FUSED_SHAPES = [
 ]
 FUSED_SOURCE = "yolo2_light_tpu_torch/csrc/fused_res.cu"
 FUSED_REPLACES = "yolo2_light_tpu/ops/pallas_fused.py:272"  # fused_res_stage
-FUSED_ALSO_REPLACES = ":358"                                # ..._stage_strips
+FUSED_ALSO_REPLACES = "yolo2_light_tpu/ops/pallas_fused.py:358"  # ..._strips
 N_FUSED_BLOCKS = 23     # 1 + 2 + 8 + 8 + 4 residual blocks
 N_UNFUSED_INT8 = 25     # 71 int8 convs minus the blocks' 46
 XNOR_CFG = os.path.join(DATA, "tiny-yolo-obj_xnor.cfg")
@@ -243,33 +277,110 @@ def phase_build() -> None:
         f"parallel (nvcc {' '.join(_build.NVCC_FLAGS)})")
 
 
+def bound(bytes_moved: float, ops: float) -> tuple:
+    """The least time the card could take for work that moves
+    ``bytes_moved`` (each input read once, each output written once) and
+    does ``ops`` int8 operations: (ms, "bytes" or "operations")."""
+    b_ms = bytes_moved / PEAK_BYTES * 1e3
+    o_ms = ops / PEAK_INT8_OPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def row_bound(rows: list) -> dict:
+    """A kernel's bound over the shapes timed: the sum, and the term that
+    bounds most of it."""
+    by = {}
+    for r in rows:
+        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
+    return {"bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": max(by, key=by.get)}
+
+
+def conv_bound(l) -> tuple:
+    """K1's bound for the int8 conv ``l`` of a spec (f32 input read once,
+    int8 weights and f32 bias, f32 output written once)."""
+    p = l.out_h * l.out_w
+    k = l.size * l.size * l.c
+    return bound(4 * l.h * l.w * l.c + l.n * k + 4 * l.n + 4 * p * l.n,
+                 2.0 * p * l.n * k)
+
+
+def block_bound(l1, l2) -> tuple:
+    """K2's bound for the residual block of convs ``l1`` (1x1, C -> C2) and
+    ``l2`` (3x3, C2 -> C): the f32 trunk read once and written once."""
+    p, c, c2 = l1.h * l1.w, l1.c, l1.n
+    return bound(2 * 4 * p * c + c2 * c + 9 * c * c2 + 4 * (c2 + c),
+                 2.0 * p * (c * c2 + 9 * c2 * c))
+
+
+def im2col_int8(x8, ks: int, stride: int, pad: int):
+    """The ``[P, ks*ks*C]`` int8 patch matrix of NHWC ``x8``, taps in the
+    kernel's weight order (ky, kx, c)."""
+    b, _, _, c = x8.shape
+    cols = torch.nn.functional.unfold(x8.permute(0, 3, 1, 2).float(), ks,
+                                      padding=pad, stride=stride)
+    cols = cols.view(b, c, ks * ks, -1).permute(0, 3, 2, 1)
+    return cols.reshape(-1, ks * ks * c).to(torch.int8).contiguous()
+
+
 def phase_kernels() -> list:
     dev = torch.device("cuda")
+    alpha = int8_conv.alpha_f32(IN_MULT, W_MULT)
     rows = []
     for i, (label, (b, h, w, c, m, ks, s, pad)) in enumerate(SHAPES):
         rng = np.random.RandomState(SEED + i)
-        x = torch.from_numpy(rng.randint(-127, 128, (b, h, w, c)).astype(
-            np.int8)).to(dev)
+        x = torch.from_numpy((rng.randn(b, h, w, c) * 4).astype(
+            np.float32)).to(dev)
+        x8 = int8_conv.quantize_i8(x, IN_MULT)
         wt = torch.from_numpy(rng.randint(-127, 128, (m, ks, ks, c)).astype(
             np.int8)).to(dev)
         bias = torch.from_numpy(rng.randn(m).astype(np.float32)).to(dev)
-        alpha = int8_conv.alpha_f32(40.0, 16.0)
+        plan = int8_conv.plan_launch(b, h, w, c, m, ks, s, pad)
         err = 0.0
         for act in ("leaky", "linear"):
-            out = int8_conv.conv2d_int8_cuda(x, wt, bias, alpha, s, pad, act)
-            ref = int8_conv.conv2d_int8_plain(x, wt, bias, alpha, s, pad, act)
+            out = int8_conv.conv2d_int8_f32_cuda(x, wt, bias, IN_MULT, alpha,
+                                                 s, pad, act)
+            out8 = int8_conv.conv2d_int8_cuda(x8, wt, bias, alpha, s, pad, act)
+            ref = int8_conv.conv2d_int8_plain(x8, wt, bias, alpha, s, pad, act)
             torch.cuda.synchronize()
             check(torch.equal(out, ref),
-                  f"kernel != plain at {label} ({act})")
-            err = max(err, float((out - ref).abs().max()))
-        k_ms = event_ms(lambda: int8_conv.conv2d_int8_cuda(
-            x, wt, bias, alpha, s, pad, "leaky"))
-        p_ms = event_ms(lambda: int8_conv.conv2d_int8_plain(
-            x, wt, bias, alpha, s, pad, "leaky"), iters=10)
-        say("kernels", f"{label}: bit-identical to plain (max_abs_err {err}); "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        rows.append({"shape": label, "ms": k_ms, "plain_ms": p_ms,
-                     "max_abs_err": err})
+                  f"kernel (f32 input) != plain at {label} ({act})")
+            check(torch.equal(out8, ref),
+                  f"kernel (int8 input) != plain at {label} ({act})")
+            err = max(err, float((out - ref).abs().max()),
+                      float((out8 - ref).abs().max()))
+        # the yardstick: cuBLASLt's int8 GEMM on the same product, patches
+        # gathered beforehand, no epilogue; never on the port's path
+        a = im2col_int8(x8, ks, s, pad)
+        wmat = wt.view(m, -1).t()
+        acc = int8_conv.int8_conv_acc_plain(x8, wt, s, pad)
+        check(torch.equal(torch._int_mm(a, wmat), acc.view(-1, m)),
+              f"torch._int_mm != the plain accumulator at {label}")
+        row = {"shape": label, "tile": [plan.tile_h, plan.tile_w],
+               "split": plan.split, "blocks": plan.blocks,
+               "max_abs_err": err}
+        row["ms"] = event_ms(lambda: int8_conv.conv2d_int8_f32_cuda(
+            x, wt, bias, IN_MULT, alpha, s, pad, "leaky"))
+        row["ms_int8_input"] = event_ms(lambda: int8_conv.conv2d_int8_cuda(
+            x8, wt, bias, alpha, s, pad, "leaky"))
+        row["plain_ms"] = event_ms(lambda: int8_conv.conv2d_int8_f32_plain(
+            x, wt, bias, IN_MULT, alpha, s, pad, "leaky"), iters=10)
+        row["library_ms"] = event_ms(lambda: torch._int_mm(a, wmat))
+        p = acc.numel() // m
+        weights = wt.numel() + 4 * m
+        ops = 2.0 * p * m * ks * ks * c
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * x.numel() + weights + 4 * p * m, ops)
+        row["bound_ms_int8_input"], _ = bound(x8.numel() + weights
+                                              + 4 * p * m, ops)
+        say("kernels", f"{label}: f32 and int8 input bit-identical to plain "
+            f"(max_abs_err {err}); tile {plan.tile_h}x{plan.tile_w}, split "
+            f"{plan.split}, {plan.blocks} blocks; kernel {row['ms']:.4f} ms "
+            f"(int8 input {row['ms_int8_input']:.4f}), plain "
+            f"{row['plain_ms']:.4f}, torch._int_mm {row['library_ms']:.4f} "
+            f"ms; bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of it")
+        rows.append(row)
     return rows
 
 
@@ -280,6 +391,7 @@ def phase_int8(tmp: str, weights: str, names_file: str, names: list):
     int8_conv.reset_launch_counts()
     rc, out = run_cli(args)
     launches = int8_conv.LAUNCH_COUNTS["int8_conv"]
+    pre = dict(int8_conv.PRE_LAUNCHES)
     check(rc == 0, f"detector test -quantized exited {rc}")
     kernel_text = detection_text(out)
     predicted = [l for l in out.splitlines() if "Predicted in" in l][0]
@@ -293,8 +405,14 @@ def phase_int8(tmp: str, weights: str, names_file: str, names: list):
     check(launches == len(int8_set),
           f"int8 kernel launched {launches} times in one forward, expected "
           f"{len(int8_set)}")
+    check(not any(pre.values()),
+          f"launches in front of the int8 convs in one forward: {pre}")
     say("int8", f"int8_conv launches in one forward: {launches} (int8 set: "
-        f"{len(int8_set)} of {len(spec.conv_layers())} convs)")
+        f"{len(int8_set)} of {len(spec.conv_layers())} convs); no separate "
+        "quantize launch, no input copy")
+    k1_bound = sum(conv_bound(spec.layers[i])[0] for i in int8_set)
+    say("int8", f"K1's bound over the forward's {len(int8_set)} int8 convs: "
+        f"{k1_bound * 1e3:.2f} us")
 
     kernel = network.Predictor(spec, params, "int8", device="cuda")
     plain = network.Predictor(spec, params, "int8", device="cuda",
@@ -326,7 +444,8 @@ def phase_int8(tmp: str, weights: str, names_file: str, names: list):
     say("int8", f"warm b=1 forward: kernel path {k_ms:.3f} ms, plain path "
         f"{p_ms:.3f} ms (median, host clock, synchronised)")
     return launches, dict(spec=spec, params=params, x=x, kernel=kernel,
-                          k1_heads=hk, plain_heads=hp, k1_text=kernel_text)
+                          k1_heads=hk, plain_heads=hp, k1_text=kernel_text,
+                          int8_set=int8_set, k1_bound=k1_bound)
 
 
 def _block_operands(dev, seed: int, b: int, h: int, w: int, c: int,
@@ -350,8 +469,8 @@ def _block_operands(dev, seed: int, b: int, h: int, w: int, c: int,
 
 
 def _unfused_block(x, a):
-    """The int8 conv path's residual block: two int8 conv launches with
-    their input quantizes, then the shortcut add."""
+    """The int8 conv path's residual block: two int8 conv launches (each
+    quantizing its input in its loader), then the shortcut add."""
     t1 = layers.conv2d_int8(x, a["w1"], a["b1"], 1, 0, "leaky", a["m1"],
                             a["alpha1"])
     t2 = layers.conv2d_int8(t1, a["w2"], a["b2"], 1, 1, "leaky", a["m2"],
@@ -372,15 +491,21 @@ def phase_fused_kernels() -> list:
         check(torch.equal(out, unfused),
               f"fused kernel != int8 conv path at {label}")
         err = float((out - ref).abs().max())
+        p = b * h * w
+        b_ms, b_by = bound(
+            2 * 4 * x.numel() + a["w1"].numel() + a["w2"].numel()
+            + 4 * (c2 + c), 2.0 * p * (c * c2 + 9 * c2 * c))
         k_ms = event_ms(lambda: fused_res.fused_res_block_cuda(x, **a))
         u_ms = event_ms(lambda: _unfused_block(x, a))
         p_ms = event_ms(lambda: fused_res.res_block_plain(x, **a), iters=10)
         say("fused", f"{label}: bit-identical to plain and to the int8 conv "
             f"path (max_abs_err {err}); kernel {k_ms:.4f} ms, int8 conv path "
-            f"{u_ms:.4f} ms (2 int8_conv + 8 quantize + 1 add launches), "
-            f"plain {p_ms:.4f} ms")
+            f"{u_ms:.4f} ms (2 int8_conv + 1 add launches), plain "
+            f"{p_ms:.4f} ms; bound {b_ms * 1e3:.2f} us ({b_by}), "
+            f"{100 * b_ms / k_ms:.1f}% of it")
         rows.append({"shape": label, "ms": k_ms, "unfused_ms": u_ms,
-                     "plain_ms": p_ms, "max_abs_err": err})
+                     "plain_ms": p_ms, "max_abs_err": err,
+                     "bound_ms": b_ms, "bound_by": b_by})
     x, a1 = _block_operands(dev, SEED + 10, 1, 104, 104, 128, 64)
     _, a2 = _block_operands(dev, SEED + 11, 1, 104, 104, 128, 64, -1.0)
     keep = x.clone()
@@ -412,6 +537,16 @@ def phase_fused(tmp: str, weights: str, names_file: str, k1: dict):
           f"in one fused forward, expected {N_UNFUSED_INT8}")
     say("fused", f"launches in one forward: fused_res_block "
         f"{launches['fused_res_block']}, int8_conv {launches['int8_conv']}")
+    spec = k1["spec"]
+    blocks = [(i1, i2) for run in network._fused_stage_runs(
+        spec, k1["int8_set"]).values() for i1, i2, _ in run]
+    rest = k1["int8_set"] - {i for b in blocks for i in b}
+    bounds = {"fused_res_block": sum(block_bound(
+                  spec.layers[i1], spec.layers[i2])[0] for i1, i2 in blocks),
+              "int8_conv": sum(conv_bound(spec.layers[i])[0] for i in rest)}
+    say("fused", f"bounds over the forward: {len(blocks)} blocks "
+        f"{bounds['fused_res_block'] * 1e3:.2f} us, {len(rest)} int8 convs "
+        f"{bounds['int8_conv'] * 1e3:.2f} us")
     check_same_lines(detection_text(out), k1["k1_text"],
                      "detection lines of the fused and the int8 conv path")
     say("fused", "detection lines of the fused path and the int8 conv path "
@@ -433,7 +568,7 @@ def phase_fused(tmp: str, weights: str, names_file: str, k1: dict):
     k_ms = forward_ms(k1["kernel"], x)
     say("fused", f"warm b=1 forward: fused path {f_ms:.3f} ms, int8 conv "
         f"path {k_ms:.3f} ms (median, host clock, synchronised)")
-    return launches
+    return launches, bounds
 
 
 def phase_fp32(tmp: str, weights: str, names_file: str) -> None:
@@ -505,6 +640,11 @@ def phase_xnor_kernels() -> list:
                   f"dense +-1 engine != bit kernels at {label} ({act})")
         row = {"shape": label, "max_abs_err": float(max(
             (k3 - p3).abs().max(), (k4 - p4).abs().max()))}
+        # the +-1 multiply-adds counted as int8 operations at the int8 peak:
+        # Hopper publishes no binary tensor-core rate
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * (xp.numel() + wp.numel() + 2 * m + b * h * w * m),
+            2.0 * b * h * w * m * 9 * c)
         row["xnor_gemm_ms"] = event_ms(lambda: xnor_gemm.xnor_gemm_cuda(
             xp, wp, mean, bias, c, 1, 1, "leaky"))
         row["xnor_gemm_mxu_ms"] = event_ms(
@@ -529,7 +669,8 @@ def phase_xnor_kernels() -> list:
             f"{row['conv_popcount_ms']:.4f}, K4 {row['conv_mxu_ms']:.4f}, "
             f"dense +-1 engine {row['dense_ms']:.4f} ms; plain K3 "
             f"{row['xnor_gemm_plain_ms']:.4f}, plain K4 "
-            f"{row['xnor_gemm_mxu_plain_ms']:.4f} ms")
+            f"{row['xnor_gemm_mxu_plain_ms']:.4f} ms; bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
         rows.append(row)
     return rows
 
@@ -624,41 +765,67 @@ def main() -> int:
         with open(names_file, "w") as f:
             f.write("\n".join(names) + "\n")
         launches, k1 = phase_int8(tmp, weights, names_file, names)
-        fused_launches = phase_fused(tmp, weights, names_file, k1)
+        fused_launches, fused_bounds = phase_fused(tmp, weights, names_file,
+                                                   k1)
+        k1_bound = k1["k1_bound"]
         del k1
         phase_fp32(tmp, weights, names_file)
         xnor_rows = phase_xnor_kernels()
         xnor_launches = phase_xnor(tmp)
-    print(json.dumps({"kernels": [{
-        "name": "int8_conv", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "also_replaces": ALSO_REPLACES,
+    k1 = {
+        "kernel": "int8_conv", "route": "cuda", "source": KERNEL_SOURCE,
         "launches": launches,
         "launches_fused_path": fused_launches["int8_conv"],
+        "bound_ms_per_forward": k1_bound,
+        "bound_ms_per_fused_forward": fused_bounds["int8_conv"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in rows),
+        "ms_int8_input": sum(r["ms_int8_input"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
-        "shapes": rows}, {
-        "name": "fused_res_block", "route": "cuda", "source": FUSED_SOURCE,
-        "replaces": FUSED_REPLACES, "also_replaces": FUSED_ALSO_REPLACES,
+        **row_bound(rows),
+        "library_ms": sum(r["library_ms"] for r in rows),
+        "library": "torch._int_mm on the [P, ks*ks*C] x [ks*ks*C, M] "
+                   "product, patches gathered beforehand, no epilogue",
+        "shapes": rows}
+    k2 = {
+        "kernel": "fused_res_block", "route": "cuda", "source": FUSED_SOURCE,
         "launches": fused_launches["fused_res_block"],
+        "bound_ms_per_forward": fused_bounds["fused_res_block"],
         "max_abs_err": max(r["max_abs_err"] for r in fused_rows),
         "ms": sum(r["ms"] for r in fused_rows),
         "plain_ms": sum(r["plain_ms"] for r in fused_rows),
+        **row_bound(fused_rows),
+        "library_ms": None,
         "unfused_ms": sum(r["unfused_ms"] for r in fused_rows),
-        "shapes": fused_rows}] + [{
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": xnor_launches[impl],
-        "max_abs_err": max(r["max_abs_err"] for r in xnor_rows),
-        "ms": sum(r[f"{name}_ms"] for r in xnor_rows),
-        "plain_ms": sum(r[f"{name}_plain_ms"] for r in xnor_rows),
-        "dense_ms": sum(r["dense_ms"] for r in xnor_rows),
-        "shapes": [{"shape": r["shape"], "ms": r[f"{name}_ms"],
-                    "with_packing_ms": r[f"conv_{engine}_ms"],
-                    "plain_ms": r[f"{name}_plain_ms"],
-                    "dense_ms": r["dense_ms"]} for r in xnor_rows]}
-        for (name, (source, replaces)), impl, engine in zip(
+        "shapes": fused_rows}
+    # one row per TPU kernel; the two Pallas int8 convs (and the two fused
+    # stage forms) compute one function each and share one Hopper kernel,
+    # whose launches and times both rows carry
+    kernels = [
+        dict(name="conv3x3_int8_tiled", replaces=REPLACES, **k1),
+        dict(name="conv3x3_int8_fused", replaces=ALSO_REPLACES,
+             same_kernel_as="conv3x3_int8_tiled", **k1),
+        dict(name="fused_res_stage", replaces=FUSED_REPLACES, **k2),
+        dict(name="fused_res_stage_strips", replaces=FUSED_ALSO_REPLACES,
+             same_kernel_as="fused_res_stage", **k2)]
+    for (name, (source, replaces)), impl, engine in zip(
             XNOR_KERNELS.items(), ("pallas", "pallas_mxu"),
-            ("popcount", "mxu"))]}), flush=True)
+            ("popcount", "mxu")):
+        kernels.append({
+            "name": name, "kernel": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": xnor_launches[impl],
+            "max_abs_err": max(r["max_abs_err"] for r in xnor_rows),
+            "ms": sum(r[f"{name}_ms"] for r in xnor_rows),
+            "plain_ms": sum(r[f"{name}_plain_ms"] for r in xnor_rows),
+            **row_bound(xnor_rows),
+            "library_ms": None,
+            "dense_ms": sum(r["dense_ms"] for r in xnor_rows),
+            "shapes": [{"shape": r["shape"], "ms": r[f"{name}_ms"],
+                        "with_packing_ms": r[f"conv_{engine}_ms"],
+                        "plain_ms": r[f"{name}_plain_ms"],
+                        "dense_ms": r["dense_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"]} for r in xnor_rows]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
-"""Tests of the port that need an NVIDIA GPU: the int8 conv kernel, the
-fused residual-block kernel and the two XNOR bit kernels against their plain
-PyTorch versions on the card, the wrappers' refusals, and the Predictor's
-kernel paths against its plain path and the CPU.
+"""Tests of the port that need an NVIDIA GPU: the int8 conv kernel (both
+input entries, every cluster split and ring depth), the fused residual-block
+kernel and the two XNOR bit kernels against their plain PyTorch versions on
+the card, the wrappers' refusals, and the Predictor's kernel paths against
+its plain path and the CPU.
 
 They skip without a CUDA device. This file imports neither JAX nor the JAX
 package's tests, so it also runs on a machine without JAX:
@@ -67,6 +68,154 @@ def test_kernel_bit_identical_to_plain(dev, b, h, w, c, m, ks, stride, pad,
     assert torch.equal(out.cpu(), cpu)
 
 
+# yolov3-416's int8 conv classes (size, stride, output size), at the widths
+# yolov3 gives them: (b, h, w, c, m, ks, stride, pad)
+YOLOV3_CLASSES = [
+    (1, 208, 208, 64, 32, 1, 1, 0), (1, 104, 104, 128, 64, 1, 1, 0),
+    (1, 52, 52, 256, 128, 1, 1, 0), (1, 26, 26, 512, 256, 1, 1, 0),
+    (1, 13, 13, 1024, 512, 1, 1, 0),
+    (1, 208, 208, 32, 64, 3, 1, 1), (1, 104, 104, 64, 128, 3, 1, 1),
+    (1, 52, 52, 128, 256, 3, 1, 1), (1, 26, 26, 256, 512, 3, 1, 1),
+    (1, 13, 13, 512, 1024, 3, 1, 1),
+    (1, 416, 416, 32, 64, 3, 2, 1), (1, 208, 208, 64, 128, 3, 2, 1),
+    (1, 104, 104, 128, 256, 3, 2, 1), (1, 52, 52, 256, 512, 3, 2, 1),
+    (1, 26, 26, 512, 1024, 3, 2, 1),
+]
+RAGGED = [
+    (3, 11, 9, 36, 70, 3, 2, 1),
+    (2, 7, 5, 4, 3, 3, 1, 1),
+    (1, 1, 1, 4, 1, 1, 1, 0),
+    (5, 6, 6, 12, 65, 1, 2, 0),
+]
+
+
+def _f32_operands(dev, seed, b, h, w, c, m, ks):
+    """An f32 map whose quantized values cover the int8 range, with exact
+    zeros and values on bin edges, and int8 weights."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, h, w, c).astype(np.float32) * 4
+    x.reshape(-1)[::7] = 0.0
+    x.reshape(-1)[1::11] = 2.5          # 2.5 * 40 = 100 exactly
+    wt = rng.randint(-127, 128, (m, ks, ks, c)).astype(np.int8)
+    bias = rng.randn(m).astype(np.float32)
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(wt).to(dev),
+            torch.from_numpy(bias).to(dev))
+
+
+@pytest.mark.parametrize("shape", YOLOV3_CLASSES + RAGGED,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("activation", ["leaky", "linear"])
+def test_f32_entry_bit_identical_to_plain(dev, shape, activation):
+    """The f32-input entry (input quantize in the kernel's loader) against
+    quantize_i8 + the plain int8 conv, on the card and on the CPU."""
+    b, h, w, c, m, ks, stride, pad = shape
+    x, wt, bias = _f32_operands(dev, h * c + m, b, h, w, c, m, ks)
+    alpha = K.alpha_f32(40.0, 16.0)
+    K.reset_launch_counts()
+    out = K.conv2d_int8_f32_cuda(x, wt, bias, 40.0, alpha, stride, pad,
+                                 activation)
+    assert K.PRE_LAUNCHES["quantize"] == 0
+    ref = K.conv2d_int8_f32_plain(x, wt, bias, 40.0, alpha, stride, pad,
+                                  activation)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.equal(out, ref)
+    cpu = K.conv2d_int8_f32_plain(x.cpu(), wt.cpu(), bias.cpu(), 40.0, alpha,
+                                  stride, pad, activation)
+    assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.parametrize("shape", YOLOV3_CLASSES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_entry_bit_identical_at_yolov3_classes(dev, shape):
+    b, h, w, c, m, ks, stride, pad = shape
+    x, wt, bias = _operands(dev, h * c + m, b, h, w, c, m, ks)
+    alpha = K.alpha_f32(40.0, 16.0)
+    out = K.conv2d_int8_cuda(x, wt, bias, alpha, stride, pad, "leaky")
+    ref = K.conv2d_int8_plain(x, wt, bias, alpha, stride, pad, "leaky")
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 13, 13, 1024, 512, 1, 1, 0), (1, 13, 13, 512, 1024, 3, 1, 1),
+    (1, 26, 26, 512, 1024, 3, 2, 1), (3, 11, 9, 36, 70, 3, 2, 1),
+    (2, 7, 5, 260, 20, 1, 1, 0),
+], ids=lambda s: "x".join(map(str, s)))
+def test_every_cluster_split_bit_identical(dev, shape):
+    """Each split of K across a cluster, 1 to 8 blocks (as many as there
+    are slabs), in both input forms, against the plain version."""
+    b, h, w, c, m, ks, stride, pad = shape
+    x, wt, bias = _f32_operands(dev, c + m, b, h, w, c, m, ks)
+    x8 = K.quantize_i8(x, 40.0)
+    alpha = K.alpha_f32(40.0, 16.0)
+    ref = K.conv2d_int8_plain(x8, wt, bias, alpha, stride, pad, "leaky")
+    for f32 in (True, False):
+        base = K.plan_launch(b, h, w, c, m, ks, stride, pad, f32)
+        for split in range(1, min(K.MAX_SPLIT, base.slabs) + 1):
+            plan = base._replace(split=split)
+            if f32:
+                out = K.conv2d_int8_f32_cuda(x, wt, bias, 40.0, alpha, stride,
+                                             pad, "leaky", plan=plan)
+            else:
+                out = K.conv2d_int8_cuda(x8, wt, bias, alpha, stride, pad,
+                                         "leaky", plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (f32, split)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 13, 13, 512, 1024, 3, 1, 1), (1, 26, 26, 256, 512, 3, 2, 1),
+    (2, 7, 5, 260, 20, 1, 1, 0), (3, 11, 9, 36, 70, 3, 2, 1),
+], ids=lambda s: "x".join(map(str, s)))
+def test_every_ring_depth_bit_identical(dev, shape):
+    """Each depth of the copy ring that fits shared memory (2 to 4 slabs),
+    in both input forms, with and without a split, against the plain
+    version."""
+    b, h, w, c, m, ks, stride, pad = shape
+    x, wt, bias = _f32_operands(dev, c + 3 * m, b, h, w, c, m, ks)
+    x8 = K.quantize_i8(x, 40.0)
+    alpha = K.alpha_f32(40.0, 16.0)
+    ref = K.conv2d_int8_plain(x8, wt, bias, alpha, stride, pad, "linear")
+    for f32 in (True, False):
+        base = K.plan_launch(b, h, w, c, m, ks, stride, pad, f32)
+        for stages in K.STAGES:
+            if K._smem_bytes(base.halo_rows, ks * ks, f32,
+                             stages) > K.MAX_SMEM:
+                continue
+            for split in {1, min(2, base.slabs), base.split}:
+                plan = base._replace(stages=stages, split=split)
+                if f32:
+                    out = K.conv2d_int8_f32_cuda(x, wt, bias, 40.0, alpha,
+                                                 stride, pad, "linear",
+                                                 plan=plan)
+                else:
+                    out = K.conv2d_int8_cuda(x8, wt, bias, alpha, stride, pad,
+                                             "linear", plan=plan)
+                torch.cuda.synchronize()
+                assert torch.equal(out, ref), (f32, stages, split)
+
+
+def test_5x5_conv_takes_smaller_tiles_bit_identical(dev):
+    """5x5 convs: where two blocks of 8x8 tiles do not fit an SM, the planner
+    takes 4x8 tiles (the f32-input entry at stride 2, whose f32 halo stages
+    are large; the int8-input entry at stride 1, whose four-stage weight
+    ring is); every plan stays exact."""
+    for stride, f32_tile, int8_tile in ((2, (4, 8), (8, 8)),
+                                        (1, (8, 8), (4, 8))):
+        b, h, w, c, m, ks, pad = 2, 12, 10, 48, 40, 5, 2
+        assert K.plan_launch(b, h, w, c, m, ks, stride, pad,
+                             True)[:2] == f32_tile
+        assert K.plan_launch(b, h, w, c, m, ks, stride, pad,
+                             False)[:2] == int8_tile
+        x, wt, bias = _f32_operands(dev, 5, b, h, w, c, m, ks)
+        out = K.conv2d_int8_f32_cuda(x, wt, bias, 40.0, 0.05, stride, pad)
+        ref = K.conv2d_int8_f32_plain(x, wt, bias, 40.0, 0.05, stride, pad)
+        out8 = K.conv2d_int8_cuda(K.quantize_i8(x, 40.0), wt, bias, 0.05,
+                                  stride, pad)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref) and torch.equal(out8, ref)
+
+
 def test_saturating_requant_on_card(dev):
     """All-127 operands over K = 9 * 1024 drive the accumulator far past the
     int16 clamp, in both signs."""
@@ -86,6 +235,49 @@ def test_wrapper_counts_launches_and_dispatches_to_kernel(dev):
     K.conv2d_int8(x, wt, bias, 0.05, 1, 1)
     K.conv2d_int8_plain(x, wt, bias, 0.05, 1, 1)
     assert K.LAUNCH_COUNTS["int8_conv"] == 1
+    xf = x.float() / 40
+    K.conv2d_int8_f32(xf, wt, bias, 40.0, 0.05, 1, 1)
+    assert K.LAUNCH_COUNTS["int8_conv"] == 2
+    assert sum(K.PRE_LAUNCHES.values()) == 0
+    K.conv2d_int8_f32_plain(xf, wt, bias, 40.0, 0.05, 1, 1)
+    assert K.LAUNCH_COUNTS["int8_conv"] == 2
+    assert K.PRE_LAUNCHES["quantize"] == 1
+
+
+def test_int8_layer_on_card_is_one_launch(dev):
+    """layers.conv2d_int8 on a CUDA tensor: one kernel launch, no quantize
+    launch, and a strided input made dense (counted)."""
+    x = torch.rand(1, 16, 9, 7, device=dev).permute(0, 2, 3, 1)
+    wt = torch.randint(-127, 128, (24, 3, 3, 16), dtype=torch.int8,
+                       device=dev)
+    bias = torch.zeros(24, device=dev)
+    K.reset_launch_counts()
+    out = L.conv2d_int8(x, wt, bias, 1, 1, "leaky", 40.0, 0.05)
+    assert K.LAUNCH_COUNTS["int8_conv"] == 1
+    assert dict(K.PRE_LAUNCHES) == {"input_copy": 1}
+    ref = L.conv2d_int8(x, wt, bias, 1, 1, "leaky", 40.0, 0.05, plain=True)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("case", ["channels", "dtype", "contiguity",
+                                  "device", "shape"])
+def test_f32_wrapper_refuses_what_the_kernel_does_not_take(dev, case):
+    x, wt, bias = _f32_operands(dev, 2, 1, 6, 6, 8, 8, 3)
+    if case == "channels":
+        x, wt = x[..., :6].contiguous(), wt[..., :6].contiguous()
+        err = ValueError
+    elif case == "dtype":
+        x, err = x.to(torch.int8), TypeError
+    elif case == "contiguity":
+        x, err = x.permute(0, 2, 1, 3), ValueError
+    elif case == "device":
+        bias, err = bias.cpu(), ValueError
+    else:
+        wt, err = wt[:, :, :2].contiguous(), ValueError
+    K.reset_launch_counts()
+    with pytest.raises(err):
+        K.conv2d_int8_f32_cuda(x, wt, bias, 40.0, 0.05, 1, 1)
+    assert K.LAUNCH_COUNTS["int8_conv"] == 0
 
 
 @pytest.mark.parametrize("case", ["channels", "dtype", "contiguity",
@@ -119,6 +311,25 @@ def test_int8_kernel_path_equals_plain_path(dev, name):
     plain = Predictor(spec, params, "int8", device=dev,
                       int8_impl="plain")(x)
     for a, b in zip(kernel, plain):
+        assert torch.equal(a.data, b.data)
+
+
+def test_int8_forward_of_an_image_batch_makes_no_launch_in_front(dev):
+    """``detector test`` feeds ``im[None]``, a batch of one whose batch
+    stride is 0: the forward still launches K1 once per int8 conv and
+    nothing to quantize or densify its inputs."""
+    spec, params, _ = build_params(os.path.join(DATA, "mini-yolo3.cfg"), None,
+                                   quantized=True, echo=False)
+    im = np.random.RandomState(5).rand(spec.net.h, spec.net.w,
+                                       3).astype(np.float32)
+    pred = Predictor(spec, params, "int8", device=dev)
+    K.reset_launch_counts()
+    heads = pred(im[None])
+    n_int8 = sum(1 for l in spec.conv_layers()
+                 if l.index >= 1 and l.activation != "linear")
+    assert K.LAUNCH_COUNTS["int8_conv"] == n_int8 >= 1
+    assert not any(K.PRE_LAUNCHES.values()), dict(K.PRE_LAUNCHES)
+    for a, b in zip(heads, pred(np.ascontiguousarray(im[None]).copy())):
         assert torch.equal(a.data, b.data)
 
 

@@ -16,8 +16,7 @@ import pytest
 import torch
 
 from tests.test_fused_network import _residual_cfg
-from tests.test_torch_network import _params, shrunk_yolov3
-from yolo2_light_tpu.cfg import parse_network_cfg
+from tests.test_torch_network import _params, _specs, shrunk_yolov3
 from yolo2_light_tpu.models import network as JN
 from yolo2_light_tpu_torch.models import network as TN
 from yolo2_light_tpu_torch.models.network import Predictor
@@ -30,9 +29,9 @@ _RES_BLOCK = ("[convolutional]\nbatch_normalize=1\nfilters=16\nsize=1\n"
 
 
 def _runs(cfg):
-    spec = parse_network_cfg(cfg, batch=1)
-    int8_set = TN._int8_layer_set(spec, "cpu")
-    return (TN._fused_stage_runs(spec, int8_set),
+    spec, tspec = _specs(cfg)
+    int8_set = TN._int8_layer_set(tspec, "cpu")
+    return (TN._fused_stage_runs(tspec, int8_set),
             JN._fused_stage_runs(spec, int8_set))
 
 
@@ -111,9 +110,9 @@ def test_yolov3_fuses_all_23_blocks():
     """On yolov3-416 every residual block fuses (46 convs); 25 int8 convs
     stay on the int8 conv kernel. The JAX package on the CPU leaves the
     208x208 block (and splits the 13x13 stage) under its VMEM budget."""
-    spec = parse_network_cfg(os.path.join(DATA, "yolov3.cfg"), batch=1)
-    int8_set = TN._int8_layer_set(spec, "cpu")
-    runs = TN._fused_stage_runs(spec, int8_set)
+    spec, tspec = _specs(os.path.join(DATA, "yolov3.cfg"))
+    int8_set = TN._int8_layer_set(tspec, "cpu")
+    runs = TN._fused_stage_runs(tspec, int8_set)
     assert [len(r) for r in runs.values()] == [1, 2, 8, 8, 4]
     fused_convs = {i for r in runs.values() for i1, i2, _ in r
                    for i in (i1, i2)}
@@ -127,20 +126,20 @@ def test_yolov3_fuses_all_23_blocks():
 
 
 def _inputs(cfg, batch=2, seed=7):
-    spec = parse_network_cfg(cfg, batch=1)
+    spec, tspec = _specs(cfg)
     params = _params(spec, "int8")
     x = np.random.RandomState(seed).rand(batch, spec.net.h, spec.net.w,
                                          spec.net.c).astype(np.float32)
-    return spec, params, x
+    return spec, tspec, params, x
 
 
 @pytest.mark.parametrize("name", ["mini-res", "shrunk-yolov3"])
 def test_fused_predictor_equals_unfused_path(tmp_path, name):
-    spec, params, x = _inputs(CFGS[name](tmp_path))
+    _, tspec, params, x = _inputs(CFGS[name](tmp_path))
     K.reset_launch_counts()
-    fused = Predictor(spec, params, "int8", device="cpu",
+    fused = Predictor(tspec, params, "int8", device="cpu",
                       int8_impl="fused")(x)
-    unfused = Predictor(spec, params, "int8", device="cpu")(x)
+    unfused = Predictor(tspec, params, "int8", device="cpu")(x)
     assert sum(K.LAUNCH_COUNTS.values()) == 0
     assert len(fused) == len(unfused) >= 1
     for a, b in zip(fused, unfused):
@@ -149,9 +148,9 @@ def test_fused_predictor_equals_unfused_path(tmp_path, name):
 
 @pytest.mark.parametrize("name", ["mini-res", "shrunk-yolov3"])
 def test_fused_predictor_matches_jax_fused(tmp_path, name):
-    spec, params, x = _inputs(CFGS[name](tmp_path))
+    spec, tspec, params, x = _inputs(CFGS[name](tmp_path))
     ref = JN.Predictor(spec, params, "int8", int8_impl="fused")(x)
-    out = Predictor(spec, params, "int8", device="cpu", int8_impl="fused")(x)
+    out = Predictor(tspec, params, "int8", device="cpu", int8_impl="fused")(x)
     assert len(out) == len(ref) >= 1
     for o, r in zip(out, ref):
         assert (o.index, o.kind) == (r.index, r.kind)
@@ -160,15 +159,15 @@ def test_fused_predictor_matches_jax_fused(tmp_path, name):
 
 
 def test_gpu_policy_stays_unported_with_fused():
-    spec = parse_network_cfg(MINI_RES, batch=1)
+    _, tspec = _specs(MINI_RES)
     with pytest.raises(NotImplementedError, match="int8_policy gpu"):
-        TN.build_forward(spec, "int8", int8_policy="gpu", int8_impl="fused")
+        TN.build_forward(tspec, "int8", int8_policy="gpu", int8_impl="fused")
 
 
 def test_fused_in_fp32_mode_runs_the_fp32_path():
-    spec = parse_network_cfg(MINI_RES, batch=1)
+    spec, tspec = _specs(MINI_RES)
     params = _params(spec, "fp32")
     x = np.random.RandomState(1).rand(1, 32, 32, 3).astype(np.float32)
-    a = Predictor(spec, params, "fp32", device="cpu", int8_impl="fused")(x)
-    b = Predictor(spec, params, "fp32", device="cpu")(x)
+    a = Predictor(tspec, params, "fp32", device="cpu", int8_impl="fused")(x)
+    b = Predictor(tspec, params, "fp32", device="cpu")(x)
     assert torch.equal(a[0].data, b[0].data)

@@ -1,0 +1,228 @@
+"""The port's copies of the JAX package's NumPy host chain (cfg, tree, datacfg,
+weights, quant, native, io/image, post/boxes) against the modules they
+mirror: the same inputs give equal results, bit for bit.
+
+The port carries these copies so that it imports nothing of the JAX package;
+each side parses its own spec, since the modules dispatch on their own spec
+classes. Nothing here needs a card.
+"""
+
+import dataclasses
+import glob
+import os
+
+import numpy as np
+import pytest
+
+from yolo2_light_tpu import cfg as JC
+from yolo2_light_tpu import datacfg as JD
+from yolo2_light_tpu import native as JNat
+from yolo2_light_tpu import quant as JQ
+from yolo2_light_tpu import tree as JT
+from yolo2_light_tpu import weights as JW
+from yolo2_light_tpu.io import image as JI
+from yolo2_light_tpu.post import boxes as JB
+from yolo2_light_tpu_torch import cfg as TC
+from yolo2_light_tpu_torch import datacfg as TD
+from yolo2_light_tpu_torch import native as TNat
+from yolo2_light_tpu_torch import quant as TQ
+from yolo2_light_tpu_torch import tree as TT
+from yolo2_light_tpu_torch import weights as TW
+from yolo2_light_tpu_torch.io import image as TI
+from yolo2_light_tpu_torch.post import boxes as TB
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+CFGS = sorted(glob.glob(os.path.join(DATA, "*.cfg")))
+IMAGE = os.path.join(DATA, "dog160.png")
+NET_CFGS = ["mini-yolo3", "mini-yolo2", "mini-res", "mini-xnor"]
+
+
+def _assert_same(a, b, where="value"):
+    """Deep equality of nested dicts/lists/tuples/arrays (arrays: equal
+    dtype, shape and bits)."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    elif isinstance(a, dict):
+        assert isinstance(b, dict) and a.keys() == b.keys(), where
+        for k in a:
+            _assert_same(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{where}[{i}]")
+    else:
+        assert type(a) is type(b) and a == b, (where, a, b)
+
+
+def _specs(name):
+    path = os.path.join(DATA, f"{name}.cfg")
+    return JC.parse_network_cfg(path, batch=1), TC.parse_network_cfg(
+        path, batch=1)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("path", CFGS, ids=os.path.basename)
+def test_every_cfg_parses_to_the_same_spec(path, quantized):
+    j = JC.parse_network_cfg(path, batch=1, quantized=quantized)
+    t = TC.parse_network_cfg(path, batch=1, quantized=quantized)
+    assert [type(l).__name__ for l in t.layers] == [
+        type(l).__name__ for l in j.layers]
+    _assert_same(dataclasses.asdict(t), dataclasses.asdict(j))
+
+
+def test_tree_map_and_datacfg_match(tmp_path):
+    tree = tmp_path / "t.tree"
+    tree.write_text("root\nanimal 0\nplant 0\ncat 1\ndog 1\noak 2\n")
+    _assert_same(dataclasses.asdict(TT.read_tree(str(tree))),
+                 dataclasses.asdict(JT.read_tree(str(tree))))
+    t, j = TT.read_tree(str(tree)), JT.read_tree(str(tree))
+    assert TT.softmax_groups(t) == JT.softmax_groups(j)
+    pred = np.random.RandomState(0).rand(3, t.n).astype(np.float32)
+    _assert_same(TT.hierarchy_predictions(pred, t, True),
+                 JT.hierarchy_predictions(pred, j, True))
+    mp = tmp_path / "m.map"
+    mp.write_text("3\n1\n0\n")
+    assert TT.read_map(str(mp)) == JT.read_map(str(mp))
+    names = tmp_path / "n.names"
+    names.write_text("a\nb b\n\nc\n")
+    data = tmp_path / "d.data"
+    data.write_text(f"classes = 3\nnames = {names}\nvalid=v.txt\n# note\n")
+    assert TD.read_data_cfg(str(data)) == JD.read_data_cfg(str(data))
+    assert TD.load_names(str(names)) == JD.load_names(str(names))
+
+
+@pytest.mark.parametrize("name", NET_CFGS)
+def test_random_params_save_load_and_fuse_match(tmp_path, name):
+    j_spec, t_spec = _specs(name)
+    jp, tp = JW.random_params(j_spec, seed=5), TW.random_params(t_spec, seed=5)
+    _assert_same(tp, jp)
+    JW.save_weights(j_spec, jp, str(tmp_path / "j.weights"))
+    TW.save_weights(t_spec, tp, str(tmp_path / "t.weights"))
+    assert ((tmp_path / "t.weights").read_bytes()
+            == (tmp_path / "j.weights").read_bytes())
+    jl = JW.load_weights(j_spec, str(tmp_path / "j.weights"))
+    tl = TW.load_weights(t_spec, str(tmp_path / "j.weights"))
+    _assert_same(tl, jl)
+    tf, jf = TW.fuse_conv_batchnorm(t_spec, tl), JW.fuse_conv_batchnorm(j_spec,
+                                                                        jl)
+    _assert_same(tf, jf)
+    assert TW.is_fused(tf) and JW.is_fused(jf)
+
+
+def test_dontload_layers_get_darknet_init_weights(tmp_path):
+    """A ``dontload=1`` conv keeps darknet's construction-time weights, the
+    glibc rand() stream of utils/crand, on both sides."""
+    from yolo2_light_tpu.utils import crand as jcrand
+    from yolo2_light_tpu_torch.utils import crand as tcrand
+    j_spec, t_spec = _specs("mini-dontload")
+    assert any(getattr(l, "dontload", False) for l in t_spec.layers)
+    _assert_same(tcrand.darknet_conv_init(t_spec),
+                 jcrand.darknet_conv_init(j_spec))
+    path = str(tmp_path / "d.weights")
+    JW.save_weights(j_spec, JW.random_params(j_spec, seed=2), path)
+    _assert_same(TW.load_weights(t_spec, path), JW.load_weights(j_spec, path))
+
+
+@pytest.mark.parametrize("name", NET_CFGS)
+def test_quantize_params_match(name):
+    j_spec, t_spec = _specs(name)
+    fused = JW.fuse_conv_batchnorm(j_spec, JW.random_params(j_spec, seed=9))
+    tq, jq = TQ.quantize_params(t_spec, fused), JQ.quantize_params(j_spec,
+                                                                   fused)
+    _assert_same(tq, jq)
+    assert any(p is not None and "weights_int8" in p for p in tq)
+    assert TQ.R_MULT == JQ.R_MULT
+
+
+def test_quant_helpers_match():
+    arr = np.random.RandomState(2).randn(5000).astype(np.float32) * 3
+    assert TQ.get_multiplier(arr) == JQ.get_multiplier(arr)
+    _assert_same(TQ.get_distribution(arr), JQ.get_distribution(arr))
+    _assert_same(TQ._max_abs_trunc(arr * 40, 127),
+                 JQ._max_abs_trunc(arr * 40, 127))
+    assert TQ.entropy_calibration(arr) == JQ.entropy_calibration(arr)
+
+
+def test_image_load_resize_letterbox_byte_identical():
+    j, t = JI.load_image(IMAGE), TI.load_image(IMAGE)
+    assert t.tobytes() == j.tobytes() and t.shape == j.shape
+    for w, h in ((64, 64), (97, 41), (416, 416)):
+        assert (TI.resize_image(t, w, h).tobytes()
+                == JI.resize_image(j, w, h).tobytes())
+        assert (TI.letterbox_image(t, w, h).tobytes()
+                == JI.letterbox_image(j, w, h).tobytes())
+    assert TI.to_batch(t).tobytes() == JI.to_batch(j).tobytes()
+
+
+def _random_heads(spec, seed):
+    """Random post-activation head maps of ``spec``'s heads, [H,W,n,entries],
+    with a tenth of the objectness set to 0 (the NMS compaction path)."""
+    rng = np.random.RandomState(seed)
+    heads = []
+    for l in spec.layers:
+        if isinstance(l, (JC.YoloSpec, JC.RegionSpec)):
+            entries = (5 + l.classes if isinstance(l, JC.YoloSpec)
+                       else l.coords + 1 + l.classes)
+            n = len(l.mask) if isinstance(l, JC.YoloSpec) else l.n
+            hd = rng.rand(l.h, l.w, n, entries).astype(np.float32)
+            obj = 4 if isinstance(l, JC.YoloSpec) else l.coords
+            hd[..., obj][rng.rand(l.h, l.w, n) < 0.1] = 0.0
+            heads.append(hd)
+    return heads
+
+
+@pytest.mark.parametrize("name", ["mini-yolo3", "mini-yolo2"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_decode_nms_and_print_lines_match(name, seed):
+    j_spec, t_spec = _specs(name)
+    heads = _random_heads(j_spec, seed)
+    names = [f"c{i}" for i in range(80)]
+    j_specs = [l for l in j_spec.layers
+               if isinstance(l, (JC.YoloSpec, JC.RegionSpec))]
+    t_specs = [l for l in t_spec.layers
+               if isinstance(l, (TC.YoloSpec, TC.RegionSpec))]
+    net = (j_spec.net.w, j_spec.net.h)
+    jd = JB.get_network_boxes([h.copy() for h in heads], j_specs, 160, 120,
+                              *net, 0.2)
+    td = TB.get_network_boxes([h.copy() for h in heads], t_specs, 160, 120,
+                              *net, 0.2)
+    _assert_same(dataclasses.asdict(td), dataclasses.asdict(jd))
+    jd, td = JB.do_nms_sort(jd, jd.prob.shape[1], 0.45), TB.do_nms_sort(
+        td, td.prob.shape[1], 0.45)
+    _assert_same(td.nms_order, jd.nms_order)
+    _assert_same(td.prob, jd.prob)
+    tl = TB.format_detections(td, names, 0.2, 160, 120)
+    jl = JB.format_detections(jd, names, 0.2, 160, 120)
+    assert tl == jl and tl.count("\n") >= 5
+
+
+def test_native_nms_and_resize_match():
+    assert TNat.get_lib() is not None and JNat.get_lib() is not None
+    rng = np.random.RandomState(4)
+    n, classes = 300, 7
+    bbox = rng.rand(n, 4).astype(np.float32)
+    bbox[:, 2:] *= 0.3
+    obj = rng.rand(n).astype(np.float32)
+    obj[rng.rand(n) < 0.2] = 0.0
+    prob = np.where(rng.rand(n, classes) < 0.5, 0.0,
+                    rng.rand(n, classes)).astype(np.float32)
+    jp, tp = prob.copy(), prob.copy()
+    jo = JNat.nms_sort_native(bbox, jp, obj, 0.45)
+    to = TNat.nms_sort_native(bbox, tp, obj, 0.45)
+    _assert_same(to, jo)
+    _assert_same(tp, jp)
+    assert not np.array_equal(tp, prob)       # the NMS suppressed something
+    im = rng.rand(37, 53, 3).astype(np.float32)
+    for w, h in ((16, 16), (80, 20), (53, 37)):
+        _assert_same(TNat.resize_hwc_native(im, w, h),
+                     JNat.resize_hwc_native(im, w, h))
+
+
+def test_native_library_builds_inside_the_checkout():
+    lib = TNat.get_lib()
+    assert lib is not None
+    build = os.path.join(os.path.dirname(DATA), os.pardir, "build", "native")
+    assert glob.glob(os.path.join(os.path.abspath(build),
+                                  "libyolo2native-*.so"))

@@ -1,8 +1,10 @@
-"""The port never imports JAX, directly or through the modules it reuses, and
-its chip check refuses to run without a CUDA device."""
+"""The port never imports JAX or the JAX package: it carries its own copies
+of the host modules it needs. Its chip check refuses to run without a CUDA
+device."""
 
 import os
 import pkgutil
+import re
 import shutil
 import subprocess
 import sys
@@ -39,13 +41,16 @@ def test_port_modules_are_found():
 def test_port_imports_with_jax_blocked():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['yolo2_light_tpu'] = None\n"
             "import importlib\n"
             f"for m in {_port_modules()!r}:\n"
             "    importlib.import_module(m)\n"
             "import chip_smoke\n"
             "loaded = sorted(k for k, v in sys.modules.items()\n"
             "                if v is not None and (k == 'jax'\n"
-            "                or k.startswith(('jax.', 'jaxlib'))))\n"
+            "                or k.startswith(('jax.', 'jaxlib'))\n"
+            "                or k == 'yolo2_light_tpu'\n"
+            "                or k.startswith('yolo2_light_tpu.')))\n"
             "assert not loaded, loaded\n"
             "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -53,6 +58,11 @@ def test_port_imports_with_jax_blocked():
                        env=dict(os.environ, PYTHONPATH=REPO))
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip() == "ok"
+
+
+# ``import yolo2_light_tpu``, ``from yolo2_light_tpu.x import`` and the like;
+# not ``yolo2_light_tpu_torch``
+_JAX_PACKAGE_IMPORT = re.compile(r"^(import|from)\s+yolo2_light_tpu(\.|\s|$)")
 
 
 def test_no_jax_import_statements():
@@ -64,6 +74,17 @@ def test_no_jax_import_statements():
             for line in f:
                 s = line.strip()
                 assert not s.startswith(("import jax", "from jax")), (path, s)
+                assert not _JAX_PACKAGE_IMPORT.match(s), (path, s)
+
+
+def test_the_package_import_pattern():
+    for s in ("import yolo2_light_tpu", "from yolo2_light_tpu.cfg import X",
+              "from yolo2_light_tpu import quant",
+              "import yolo2_light_tpu.weights as w"):
+        assert _JAX_PACKAGE_IMPORT.match(s), s
+    for s in ("import yolo2_light_tpu_torch",
+              "from yolo2_light_tpu_torch.cfg import X", "from . import cfg"):
+        assert not _JAX_PACKAGE_IMPORT.match(s), s
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():

@@ -217,11 +217,11 @@ def test_conv2d_int8_hands_the_kernel_dense_nhwc(monkeypatch):
     from yolo2_light_tpu_torch.ops import int8_conv
     seen = []
 
-    def record(xi, *args):
-        seen.append(xi.is_contiguous())
-        return int8_conv.conv2d_int8_plain(xi, *args)
+    def record(xf, *args):
+        seen.append(xf.is_contiguous())
+        return int8_conv.conv2d_int8_f32_plain(xf, *args)
 
-    monkeypatch.setattr(int8_conv, "conv2d_int8", record)
+    monkeypatch.setattr(int8_conv, "conv2d_int8_f32", record)
     x = torch.rand(1, 8, 6, 5).permute(0, 2, 3, 1)      # NHWC view of NCHW
     assert not x.is_contiguous()
     w = torch.randint(-127, 128, (4, 3, 3, 8), dtype=torch.int8)

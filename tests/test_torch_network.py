@@ -17,10 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from yolo2_light_tpu.cfg import ShortcutSpec, parse_network_cfg
+from yolo2_light_tpu.cfg import parse_network_cfg
 from yolo2_light_tpu.models.network import Predictor as JaxPredictor
 from yolo2_light_tpu.quant import quantize_params
 from yolo2_light_tpu.weights import fuse_conv_batchnorm, random_params
+from yolo2_light_tpu_torch import cfg as TC
 from yolo2_light_tpu_torch.models import network as TN
 from yolo2_light_tpu_torch.models.network import Predictor
 
@@ -47,13 +48,21 @@ def _params(spec, mode, seed=3):
     return quantize_params(spec, params) if mode == "int8" else params
 
 
+def _specs(cfg, **kwargs):
+    """``cfg`` parsed by each side: the JAX package's spec for its own code
+    (params included), the port's for the port, whose layer dispatch checks
+    its own spec classes."""
+    return (parse_network_cfg(cfg, batch=1, **kwargs),
+            TC.parse_network_cfg(cfg, batch=1, **kwargs))
+
+
 def _compare(cfg, mode):
-    spec = parse_network_cfg(cfg, batch=1)
+    spec, tspec = _specs(cfg)
     params = _params(spec, mode)
     x = np.random.RandomState(7).rand(2, spec.net.h, spec.net.w,
                                       spec.net.c).astype(np.float32)
     ref = JaxPredictor(spec, params, mode)(x)
-    out = Predictor(spec, params, mode, device="cpu")(x)
+    out = Predictor(tspec, params, mode, device="cpu")(x)
     assert len(out) == len(ref) >= 1
     for o, r in zip(out, ref):
         assert (o.index, o.kind) == (r.index, r.kind)
@@ -76,10 +85,10 @@ def test_shrunk_yolov3_matches_jax(tmp_path, mode):
 def test_yolov3_cfg_topology():
     """tests/data/yolov3.cfg (scripts/gen_yolov3_cfg.py) is darknet's
     yolov3-416: the counts test_cfg.py expects of the reference file."""
-    spec = parse_network_cfg(YOLOV3, batch=1)
+    spec = TC.parse_network_cfg(YOLOV3, batch=1)
     assert spec.n == 107
     assert len(spec.conv_layers()) == 75
-    assert sum(isinstance(l, ShortcutSpec) for l in spec.layers) == 23
+    assert sum(isinstance(l, TC.ShortcutSpec) for l in spec.layers) == 23
     assert spec.head_indices() == [82, 94, 106]
     heads = [spec.layers[i] for i in spec.head_indices()]
     assert [(l.w, l.h, l.c) for l in heads] == [(13, 13, 255), (26, 26, 255),
@@ -117,12 +126,12 @@ def test_int8_layer_set_and_consumers_match_jax():
     from yolo2_light_tpu.models import network as JN
     for name in ("mini-yolo3", "mini-yolo2", "mini-res", "mini-routeflat",
                  "mini-dontload"):
-        spec = parse_network_cfg(os.path.join(DATA, f"{name}.cfg"), batch=1,
-                                 quantized=True)
+        spec, tspec = _specs(os.path.join(DATA, f"{name}.cfg"),
+                             quantized=True)
         for policy in ("cpu", "gpu"):
-            assert (TN._int8_layer_set(spec, policy)
+            assert (TN._int8_layer_set(tspec, policy)
                     == JN._int8_layer_set(spec, policy))
-        assert TN._consumers(spec) == JN._consumers(spec)
+        assert TN._consumers(tspec) == JN._consumers(spec)
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -135,13 +144,13 @@ def test_int8_layer_set_and_consumers_match_jax():
     (dict(mode="fp32", compute_dtype=torch.bfloat16), "bf16"),
 ])
 def test_unported_modes_raise(kwargs, match):
-    spec = parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
+    spec = TC.parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
     with pytest.raises(NotImplementedError, match=match):
         TN.build_forward(spec, **kwargs)
 
 
 def test_unknown_engine_and_policy_are_value_errors():
-    spec = parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
+    spec = TC.parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
     with pytest.raises(ValueError, match="int8_impl"):
         TN.build_forward(spec, "int8", int8_impl="triton")
     with pytest.raises(ValueError, match="policy"):
@@ -153,13 +162,13 @@ def test_xnor_conv_not_yet_ported():
     engine, and its default engine matches the JAX Predictor
     (tests/test_torch_xnor.py holds every engine to it)."""
     from yolo2_light_tpu.xnor import binarize_params
-    spec = parse_network_cfg(os.path.join(DATA, "mini-xnor.cfg"), batch=1)
+    spec, tspec = _specs(os.path.join(DATA, "mini-xnor.cfg"))
     for engine in TN.XNOR_IMPLS:
-        TN.build_forward(spec, "fp32", xnor_impl=engine)
+        TN.build_forward(tspec, "fp32", xnor_impl=engine)
     params = binarize_params(spec, _params(spec, "fp32"))
     x = np.random.RandomState(7).rand(2, 64, 64, 3).astype(np.float32)
     ref = JaxPredictor(spec, params)(x)
-    out = Predictor(spec, params, device="cpu")(x)
+    out = Predictor(tspec, params, device="cpu")(x)
     np.testing.assert_allclose(out[0].data.numpy(), np.asarray(ref[0].data),
                                rtol=1e-4, atol=1e-5)
 
@@ -176,14 +185,14 @@ def test_softmax_layer_cfg_not_yet_ported(tmp_path):
     cfg.write_text("[net]\nwidth=8\nheight=8\nchannels=3\n\n"
                    "[convolutional]\nfilters=4\nsize=1\nstride=1\n"
                    "activation=leaky\n\n[softmax]\ngroups=1\n")
-    spec = parse_network_cfg(str(cfg), batch=1)
+    spec = TC.parse_network_cfg(str(cfg), batch=1)
     with pytest.raises(NotImplementedError, match="softmax"):
         TN.build_forward(spec, "fp32")
 
 
 def test_predictor_holds_params_as_buffers_on_its_device():
-    spec = parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
-    pred = Predictor(spec, _params(spec, "int8"), "int8", device="cpu")
+    spec, tspec = _specs(os.path.join(DATA, "mini-yolo3.cfg"))
+    pred = Predictor(tspec, _params(spec, "int8"), "int8", device="cpu")
     names = dict(pred.named_buffers())
     assert names and all(t.device.type == "cpu" for t in names.values())
     # int8 convs keep only their int8 weights; float convs their f32 weights
@@ -198,17 +207,17 @@ def test_predictor_holds_params_as_buffers_on_its_device():
 def test_cuda_predictor_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a host without a CUDA device")
-    spec = parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
+    spec, tspec = _specs(os.path.join(DATA, "mini-yolo3.cfg"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Predictor(spec, _params(spec, "int8"), "int8", device="cuda")
+        Predictor(tspec, _params(spec, "int8"), "int8", device="cuda")
 
 
 def test_plain_engine_equals_default_on_cpu():
-    spec = parse_network_cfg(os.path.join(DATA, "mini-res.cfg"), batch=1)
+    spec, tspec = _specs(os.path.join(DATA, "mini-res.cfg"))
     params = _params(spec, "int8")
     x = np.random.RandomState(2).rand(1, spec.net.h, spec.net.w,
                                       3).astype(np.float32)
-    a = Predictor(spec, params, "int8", device="cpu")(x)
-    b = Predictor(spec, params, "int8", device="cpu", int8_impl="plain")(x)
+    a = Predictor(tspec, params, "int8", device="cpu")(x)
+    b = Predictor(tspec, params, "int8", device="cpu", int8_impl="plain")(x)
     for ha, hb in zip(a, b):
         assert torch.equal(ha.data, hb.data)

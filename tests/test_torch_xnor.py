@@ -35,6 +35,7 @@ from yolo2_light_tpu.ops.pallas_xnor import (_pack_activations,
 from yolo2_light_tpu.weights import (fuse_conv_batchnorm, random_params,
                                      save_weights)
 from yolo2_light_tpu.xnor import binarize_params as jax_binarize
+from yolo2_light_tpu_torch import cfg as TC
 from yolo2_light_tpu_torch.apps.cli import main as torch_main
 from yolo2_light_tpu_torch.models import layers as L
 from yolo2_light_tpu_torch.models import network as TN
@@ -91,14 +92,17 @@ def _jax_conv(x, sign, mean, bias, stride=1, pad=1, activation="leaky"):
 
 
 def _mini_params(seed=6):
+    """mini-xnor parsed by each side (the port's layer dispatch checks its
+    own spec classes) and the JAX package's params for it."""
     spec = parse_network_cfg(MINI, batch=1)
-    return spec, fuse_conv_batchnorm(spec, random_params(spec, seed=seed))
+    return (spec, TC.parse_network_cfg(MINI, batch=1),
+            fuse_conv_batchnorm(spec, random_params(spec, seed=seed)))
 
 
 def test_binarize_params_matches_jax():
-    spec, params = _mini_params()
-    ours, ref = binarize_params(spec, params), jax_binarize(spec, params)
-    assert has_xnor(spec)
+    spec, tspec, params = _mini_params()
+    ours, ref = binarize_params(tspec, params), jax_binarize(spec, params)
+    assert has_xnor(tspec)
     n_xnor = 0
     for l, p, r in zip(spec.layers, ours, ref):
         if not (isinstance(l, ConvSpec) and l.xnor):
@@ -272,15 +276,16 @@ def shrunk_tiny_xnor(tmp_path, size=64, div=8):
 
 
 def _compare_network(cfg, seed=6):
-    spec = parse_network_cfg(cfg, batch=1)
+    spec, tspec = parse_network_cfg(cfg, batch=1), TC.parse_network_cfg(
+        cfg, batch=1)
     base = fuse_conv_batchnorm(spec, random_params(spec, seed=seed))
-    ours, ref = binarize_params(spec, base), jax_binarize(spec, base)
+    ours, ref = binarize_params(tspec, base), jax_binarize(spec, base)
     x = np.random.RandomState(3).rand(2, spec.net.h, spec.net.w,
                                       spec.net.c).astype(np.float32)
     heads = {}
     for eng in ENGINES:
         r = JaxPredictor(spec, ref, xnor_impl=eng)(x)
-        o = Predictor(spec, ours, device="cpu", xnor_impl=eng)(x)
+        o = Predictor(tspec, ours, device="cpu", xnor_impl=eng)(x)
         assert len(o) == len(r) >= 1
         for a, b in zip(o, r):
             assert (a.index, a.kind) == (b.index, b.kind)
@@ -303,11 +308,11 @@ def test_shrunk_tiny_xnor_network_matches_jax(tmp_path):
 def test_predictor_accepts_jax_binarized_params():
     """A params list binarized by the JAX package carries its TPU-layout
     packed_weights; the port packs its own from sign_weights instead."""
-    spec, params = _mini_params()
+    spec, tspec, params = _mini_params()
     x = np.random.RandomState(2).rand(1, 64, 64, 3).astype(np.float32)
-    a = Predictor(spec, binarize_params(spec, params), device="cpu",
+    a = Predictor(tspec, binarize_params(tspec, params), device="cpu",
                   xnor_impl="pallas")(x)
-    b = Predictor(spec, jax_binarize(spec, params), device="cpu",
+    b = Predictor(tspec, jax_binarize(spec, params), device="cpu",
                   xnor_impl="pallas")(x)
     assert torch.equal(a[0].data, b[0].data)
 
@@ -319,8 +324,8 @@ def test_predictor_accepts_jax_binarized_params():
     ("auto", {"sign_weights", "packed_weights"}),
 ])
 def test_predictor_keeps_the_weights_of_its_engines(engine, kept):
-    spec, params = _mini_params()
-    pred = Predictor(spec, binarize_params(spec, params), device="cpu",
+    _, tspec, params = _mini_params()
+    pred = Predictor(tspec, binarize_params(tspec, params), device="cpu",
                      xnor_impl=engine)
     names = dict(pred.named_buffers())
     assert "l0_weights" in names and "l0_sign_weights" not in names
@@ -337,7 +342,7 @@ def test_predictor_keeps_the_weights_of_its_engines(engine, kept):
 def test_engine_dispatch_rule():
     """The bit engines run only on the bit path; auto takes K4 at GEMM
     M = batch*oh*ow up to the port's threshold and the dense conv above."""
-    spec = parse_network_cfg(TINY, batch=1)
+    spec = TC.parse_network_cfg(TINY, batch=1)
     conv = spec.layers[13]                      # 13x13, 1024 -> 1024
     assert TN._xnor_engine(conv, "pallas", 1) == "pallas"
     assert TN._xnor_engine(conv, "pallas_mxu", 1) == "pallas_mxu"
@@ -354,7 +359,7 @@ def test_engine_dispatch_rule():
 
 
 def test_unknown_xnor_impl_is_a_value_error():
-    spec = parse_network_cfg(MINI, batch=1)
+    spec = TC.parse_network_cfg(MINI, batch=1)
     with pytest.raises(ValueError, match=r"unknown xnor_impl 'popcount' "
                        r"\(expected int8, pallas, pallas_mxu, or auto\)"):
         TN.build_forward(spec, xnor_impl="popcount")

@@ -111,8 +111,7 @@ def _main(argv=None) -> int:
                   "plain PyTorch path", file=sys.stderr)
             return 1
 
-    from yolo2_light_tpu.datacfg import load_names
-
+    from ..datacfg import load_names
     from .detect import run
     names = load_names(obj_names)
     run(names, cfg, weights, filename, thresh=thresh, quantized=quantized,

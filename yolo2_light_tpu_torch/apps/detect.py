@@ -2,7 +2,8 @@
 
 Pipeline: parse cfg -> load weights -> fuse BN -> (quantize INT8) -> resize
 image (darknet bilinear) -> forward on the device -> decode -> NMS -> print +
-draw. Everything but the forward is the JAX package's NumPy host code.
+draw. Everything but the forward is NumPy host code, the port's copy of
+the JAX package's (``cfg``, ``weights``, ``quant``, ``io``, ``post``).
 """
 
 from __future__ import annotations
@@ -12,14 +13,12 @@ import time
 
 import numpy as np
 
-from yolo2_light_tpu.cfg import ConvSpec, SoftmaxSpec, parse_network_cfg
-from yolo2_light_tpu.io import image as im_io
-from yolo2_light_tpu.post import boxes as post
-from yolo2_light_tpu.quant import quantize_params
-from yolo2_light_tpu.weights import (fuse_conv_batchnorm, load_weights,
-                                     random_params)
-
+from ..cfg import ConvSpec, SoftmaxSpec, parse_network_cfg
+from ..io import image as im_io
 from ..models.network import Predictor
+from ..post import boxes as post
+from ..quant import quantize_params
+from ..weights import fuse_conv_batchnorm, load_weights, random_params
 from ..xnor import binarize_params
 
 

@@ -1,167 +1,498 @@
-// INT8 implicit-GEMM convolution with the reference's int8-"cpu" epilogue.
+// INT8 implicit-GEMM convolution on the tensor cores, with the reference's
+// int8-"cpu" input quantize and requant epilogue fused.
 //
 // Replaces the Pallas kernels yolo2_light_tpu/ops/pallas_int8.py
 // conv3x3_int8_fused (v1) and conv3x3_int8_tiled (v2), and extends them to
-// every int8-eligible conv of a darknet net: size 1 or 3, stride 1 or 2, any
-// pad. Both Pallas kernels compute the same function:
+// every int8-eligible conv of a darknet net (any size, stride and pad whose
+// tiles fit in shared memory: sizes 1 to 5 at strides 1 and 2). The function:
 //
-//   acc = sum_{ky,kx,c} x[b, oy*s-pad+ky, ox*s-pad+kx, c] * w[m, ky, kx, c]
-//         (int8 x int8, int32 accumulation, zero padding)
-//   q   = clamp(trunc_div(acc, 2^shift), +-32767)     (int16 store in the C)
-//   y   = q * alpha + bias[m]                         (two roundings, no FMA)
-//   y   = y > 0 ? y : y / 10                          (leaky, IEEE division)
+//   xq  = clamp(trunc(x * input_mult), +-127)          (f32-input entry only)
+//   acc = sum_{ky,kx,c} xq[b, oy*s-pad+ky, ox*s-pad+kx, c] * w[m, ky, kx, c]
+//         (int8 x int8, int32 accumulation, zero padding of xq)
+//   q   = clamp(trunc_div(acc, 2^shift), +-32767)
+//   y   = q * alpha + bias[m]                           (two roundings)
+//   y   = y > 0 ? y : y / 10                            (leaky, IEEE division)
 //
-// Layouts: x NHWC int8, w [M][ks][ks][C] int8 (laid out once at load time so
-// the reduction runs along contiguous channels), out NHWC float32.
+// Layouts: x NHWC (float32 for the f32-input entry, int8 for the int8-input
+// entry that the Pallas signatures use), w [M][ks][ks][C] int8, out NHWC f32.
 //
-// What bounds it on an H100: at yolov3-416's shapes (b=1) every conv does
-// 100-500 int8 ops per byte of device memory it touches, so the limit is the
-// arithmetic throughput of __dp4a on the CUDA cores (4 MACs per instruction),
-// not HBM; the 13x13 1x1 convs also launch too few blocks to fill 132 SMs.
-// What the design does about it: each 256-thread block owns a 64-pixel x
-// 64-channel output tile and streams the K = ks*ks*C reduction through shared
-// memory 32 bytes at a time, so each loaded byte feeds 64 multiply-adds; every
-// thread keeps a 4x4 register tile of int32 accumulators that never leaves
-// registers, reads its operands as 16-byte shared-memory vectors, and runs the
-// whole epilogue in registers, so device memory sees one read of each operand
-// tile and one f32 write of the output. Tensor-core MMA (wgmma) and TMA
-// pipelining are the next steps.
+// What bounds it on an H100: at yolov3-416's shapes (b=1) the least time is
+// the bytes (the f32 input read once, the weights, the f32 output written
+// once: 0.5-10 us a conv at 3.35 TB/s); the int8 tensor cores need a tenth
+// of that. Measured, a block takes 8-25 us from start to end, in one or two
+// waves: its prologue, its first slab's copies, ldmatrix traffic (12 KB of
+// shared memory a K step for 64x64 outputs) and its epilogue, not the bytes
+// or the MMAs. So what counts is how many blocks share an SM (the planner
+// maximises it) and that the grid covers the card. What the design does:
 //
-// Traps handled here: the epilogue (int8_epilogue.cuh) uses
+// * Output tiles of 64 pixels x 64 channels, eight warps of 32x16, each
+//   K step one mma.sync m16n8k32 s8 per m16n8 tile, fragments by ldmatrix
+//   (int8_mma.cuh). A 1x1/s1/p0 conv tiles the pixels flat (a plain GEMM);
+//   every other conv takes an 8x8 spatial tile (4x8 where two blocks of 8x8
+//   would not share an SM, as at the f32 entry's 3x3/s2 convs; their other
+//   32 rows of MMAs run on zeros) whose input halo is staged once per slab
+//   and read by every tap: each input element is loaded and quantized once
+//   per block, not once per tap.
+// * K runs in slabs of 32 channels. The weights and the halo of a slab
+//   arrive by cp.async 16-byte copies (the int8 halo and the weights take
+//   4-byte copies where C % 16 != 0) into a ring of 2-4 stages (the planner
+//   picks the depth that lets the most blocks share an SM), up to three
+//   slabs ahead; the first slabs' weight copies start before the halo table
+//   is built. Out-of-image taps and ragged pixels, channels and filters are
+//   zero-filled by src-size 0. Int8 rows are padded to an odd number of
+//   16-byte units, so ldmatrix is free of bank conflicts. One __syncthreads
+//   per slab.
+// * The f32-input entry stages the halo as f32 in its ring. After the
+//   current slab's MMAs each thread quantizes, with quantize_pack4, the
+//   16-byte chunks of the next slab that its own copies brought in (so no
+//   barrier stands between the copy and the quantize) into a double buffer
+//   of int8 rows: the input quantize costs no launch and no trip through
+//   device memory, and the f32 loads stay as deep in flight as the weights.
+// * Where tiles alone give fewer than 132 blocks, the host planner
+//   (ops/int8_conv.plan_launch) splits the slabs across a thread-block
+//   cluster of 2-8 blocks; each block stages its int32 partial tile in shared
+//   memory, and every block sums its share of the tile's rows over the
+//   cluster through distributed shared memory and runs the epilogue on them.
+// * The epilogue reads the int32 tile from shared memory, 16 threads per
+//   pixel row (each thread's bias loaded at the start), and stores 16-byte
+//   f32 vectors along M.
+// * __launch_bounds__(256, 3) holds both entries to 80 registers, so three
+//   blocks share an SM where shared memory allows (the f32 entry needed 122).
+//
+// Traps handled here: the epilogue and the quantize (int8_epilogue.cuh) use
 // __fmul_rn/__fadd_rn/__fdiv_rn so nvcc cannot contract q*alpha+bias into an
-// FMA (one rounding instead of two would move y by up to 1 ULP and can flip
-// the next layer's quantization bin); C must be a multiple of 4 (one 32-bit
-// word = 4 channels of one tap), which the Python wrapper checks; the launch
-// allocates nothing and the entry point returns cudaGetLastError() so a
-// refused launch is reported.
+// FMA; int32 sums are exact in any order, so the cluster split is bit-exact;
+// C % 4 == 0 (4 channels per copy or per quantized word), which the Python
+// wrapper checks; the launch allocates nothing and the entry point returns
+// cudaGetLastError() so a refused launch is reported.
 
+#include <atomic>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "int8_epilogue.cuh"
+#include "int8_mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileP = 64;    // output pixels per block
-constexpr int kTileM = 64;    // output channels per block
-constexpr int kStepW = 8;     // K words (4 int8 each) per shared-memory step
-constexpr int kPad = 4;       // row padding (words): conflict-free tile stores
+constexpr int kThreads = 256;   // 8 warps: 2 (pixels) x 4 (channels)
+// blocks an SM must hold at once: caps the registers at 80 a thread
+constexpr int kMinBlocks = 3;
+constexpr int kBP = 64;         // output pixels per block
+constexpr int kBM = 64;         // output channels per block
+constexpr int kKC = 32;         // channels (int8 bytes) per K slab
+constexpr int kArow = kKC + 16; // A row stride in shared memory (3 units)
+constexpr int kTileLd = 72;     // int32 words per row of the epilogue tile
+constexpr int kFrow = kKC * 4;  // f32 row of a slab in shared memory
+constexpr int kMaxStages = 4;   // ring stages: weights, halo (int8 or f32)
+constexpr int kMaxSmem = 232448;
+constexpr int kMaxSplit = 8;
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kThreads)
-int8_conv_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ out,
-                 int B, int H, int W, int C, int M, int OH, int OW, int ks,
-                 int stride, int pad, float alpha, int shift, int leaky) {
-  __shared__ __align__(16) int32_t a_tile[kStepW][kTileP + kPad];
-  __shared__ __align__(16) int32_t b_tile[kStepW][kTileM + kPad];
+struct ConvArgs {
+  const void* x;            // f32 or int8 NHWC
+  const int8_t* w;          // [M][ks][ks][C]
+  const float* bias;        // [M]
+  float* out;               // [B][OH][OW][M]
+  int B, H, W, C, M, OH, OW, ks, stride, pad;
+  float in_mult, alpha;
+  int shift, leaky;
+  int tile_h, tile_w;       // 0, 0: flat pixel tiles (1x1/s1/p0)
+  int halo_h, halo_w, nhr;  // halo rows staged per slab
+  int tiles_y, tiles_x;     // spatial tiles per image
+  int slabs, split, vec16, stages;
+  int tab_bytes, a_bytes, w_bytes;   // shared-memory layout
+};
+
+// Wait until at most n (0-2) of this thread's cp.async groups are in flight.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n <= 0) i8mma::cp_async_wait<0>();
+  else if (n == 1) i8mma::cp_async_wait<1>();
+  else i8mma::cp_async_wait<2>();
+}
+
+template <bool kF32>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+int8_conv_kernel(const ConvArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* tab = reinterpret_cast<int*>(smem);          // halo row -> pixel or -1
+  unsigned char* pipe = smem + a.tab_bytes;
+  unsigned char* abuf = pipe;                       // int8 A rows
+  unsigned char* wbuf = pipe + a.a_bytes;           // weight stages
+  unsigned char* fbuf = wbuf + a.w_bytes;           // f32 halo stages
 
   const int tid = threadIdx.x;
-  const int P = B * OH * OW;
-  const int cw = C >> 2;             // words per pixel
-  const int kwords = ks * ks * cw;   // words per output channel (K / 4)
-  const int p0 = blockIdx.x * kTileP;
-  const int m0 = blockIdx.y * kTileM;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wp = warp >> 2;          // pixel half of the tile
+  const int wn = warp & 3;           // 16-channel quarter of the tile
+  const int split = a.split;
+  const int rank = static_cast<int>(blockIdx.x) % split;
+  const int tile = static_cast<int>(blockIdx.x) / split;
+  const int m0 = blockIdx.y * kBM;
+  const int taps = a.ks * a.ks;
+  const int wstride = taps * kKC + 16;
+  const bool flat = a.tile_h == 0;
+  const int P = a.B * a.OH * a.OW;
 
-  // Loader role: word `lw` of the step for tile rows `lr` and `lr + 32`.
-  const int lw = tid % kStepW;
-  const int lr = tid / kStepW;
-  int img[2], iy0[2], ix0[2];
-  bool pix_ok[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int p = p0 + lr + 32 * r;
-    pix_ok[r] = p < P;
-    const int pp = pix_ok[r] ? p : 0;
-    const int ohw = OH * OW;
-    img[r] = pp / ohw;
-    const int rem = pp - img[r] * ohw;
-    const int oy = rem / OW;
-    iy0[r] = oy * stride - pad;
-    ix0[r] = (rem - oy * OW) * stride - pad;
+  int img = 0, oy0 = 0, ox0 = 0, p0 = 0;
+  if (flat) {
+    p0 = tile * kBP;
+  } else {
+    const int per_img = a.tiles_y * a.tiles_x;
+    img = tile / per_img;
+    const int rem = tile - img * per_img;
+    oy0 = (rem / a.tiles_x) * a.tile_h;
+    ox0 = (rem % a.tiles_x) * a.tile_w;
   }
 
-  // Compute role: pixels ty*4 .. +3, channels tx*4 .. +3 of the tile.
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  int acc[4][4];
+  // This thread's four epilogue channels and their biases, loaded now so
+  // their latency hides behind the main loop.
+  const int q4 = tid & 15;
+  const int m = m0 + q4 * 4;
+  float bq[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  for (int j = 0; j < 4; ++j) bq[j] = m + j < a.M ? __ldg(a.bias + m + j) : 0.f;
 
-  for (int k0 = 0; k0 < kwords; k0 += kStepW) {
-    const int kw = k0 + lw;
-    const bool k_ok = kw < kwords;
-    int ky = 0, kx = 0, cword = 0;
-    if (k_ok) {
-      const int tap = kw / cw;
-      cword = kw - tap * cw;
-      ky = tap / ks;
-      kx = tap - ky * ks;
+  // This lane's A rows (halo row of its pixel's (0, 0) tap) in its two m16
+  // tiles; pixels past the tile read row 0 and are never stored.
+  int hb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = wp * 32 + 16 * i + (lane & 15);
+    if (flat) {
+      hb[i] = p;
+    } else if (p < a.tile_h * a.tile_w) {
+      const int r = p / a.tile_w;
+      hb[i] = r * a.stride * a.halo_w + (p - r * a.tile_w) * a.stride;
+    } else {
+      hb[i] = 0;
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      int v = 0;
-      const int iy = iy0[r] + ky;
-      const int ix = ix0[r] + kx;
-      if (k_ok && pix_ok[r] && iy >= 0 && iy < H && ix >= 0 && ix < W)
-        v = x[((static_cast<size_t>(img[r]) * H + iy) * W + ix) * cw + cword];
-      a_tile[lw][lr + 32 * r] = v;
-      const int m = m0 + lr + 32 * r;
-      b_tile[lw][lr + 32 * r] =
-          (k_ok && m < M) ? w[static_cast<size_t>(m) * kwords + kw] : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kStepW; ++kk) {
-      const int4 a = *reinterpret_cast<const int4*>(&a_tile[kk][ty * 4]);
-      const int4 b = *reinterpret_cast<const int4*>(&b_tile[kk][tx * 4]);
-      const int av[4] = {a.x, a.y, a.z, a.w};
-      const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
+  // Copy geometry: 16-byte chunks (2 per 32-byte row) or 4-byte (8 per row).
+  const int csh = a.vec16 ? 1 : 3;
+  const int ush = a.vec16 ? 4 : 2;
+  const int wtc = taps << csh;                 // weight chunks per row
+  const int w_step_n = kThreads / wtc;
+  const int w_step_r = kThreads - w_step_n * wtc;
+  const int w_n0 = tid / wtc;
+  const int w_r0 = tid - w_n0 * wtc;
+  const int8_t* x8 = static_cast<const int8_t*>(a.x);
+  const float* x32 = static_cast<const float*>(a.x);
+
+  auto load_w = [&](int slab, int slot) {
+    const uint32_t dst0 = i8mma::smem_addr(wbuf + slot * kBM * wstride);
+    int n = w_n0, r = w_r0;
+    for (int e = tid; e < kBM * wtc; e += kThreads) {
+      const int t = r >> csh;
+      const int cb = (r & ((1 << csh) - 1)) << ush;
+      const int c = slab * kKC + cb;
+      const bool valid = m0 + n < a.M && c < a.C;
+      const int8_t* src =
+          valid ? a.w + (static_cast<size_t>(m0 + n) * taps + t) * a.C + c
+                : a.w;
+      const uint32_t dst = dst0 + n * wstride + t * kKC + cb;
+      if (a.vec16) i8mma::cp_async16(dst, src, valid);
+      else i8mma::cp_async4(dst, src, valid);
+      n += w_step_n;
+      r += w_step_r;
+      if (r >= wtc) { r -= wtc; ++n; }
+    }
+  };
+  auto load_a8 = [&](int slab, int slot) {
+    const uint32_t dst0 = i8mma::smem_addr(abuf + slot * a.nhr * kArow);
+    for (int e = tid; e < (a.nhr << csh); e += kThreads) {
+      const int hr = e >> csh;
+      const int cb = (e & ((1 << csh) - 1)) << ush;
+      const int c = slab * kKC + cb;
+      const int pix = tab[hr];
+      const bool valid = pix >= 0 && c < a.C;
+      const int8_t* src = valid ? x8 + static_cast<size_t>(pix) * a.C + c : x8;
+      const uint32_t dst = dst0 + hr * kArow + cb;
+      if (a.vec16) i8mma::cp_async16(dst, src, valid);
+      else i8mma::cp_async4(dst, src, valid);
+    }
+  };
+  // f32 halo of a slab, 16 bytes per copy: chunk e (row e / 8) is always
+  // copied, and later quantized, by thread e % kThreads
+  auto load_f = [&](int slab, int stage) {
+    const uint32_t dst0 = i8mma::smem_addr(fbuf + stage * a.nhr * kFrow);
+    for (int e = tid; e < a.nhr * (kKC / 4); e += kThreads) {
+      const int pix = tab[e >> 3];
+      const int c = slab * kKC + ((e & 7) << 2);
+      const bool valid = pix >= 0 && c < a.C;
+      const float* src = valid ? x32 + static_cast<size_t>(pix) * a.C + c : x32;
+      i8mma::cp_async16(dst0 + e * 16, src, valid);
+    }
+  };
+  auto quantize_own = [&](int stage, int buf) {
+    const float* src =
+        reinterpret_cast<const float*>(fbuf + stage * a.nhr * kFrow);
+    unsigned char* dst = abuf + buf * a.nhr * kArow;
+    for (int e = tid; e < a.nhr * (kKC / 4); e += kThreads)
+      *reinterpret_cast<int32_t*>(dst + (e >> 3) * kArow + ((e & 7) << 2)) =
+          quantize_pack4(*reinterpret_cast<const float4*>(src + e * 4),
+                         a.in_mult);
+  };
+  auto load_slab = [&](int slab, int stage) {
+    load_w(slab, stage);
+    if (kF32) load_f(slab, stage);
+    else load_a8(slab, stage);
+  };
+
+  const int s_lo = rank * a.slabs / split;
+  const int n_slabs = (rank + 1) * a.slabs / split - s_lo;
+  const int stages = a.stages;
+  const int ahead = stages - 1;
+
+  int acc[2][2][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = p0 + ty * 4 + i;
-    if (p >= P) continue;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + tx * 4 + j;
-      if (m >= M) continue;
-      out[static_cast<size_t>(p) * M + m] =
-          requant_epilogue(acc[i][j], shift, alpha, bias[m], leaky);
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+
+  // The first slabs' weights do not need the halo table: their copies
+  // start before it is built and join slab 0's copy group.
+  for (int d = 0; d < ahead && d < n_slabs; ++d) load_w(s_lo + d, d);
+  // The halo table: the input pixel of every staged row, -1 outside.
+  for (int r = tid; r < a.nhr; r += kThreads) {
+    int v = -1;
+    if (flat) {
+      if (p0 + r < P) v = p0 + r;
+    } else {
+      const int hy = r / a.halo_w;
+      const int iy = oy0 * a.stride - a.pad + hy;
+      const int ix = ox0 * a.stride - a.pad + (r - hy * a.halo_w);
+      if (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
+        v = (img * a.H + iy) * a.W + ix;
+    }
+    tab[r] = v;
+  }
+
+  __syncthreads();   // the halo table
+  for (int d = 0; d < ahead; ++d) {
+    if (d < n_slabs) {
+      if (kF32) load_f(s_lo + d, d);
+      else load_a8(s_lo + d, d);
+    }
+    i8mma::cp_async_commit();
+  }
+  if (kF32 && n_slabs > 0) {
+    cp_async_wait_upto(ahead - 1);   // this thread's copies of slab 0
+    quantize_own(0, 0);
+  }
+
+  const uint32_t a_lane = i8mma::a_lane_offset(lane);
+  const uint32_t b_lane =
+      (wn * 16 + i8mma::b_lane_row(lane)) * wstride + i8mma::b_lane_offset(lane);
+  for (int i = 0; i < n_slabs; ++i) {
+    // slab i's copies are done (the f32 entry waited before quantizing it)
+    if (!kF32) cp_async_wait_upto(ahead - 1);
+    __syncthreads();   // slab i staged; slab i-1's buffers free
+    const int nx = i + ahead;
+    if (nx < n_slabs) load_slab(s_lo + nx, nx % stages);
+    i8mma::cp_async_commit();
+
+    const int slot = i % stages;
+    const uint32_t a_base =
+        i8mma::smem_addr(abuf + (kF32 ? (i & 1) : slot) * a.nhr * kArow) +
+        a_lane;
+    const uint32_t b_base =
+        i8mma::smem_addr(wbuf + slot * kBM * wstride) + b_lane;
+    int ky = 0, kx = 0;
+    for (int t = 0; t < taps; ++t) {
+      const int toff = flat ? 0 : ky * a.halo_w + kx;
+      const uint32_t aa[2] = {a_base + (hb[0] + toff) * kArow,
+                              a_base + (hb[1] + toff) * kArow};
+      i8mma::warp_tile_k32<2, 2>(acc, aa, b_base + t * kKC, 16 * wstride);
+      if (++kx == a.ks) { kx = 0; ++ky; }
+    }
+    if (kF32 && i + 1 < n_slabs) {
+      cp_async_wait_upto(ahead - 1);   // this thread's copies of slab i+1
+      quantize_own((i + 1) % stages, (i + 1) & 1);
     }
   }
+  i8mma::cp_async_wait<0>();
+  __syncthreads();   // every warp is done with the pipeline buffers
+
+  // ---- epilogue: int32 tile in shared memory, summed over the cluster ----
+  int* acc_tile = reinterpret_cast<int*>(pipe);
+  i8mma::store_acc<2, 2>(acc_tile, kTileLd, wp * 32, wn * 16, acc, lane);
+  cg::cluster_group cluster = cg::this_cluster();
+  if (split > 1) cluster.sync();
+  else __syncthreads();
+
+  // Each thread writes channels m..m+3 of up to 4 rows of this block's
+  // share (16 threads a row); all their partial sums are read before any
+  // is used, so the shared and distributed shared loads overlap.
+  const int row_lo = rank * kBP / split;
+  const int row_hi = (rank + 1) * kBP / split;
+  const int col = q4 * 4;
+  int4 sum[4];
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int row = row_lo + (tid >> 4) + 16 * it;
+    sum[it] = row < row_hi
+                  ? *reinterpret_cast<const int4*>(acc_tile + row * kTileLd + col)
+                  : make_int4(0, 0, 0, 0);
+  }
+  for (int k = 1; k < split; ++k) {
+    const int* remote = cluster.map_shared_rank(acc_tile, (rank + k) % split);
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int row = row_lo + (tid >> 4) + 16 * it;
+      if (row < row_hi) {
+        const int4 v =
+            *reinterpret_cast<const int4*>(remote + row * kTileLd + col);
+        sum[it].x += v.x; sum[it].y += v.y;
+        sum[it].z += v.z; sum[it].w += v.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int row = row_lo + (tid >> 4) + 16 * it;
+    if (row >= row_hi || m >= a.M) continue;
+    int gp;
+    if (flat) {
+      gp = p0 + row;
+      if (gp >= P) continue;
+    } else {
+      if (row >= a.tile_h * a.tile_w) continue;
+      const int r = row / a.tile_w;
+      const int oy = oy0 + r;
+      const int ox = ox0 + (row - r * a.tile_w);
+      if (oy >= a.OH || ox >= a.OW) continue;
+      gp = (img * a.OH + oy) * a.OW + ox;
+    }
+    const int sv[4] = {sum[it].x, sum[it].y, sum[it].z, sum[it].w};
+    float* dst = a.out + static_cast<size_t>(gp) * a.M + m;
+    if ((a.M & 3) == 0) {
+      float4 y;
+      y.x = requant_epilogue(sv[0], a.shift, a.alpha, bq[0], a.leaky);
+      y.y = requant_epilogue(sv[1], a.shift, a.alpha, bq[1], a.leaky);
+      y.z = requant_epilogue(sv[2], a.shift, a.alpha, bq[2], a.leaky);
+      y.w = requant_epilogue(sv[3], a.shift, a.alpha, bq[3], a.leaky);
+      *reinterpret_cast<float4*>(dst) = y;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (m + j < a.M)
+          dst[j] = requant_epilogue(sv[j], a.shift, a.alpha, bq[j], a.leaky);
+    }
+  }
+  // no block may leave while a peer still reads its partial tile
+  if (split > 1) cluster.sync();
+}
+
+std::atomic<bool> g_configured[kMaxDevices];
+
+cudaError_t configure(int device) {
+  if (device >= 0 && device < kMaxDevices && g_configured[device].load())
+    return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_conv_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(int8_conv_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+  if (err == cudaSuccess && device >= 0 && device < kMaxDevices)
+    g_configured[device].store(true);
+  return err;
 }
 
 }  // namespace
 
 // Launches one convolution on `stream` of CUDA device `device`. Pointers are
-// device pointers to contiguous tensors: x [B,H,W,C] int8, w [M,ks,ks,C]
-// int8, bias [M] f32, out [B,OH,OW,M] f32. Requires C % 4 == 0, 4-byte-aligned
-// x and w, and B*OH*OW < 2^31.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int int8_conv_nhwc(const void* x, const void* w, const void* bias,
-                              void* out, int B, int H, int W, int C, int M,
-                              int OH, int OW, int ks, int stride, int pad,
-                              float alpha, int shift, int leaky, int device,
+// device pointers to contiguous tensors: x [B,H,W,C] (float32 when x_f32,
+// 16-byte aligned; else int8, 4-byte aligned), w [M,ks,ks,C] int8 (4-byte
+// aligned), bias [M] f32, out [B,OH,OW,M] f32 (16-byte aligned). Requires
+// C % 4 == 0 and B*H*W, B*OH*OW < 2^31. The launch plan comes from
+// ops/int8_conv.plan_launch: tile_h x tile_w output tiles (0 x 0: flat
+// 64-pixel tiles, for 1x1/s1/p0 only), `split` blocks per cluster (1-8, at
+// most the number of 32-channel slabs), `stages` ring stages (2-4).
+// Returns the cudaError_t of the launch (0 on success); cudaErrorInvalidValue
+// for a plan whose tiles do not fit.
+extern "C" int int8_conv_nhwc(const void* x, int x_f32, float input_mult,
+                              const void* w, const void* bias, void* out,
+                              int B, int H, int W, int C, int M, int OH,
+                              int OW, int ks, int stride, int pad,
+                              float alpha, int shift, int leaky, int tile_h,
+                              int tile_w, int split, int stages, int device,
                               void* stream) {
   const long long P = static_cast<long long>(B) * OH * OW;
   if (P == 0 || M == 0) return 0;
+  ConvArgs a = {};
+  a.x = x;
+  a.w = static_cast<const int8_t*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<float*>(out);
+  a.B = B; a.H = H; a.W = W; a.C = C; a.M = M; a.OH = OH; a.OW = OW;
+  a.ks = ks; a.stride = stride; a.pad = pad;
+  a.in_mult = input_mult; a.alpha = alpha; a.shift = shift; a.leaky = leaky;
+  const bool flat = tile_h == 0 && tile_w == 0;
+  if (C % 4 || ks < 1 || stride < 1 || split < 1 || split > kMaxSplit ||
+      stages < 2 || stages > kMaxStages ||
+      (flat && (ks != 1 || stride != 1 || pad != 0)) ||
+      (!flat && (tile_h < 1 || tile_w < 1 || tile_h * tile_w > kBP)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.tile_h = flat ? 0 : tile_h;
+  a.tile_w = flat ? 0 : tile_w;
+  a.halo_h = flat ? 1 : (tile_h - 1) * stride + ks;
+  a.halo_w = flat ? kBP : (tile_w - 1) * stride + ks;
+  a.nhr = a.halo_h * a.halo_w;
+  a.tiles_y = flat ? 0 : (OH + tile_h - 1) / tile_h;
+  a.tiles_x = flat ? 0 : (OW + tile_w - 1) / tile_w;
+  a.slabs = (C + kKC - 1) / kKC;
+  a.split = split;
+  a.stages = stages;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
+  a.vec16 = C % 16 == 0 && (x_f32 || xa % 16 == 0) && wa % 16 == 0;
+  const long long tiles =
+      flat ? (P + kBP - 1) / kBP
+           : static_cast<long long>(B) * a.tiles_y * a.tiles_x;
+  const int wstride = ks * ks * kKC + 16;
+  a.tab_bytes = (a.nhr * 4 + 15) / 16 * 16;
+  a.a_bytes = (x_f32 ? 2 : stages) * a.nhr * kArow;
+  a.w_bytes = stages * kBM * wstride;
+  const long long pipe_bytes =
+      static_cast<long long>(a.a_bytes) + a.w_bytes +
+      (x_f32 ? static_cast<long long>(stages) * a.nhr * kFrow : 0);
+  const long long tile_bytes = static_cast<long long>(kBP) * kTileLd * 4;
+  const long long smem =
+      a.tab_bytes + (pipe_bytes > tile_bytes ? pipe_bytes : tile_bytes);
+  if (smem > kMaxSmem || split > a.slabs ||
+      tiles * split > 0x7fffffffLL || (M + kBM - 1) / kBM > 65535 ||
+      (x_f32 && xa % 16) || reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = configure(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((P + kTileP - 1) / kTileP),
-                  static_cast<unsigned>((M + kTileM - 1) / kTileM));
-  int8_conv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<const int32_t*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), B, H, W, C, M,
-      OH, OW, ks, stride, pad, alpha, shift, leaky);
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles * split),
+                     static_cast<unsigned>((M + kBM - 1) / kBM), 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(split);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  err = x_f32 ? cudaLaunchKernelEx(&cfg, int8_conv_kernel<true>, a)
+              : cudaLaunchKernelEx(&cfg, int8_conv_kernel<false>, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

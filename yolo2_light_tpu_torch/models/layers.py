@@ -97,11 +97,8 @@ def conv2d_fp32(x, weights, biases, stride: int, pad: int, activation: str,
     return activate(y, activation)
 
 
-def quantize_i8(x, mult: float):
-    """Input quantization of the int8 path: ``clamp(trunc(x * mult), +-127)``
-    (the C float->int16 cast truncates toward zero; reference:
-    src/yolov2_forward_network_quantized.c:545-552)."""
-    return torch.clamp(torch.trunc(x * mult), -127, 127).to(torch.int8)
+# input quantization of the int8 path (ops/int8_conv counts its launches)
+quantize_i8 = int8_conv.quantize_i8
 
 
 def conv2d_int8(x, weights_int8, biases, stride: int, pad: int,
@@ -116,17 +113,26 @@ def conv2d_int8(x, weights_int8, biases, stride: int, pad: int,
       4. y = q * alpha + bias, alpha = R_MULT / (input_mult * weights_mult)
       5. LEAKY is x>0 ? x : x/10 on this path (NOT 0.1*x)
 
-    Steps 2-5 are one launch of the int8 kernel (``ops/int8_conv``) for a
-    CUDA tensor; ``plain=True`` runs its plain PyTorch version instead (the
-    reference the kernel is checked against). ``weights_int8``:
-    ``[M, kh, kw, C]``. The ``gpu`` flavor is not ported yet.
+    Steps 1-5 are one launch of the int8 kernel's f32-input entry
+    (``ops/int8_conv``) for a CUDA tensor; ``plain=True`` runs its plain
+    PyTorch version instead (the reference the kernel is checked against).
+    ``weights_int8``: ``[M, kh, kw, C]``. The ``gpu`` flavor is not ported
+    yet.
     """
-    # a conv output seen through its NHWC permute need not be NHWC-dense;
-    # the kernel reads dense NHWC rows
-    xi = quantize_i8(x, input_mult).contiguous()
     epilogue = activation if activation in ("leaky", "linear") else "linear"
-    conv = int8_conv.conv2d_int8_plain if plain else int8_conv.conv2d_int8
-    y = conv(xi, weights_int8, biases, alpha, stride, pad, epilogue, r_mult)
+    if plain:
+        y = int8_conv.conv2d_int8_f32_plain(x, weights_int8, biases,
+                                            input_mult, alpha, stride, pad,
+                                            epilogue, r_mult)
+    else:
+        # a conv output seen through its NHWC permute need not be
+        # NHWC-dense; the kernel reads dense NHWC rows
+        if not x.is_contiguous():
+            if x.is_cuda:
+                int8_conv.PRE_LAUNCHES["input_copy"] += 1
+            x = x.contiguous()
+        y = int8_conv.conv2d_int8_f32(x, weights_int8, biases, input_mult,
+                                      alpha, stride, pad, epilogue, r_mult)
     if epilogue != activation:
         y = activate(y, activation)
     return y

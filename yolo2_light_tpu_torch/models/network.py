@@ -34,10 +34,9 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from yolo2_light_tpu.cfg import (ConvSpec, MaxpoolSpec, ModelSpec, RegionSpec,
-                                 ReorgSpec, RouteSpec, ShortcutSpec,
-                                 SoftmaxSpec, UpsampleSpec, YoloSpec)
-
+from ..cfg import (ConvSpec, MaxpoolSpec, ModelSpec, RegionSpec, ReorgSpec,
+                   RouteSpec, ShortcutSpec, SoftmaxSpec, UpsampleSpec,
+                   YoloSpec)
 from ..ops import fused_res, int8_conv, xnor_gemm
 from ..params import params_to_torch
 from . import layers as L
@@ -397,6 +396,11 @@ class Predictor(nn.Module):
 
     def forward(self, x) -> tuple:
         x = torch.as_tensor(x).to(self.device, torch.float32)
+        # dense NHWC strides: a batch of one whose batch stride is 0 (NumPy's
+        # ``im[None]``) does not read as channels-last to cuDNN, which then
+        # runs the first conv in NCHW, and the int8 conv after it would have
+        # to copy its input dense
+        x = x.reshape(-1).view(x.shape)
         with torch.inference_mode():
             heads, _ = self._forward(self.layer_params(), x)
         return heads

@@ -28,11 +28,9 @@ import functools
 import numpy as np
 import torch
 
-from yolo2_light_tpu.quant import R_MULT
-
-from ..models.layers import quantize_i8
+from ..quant import R_MULT
 from . import int8_conv
-from .int8_conv import LAUNCH_COUNTS, alpha_f32, relayout_hwio
+from .int8_conv import LAUNCH_COUNTS, alpha_f32, quantize_i8, relayout_hwio
 
 _KERNEL = "fused_res"
 _COUNT = "fused_res_block"   # its key in int8_conv.LAUNCH_COUNTS

@@ -1,8 +1,9 @@
-"""Carry the JAX package's host-side params into the port's tensors.
+"""Carry the host-side params into the port's tensors.
 
-The init chain stays the JAX package's pure-NumPy code (``cfg``, ``weights``
-load + ``fuse_conv_batchnorm``, ``quant.quantize_params``) plus the port's
-own ``xnor.binarize_params``; this module only turns its per-layer list of
+The init chain is pure NumPy (``cfg``, ``weights`` load +
+``fuse_conv_batchnorm``, ``xnor.binarize_params``,
+``quant.quantize_params``: the port's copies of the JAX package's modules,
+apart from its own ``xnor``); this module only turns its per-layer list of
 NumPy dicts into tensors on one device, laid out once for the ops that read
 them.
 """
@@ -12,11 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from yolo2_light_tpu.cfg import parse_network_cfg
-from yolo2_light_tpu.quant import R_MULT
-from yolo2_light_tpu.weights import random_params, save_weights
-
+from .cfg import parse_network_cfg
 from .ops.int8_conv import alpha_f32, relayout_hwio
+from .quant import R_MULT
+from .weights import random_params, save_weights
 from .xnor import pack_sign_weights
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from yolo2_light_tpu.cfg import ConvSpec, ModelSpec
+from .cfg import ConvSpec, ModelSpec
 
 #: one int32 word holds the signs of 32 channels of one tap
 BITS = 32
