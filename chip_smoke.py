@@ -28,7 +28,10 @@ Phases, each reported on its own lines:
 5. fused: the fused residual-block kernel against its plain version at
    yolov3-416's five residual-block shapes (b1 > 0) and on a chain of two
    blocks at 104x104; bit-identical. Times the kernel, the unfused pair of
-   int8 conv launches and its add, and the plain version.
+   int8 conv launches and its add, and the plain version, and prints the
+   launch at each shape: cluster size, blocks, dynamic shared memory per
+   block, ring depths, and how many clusters the card holds at once
+   (``cudaOccupancyMaxActiveClusters``, through ``fused_res.occupancy``).
    Then ``detector test ... -quantized -int8_impl fused`` through the CLI:
    one forward must launch the fused kernel 23 times and the int8 conv
    kernel 25 times; its head maps must equal those of the int8 conv path
@@ -503,9 +506,18 @@ def phase_fused_kernels() -> list:
             f"{u_ms:.4f} ms (2 int8_conv + 1 add launches), plain "
             f"{p_ms:.4f} ms; bound {b_ms * 1e3:.2f} us ({b_by}), "
             f"{100 * b_ms / k_ms:.1f}% of it")
+        occ = fused_res.occupancy(c, c2, torch.cuda.current_device())
+        n_blocks = occ["cluster"] * -(-h // 8) * -(-w // 8) * b
+        say("fused", f"{label}: clusters of {occ['cluster']}, {n_blocks} "
+            f"blocks, {occ['smem_bytes']} B of dynamic shared memory a block, "
+            f"{occ['max_active_clusters']} clusters on the card at once "
+            f"({occ['max_active_clusters'] * occ['cluster']} blocks), rings "
+            f"{occ['stages1']}/{occ['stages2']} deep, "
+            f"{occ['halo_rows_per_pass']} halo rows a phase-1 pass")
         rows.append({"shape": label, "ms": k_ms, "unfused_ms": u_ms,
                      "plain_ms": p_ms, "max_abs_err": err,
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "bound_ms": b_ms, "bound_by": b_by, "blocks": n_blocks,
+                     **occ})
     x, a1 = _block_operands(dev, SEED + 10, 1, 104, 104, 128, 64)
     _, a2 = _block_operands(dev, SEED + 11, 1, 104, 104, 128, 64, -1.0)
     keep = x.clone()

@@ -376,6 +376,10 @@ def _block(dev, seed, b, h, w, c, c2, b1_shift=2.0):
     (3, 5, 7, 8, 4),
     (1, 1, 1, 4, 4),
     (2, 30, 17, 200, 100),        # C not a multiple of the 64-channel slab
+    (1, 13, 13, 96, 48),          # C2 % 32 != 0, C2 % 16 == 0
+    (2, 10, 12, 132, 68),         # C % 16 != 0 (4-byte copies), cluster of 3
+    (1, 9, 9, 64, 2048),          # the widest t1 the kernel takes
+    (2, 13, 13, 1024, 512),       # b = 2 at yolov3's 13x13 stage
 ])
 def test_fused_kernel_bit_identical_to_plain(dev, b, h, w, c, c2):
     x, args = _block(dev, h * c + c2, b, h, w, c, c2)
@@ -427,6 +431,16 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take(dev, case):
     with pytest.raises(err):
         FR.fused_res_block_cuda(x, out=out, **args)
     assert K.LAUNCH_COUNTS["fused_res_block"] == 0
+
+
+@pytest.mark.parametrize("c,c2", [(64, 32), (1024, 512), (64, 2048)])
+def test_fused_occupancy_reports_a_launch_that_fits(dev, c, c2):
+    occ = FR.occupancy(c, c2, dev.index or 0)
+    assert occ["cluster"] == min(16, -(-c // 64))
+    assert 0 < occ["smem_bytes"] <= 232448
+    assert occ["max_active_clusters"] >= 1
+    assert 2 <= occ["stages1"] <= 4 and 2 <= occ["stages2"] <= 4
+    assert occ["halo_rows_per_pass"] == (64 if c2 == 2048 else 100)
 
 
 @pytest.mark.parametrize("name", ["mini-res", "mini-yolo3"])

@@ -108,6 +108,39 @@ __device__ __forceinline__ void warp_tile_k32(int (&acc)[kMt][kNt][4],
       mma_s8(acc[i][j], a[i], b[j / 2][2 * (j & 1)], b[j / 2][2 * (j & 1) + 1]);
 }
 
+// warp_tile_k32 split in two, so a caller can load the next K step's
+// fragments before it issues this step's MMAs (ldmatrix and mma are
+// volatile asm, which the compiler does not reorder).
+template <int kMt, int kNt>
+struct Frags {
+  uint32_t a[kMt][4];
+  uint32_t b[kNt / 2][4];
+};
+
+template <int kMt, int kNt>
+__device__ __forceinline__ void load_frags(Frags<kMt, kNt>& f,
+                                           const uint32_t (&a_addr)[kMt],
+                                           uint32_t b_addr,
+                                           uint32_t b_pair_stride) {
+  static_assert(kNt % 2 == 0, "B tiles are loaded in n16 pairs");
+#pragma unroll
+  for (int i = 0; i < kMt; ++i) ldmatrix_x4(f.a[i], a_addr[i]);
+#pragma unroll
+  for (int j = 0; j < kNt / 2; ++j)
+    ldmatrix_x4(f.b[j], b_addr + j * b_pair_stride);
+}
+
+template <int kMt, int kNt>
+__device__ __forceinline__ void mma_frags(int (&acc)[kMt][kNt][4],
+                                          const Frags<kMt, kNt>& f) {
+#pragma unroll
+  for (int i = 0; i < kMt; ++i)
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+      mma_s8(acc[i][j], f.a[i], f.b[j / 2][2 * (j & 1)],
+             f.b[j / 2][2 * (j & 1) + 1]);
+}
+
 // Writes a warp's accumulators into an int32 tile in shared memory whose
 // row `row0` column `col0` is the warp tile's origin (ld: row stride in
 // int32 words, even).

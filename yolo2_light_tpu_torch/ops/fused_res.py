@@ -71,6 +71,30 @@ def load_kernel():
     return fn
 
 
+@functools.cache
+def _load_occupancy():
+    from . import _build
+    fn = _build.load(_KERNEL).fused_res_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    return fn
+
+
+def occupancy(c: int, c2: int, device: int = 0) -> dict:
+    """What the kernel launches for a block of widths ``c -> c2 -> c`` on
+    CUDA device ``device``: the cluster size, the dynamic shared memory per
+    block, how many such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), the two phases' ring depths and
+    the halo rows per phase-1 pass."""
+    info = (ctypes.c_int * 6)()
+    rc = _load_occupancy()(c, c2, device, info)
+    if rc != 0:
+        raise RuntimeError(f"fused_res occupancy query failed: cudaError {rc}")
+    keys = ("cluster", "smem_bytes", "max_active_clusters", "stages1",
+            "stages2", "halo_rows_per_pass")
+    return dict(zip(keys, info))
+
+
 def _check_cuda_operands(x, w1, b1, w2, b2, out):
     tensors = (x, w1, b1, w2, b2) + (() if out is None else (out,))
     if not (x.is_cuda and all(t.device == x.device for t in tensors)):
