@@ -40,11 +40,16 @@ Phases, each reported on its own lines:
 6. fp32: the same ``detector test`` without ``-quantized`` (TF32 off), its
    heads checked finite, and the port's card and CPU paths held to each
    other on a small net. Times the warm b=1 forward.
-7. xnor: the popcount kernel (K3) and the bit-packed int8 kernel (K4)
+7. xnor: the popcount kernel (K3) and the binary tensor-core kernel (K4)
    against their plain versions, and the dense +-1 engine against both, bit
    for bit, leaky and linear, at tiny-yolo-obj_xnor-416's seven XNOR conv
-   shapes (b=1). Times each kernel, each conv-level engine (input packing
-   included) and the plain versions. Then ``detector test`` through the CLI
+   shapes (b=1), printing each kernel's launch plan (``xnor_gemm.plan_launch``:
+   tile, K step, ring depth, cluster split, blocks). Times each kernel, each
+   conv-level engine (input packing included), the plain versions and, as a
+   yardstick never on the port's path, ``torch._int_mm`` on the +-1 int8
+   product [P, 9*C32*32] x [9*C32*32, M] (patches gathered and unpacked
+   beforehand, no epilogue); prints K3's share of its popcount floor (16
+   popcounts an SM a clock). Then ``detector test`` through the CLI
    on ``tests/data/tiny-yolo-obj_xnor.cfg`` with random weights (seed 7)
    for each ``-xnor_kernel`` value: one forward must launch K3 7 times for
    ``pallas``, K4 7 times for ``pallas_mxu``, neither for ``int8``, and K4
@@ -98,6 +103,8 @@ SLEEP_CYCLES = 50_000_000   # about 25 ms of device time to queue behind
 # NVIDIA H100 SXM peaks (data sheet, dense): int8 tensor cores, HBM3
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# K3's floor: __popc issue, 16 an SM a clock, 132 SMs at the 1.98 GHz boost
+POPC_PER_SECOND = 16 * 132 * 1.98e9
 THRESH = "0.25"         # the CLI's default -thresh
 N_CLASSES = 80
 HEAD_GRIDS = [13, 26, 52]
@@ -630,12 +637,24 @@ def _xnor_operands(dev, seed: int, b: int, h: int, w: int, c: int,
             torch.from_numpy(rng.randn(m).astype(np.float32)).to(dev))
 
 
+def _plan_text(plan) -> str:
+    return (f"tile {plan.tile_p}x{plan.tile_m}"
+            f"{' (warp split)' if plan.warp_split else ''}, K step "
+            f"{plan.kstep} words, {plan.stages} stages, cluster split "
+            f"{plan.split}, {plan.blocks} blocks")
+
+
 def phase_xnor_kernels() -> list:
     dev = torch.device("cuda")
     rows = []
     for i, (label, (b, h, w, c, m)) in enumerate(XNOR_SHAPES):
         x, wp, ws, mean, bias = _xnor_operands(dev, SEED + i, b, h, w, c, m)
         xp = xnor_gemm.pack_activations(x, c)
+        c32 = xp.shape[-1]
+        plans = {eng: xnor_gemm.plan_launch(b, h, w, c32, m, 3, 1, 1, eng)
+                 for eng in ("popcount", "mxu")}
+        say("xnor", f"{label}: K3 plan {_plan_text(plans['popcount'])}; K4 "
+            f"plan {_plan_text(plans['mxu'])}")
         for act in ("leaky", "linear"):
             k3 = xnor_gemm.xnor_gemm_cuda(xp, wp, mean, bias, c, 1, 1, act)
             k4 = xnor_gemm.xnor_gemm_mxu_cuda(xp, wp, mean, bias, c, 1, 1,
@@ -651,12 +670,27 @@ def phase_xnor_kernels() -> list:
             check(torch.equal(dense, k3) and torch.equal(dense, k4),
                   f"dense +-1 engine != bit kernels at {label} ({act})")
         row = {"shape": label, "max_abs_err": float(max(
-            (k3 - p3).abs().max(), (k4 - p4).abs().max()))}
+            (k3 - p3).abs().max(), (k4 - p4).abs().max())),
+            "plans": {eng: plan._asdict() for eng, plan in plans.items()}}
+        # the yardstick: cuBLASLt's int8 GEMM on the +-1 product, patches
+        # gathered and unpacked beforehand, no epilogue; never on the
+        # port's path
+        a8 = xnor_gemm._unpack_pm1(xnor_gemm.im2col_bits(xp, 3, 1, 1)).to(
+            torch.int8)
+        w8 = xnor_gemm._unpack_pm1(wp.view(m, -1)).to(torch.int8)
+        wmat = w8.t()
+        _, pad_bits = xnor_gemm._constants(3, c32, c)
+        check(torch.equal(xnor_gemm.epilogue_plain(
+                  torch._int_mm(a8, wmat) - pad_bits, mean, bias,
+                  "linear").view(b, h, w, m), k4),
+              f"torch._int_mm's +-1 product != K4 at {label}")
+        row["library_ms"] = event_ms(lambda: torch._int_mm(a8, wmat))
         # the +-1 multiply-adds counted as int8 operations at the int8 peak:
         # Hopper publishes no binary tensor-core rate
         row["bound_ms"], row["bound_by"] = bound(
             4 * (xp.numel() + wp.numel() + 2 * m + b * h * w * m),
             2.0 * b * h * w * m * 9 * c)
+        row["popc_floor_ms"] = b * h * w * m * 9 * c32 / POPC_PER_SECOND * 1e3
         row["xnor_gemm_ms"] = event_ms(lambda: xnor_gemm.xnor_gemm_cuda(
             xp, wp, mean, bias, c, 1, 1, "leaky"))
         row["xnor_gemm_mxu_ms"] = event_ms(
@@ -681,8 +715,14 @@ def phase_xnor_kernels() -> list:
             f"{row['conv_popcount_ms']:.4f}, K4 {row['conv_mxu_ms']:.4f}, "
             f"dense +-1 engine {row['dense_ms']:.4f} ms; plain K3 "
             f"{row['xnor_gemm_plain_ms']:.4f}, plain K4 "
-            f"{row['xnor_gemm_mxu_plain_ms']:.4f} ms; bound "
-            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+            f"{row['xnor_gemm_mxu_plain_ms']:.4f} ms; torch._int_mm "
+            f"{row['library_ms']:.4f} ms; bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}): K3 "
+            f"{100 * row['bound_ms'] / row['xnor_gemm_ms']:.1f}%, K4 "
+            f"{100 * row['bound_ms'] / row['xnor_gemm_mxu_ms']:.1f}% of it; "
+            f"K3 at {100 * row['popc_floor_ms'] / row['xnor_gemm_ms']:.1f}% "
+            f"of its popcount floor "
+            f"({row['popc_floor_ms'] * 1e3:.2f} us)")
         rows.append(row)
     return rows
 
@@ -830,13 +870,21 @@ def main() -> int:
             "ms": sum(r[f"{name}_ms"] for r in xnor_rows),
             "plain_ms": sum(r[f"{name}_plain_ms"] for r in xnor_rows),
             **row_bound(xnor_rows),
-            "library_ms": None,
+            "library_ms": sum(r["library_ms"] for r in xnor_rows),
+            "library": "torch._int_mm on the +-1 int8 [P, 9*C32*32] x "
+                       "[9*C32*32, M] product, patches gathered and unpacked "
+                       "beforehand, no epilogue",
             "dense_ms": sum(r["dense_ms"] for r in xnor_rows),
-            "shapes": [{"shape": r["shape"], "ms": r[f"{name}_ms"],
+            "shapes": [{"shape": r["shape"], "plan": r["plans"][engine],
+                        "ms": r[f"{name}_ms"],
                         "with_packing_ms": r[f"conv_{engine}_ms"],
                         "plain_ms": r[f"{name}_plain_ms"],
+                        "library_ms": r["library_ms"],
                         "dense_ms": r["dense_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"]} for r in xnor_rows]})
+                        "bound_by": r["bound_by"],
+                        **({"popc_floor_ms": r["popc_floor_ms"]}
+                           if engine == "popcount" else {})}
+                       for r in xnor_rows]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

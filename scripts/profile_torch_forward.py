@@ -8,7 +8,8 @@ each ``-xnor_kernel`` engine (``xnor-int8``, ``xnor-pallas``,
 ``xnor-pallas_mxu``, ``xnor-auto``). Prints per mode: host wall time per forward (CUDA-synchronised,
 profiler off), device busy time per forward (sum of GPU kernel and copy time
 under ``torch.profiler``), their ratio, the device operations per forward,
-and the device time of the largest kernels. Needs one CUDA device.
+the device time of the largest kernels, and the port's hand-written kernels
+summed over their template instances. Needs one CUDA device.
 
 Usage: ``python scripts/profile_torch_forward.py [--seed 7] [--iters 20]``
 """
@@ -44,6 +45,9 @@ MODES = {"int8": (CFG, "int8", "xla", "int8"),
          "fp32": (CFG, "fp32", "xla", "int8")}
 MODES.update({f"xnor-{eng}": (XNOR_CFG, "fp32", "xla", eng)
               for eng in ("int8", "pallas", "pallas_mxu", "auto")})
+# the kernels of yolo2_light_tpu_torch/csrc, as the profiler names them
+HAND_KERNELS = ("int8_conv_kernel", "fused_res_kernel", "xnor_popcount_kernel",
+                "xnor_mma_kernel")
 
 
 def profile_mode(weights: str, name: str, seed: int, iters: int,
@@ -85,6 +89,15 @@ def profile_mode(weights: str, name: str, seed: int, iters: int,
                                     key=lambda kv: -kv[1][0])[:top]:
         print(f"  {ms:8.3f} ms  {100 * ms / busy:5.1f}%  x{count // n:4d}  "
               f"{name[:100]}")
+    hand: dict = collections.defaultdict(lambda: [0.0, 0])
+    for name, (ms, count) in per_kernel.items():
+        for kernel in HAND_KERNELS:
+            if f"::{kernel}<" in name or f"::{kernel}(" in name:
+                hand[kernel][0] += ms
+                hand[kernel][1] += count // n
+    if hand:
+        print("  hand kernels, all instances: " + ", ".join(
+            f"{k} {ms:.3f} ms x{c}" for k, (ms, c) in hand.items()))
 
 
 def main(argv=None) -> int:

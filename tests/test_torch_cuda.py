@@ -491,6 +491,10 @@ def _xnor_operands(dev, seed, b, h, w, c, m, ks=3):
     (2, 11, 9, 48, 40),           # half-padded words, M not a tile multiple
     (2, 7, 5, 16, 3),             # C = 16, M below one n8 tile
     (3, 1, 1, 33, 70),
+    (2, 13, 13, 1024, 1024),      # b = 2 at the widest conv
+    (1, 13, 13, 512, 1000),       # M = 1000: a ragged filter tile
+    (4, 104, 104, 32, 64),        # P = 43,264 above one image's 104x104
+    (2, 9, 9, 40, 24),            # C = 40: kwords = 18, not whole MMA steps
 ])
 @pytest.mark.parametrize("activation", ["leaky", "linear"])
 def test_xnor_kernels_bit_identical_to_plain(dev, b, h, w, c, m, activation):
@@ -508,6 +512,66 @@ def test_xnor_kernels_bit_identical_to_plain(dev, b, h, w, c, m, activation):
     cpu = XG.xnor_gemm_plain(xp.cpu(), wp.cpu(), mean.cpu(), bias.cpu(), c, 1,
                              1, activation)
     assert torch.equal(k3.cpu(), cpu)
+
+
+@pytest.mark.parametrize("name", ["xnor_gemm", "xnor_gemm_mxu"])
+@pytest.mark.parametrize("b,h,w,c,m", [
+    (1, 26, 26, 128, 256),        # 16-byte copies (C32 % 4 == 0)
+    (2, 11, 9, 48, 40),           # 4-byte copies, ragged tiles
+])
+def test_xnor_every_plan_bit_identical(dev, name, b, h, w, c, m):
+    """Every plan kind the kernels take: each 4096-output tile (128x32,
+    64x64, 32x128), and the warp split's 32x32 tile with no split and with
+    a split of K across a cluster (2 blocks, and as many as there are
+    steps, up to 8); each K step and ring depth, leaky and linear, against
+    the plain version."""
+    x, wp, _, mean, bias = _xnor_operands(dev, c + 5 * m, b, h, w, c, m)
+    xp = XG.pack_activations(x, c)
+    c32 = xp.shape[-1]
+    kwords = 9 * c32
+    engine = "popcount" if name == "xnor_gemm" else "mxu"
+    cuda = XG.xnor_gemm_cuda if engine == "popcount" else XG.xnor_gemm_mxu_cuda
+    plain = XG.xnor_gemm_plain if engine == "popcount" else \
+        XG.xnor_gemm_mxu_plain
+    base = XG.plan_launch(b, h, w, c32, m, 3, 1, 1, engine)
+    refs = {act: plain(xp, wp, mean, bias, c, 1, 1, act)
+            for act in ("leaky", "linear")}
+    K.reset_launch_counts()
+    n = 0
+    for tile_p, tile_m in XG.TILES + (XG.WARP_SPLIT_TILE,):
+        for kstep in XG.KSTEPS:
+            steps = -(-kwords // kstep)
+            splits = {1, min(2, steps), min(XG.MAX_SPLIT, steps)}
+            if (tile_p, tile_m) != XG.WARP_SPLIT_TILE:
+                splits = {1}
+            for split in sorted(splits):
+                for stages in (2, XG.MAX_STAGES):
+                    plan = XG.make_plan(b * h * w, m, kwords,
+                                        (tile_p, tile_m), kstep,
+                                        split)._replace(stages=stages)
+                    act = ("leaky", "linear")[n % 2]
+                    out = cuda(xp, wp, mean, bias, c, 1, 1, act, plan=plan)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, refs[act]), plan
+                    n += 1
+    assert K.LAUNCH_COUNTS[name] == n
+
+
+@pytest.mark.parametrize("name", ["xnor_gemm", "xnor_gemm_mxu"])
+def test_xnor_kernel_refuses_a_plan_it_does_not_take(dev, name):
+    x, wp, _, mean, bias = _xnor_operands(dev, 3, 1, 6, 6, 40, 8)
+    xp = XG.pack_activations(x, 40)
+    engine = "popcount" if name == "xnor_gemm" else "mxu"
+    cuda = XG.xnor_gemm_cuda if engine == "popcount" else XG.xnor_gemm_mxu_cuda
+    base = XG.plan_launch(1, 6, 6, 2, 8, 3, 1, 1, engine)
+    for bad in (base._replace(tile_p=16), base._replace(kstep=24),
+                base._replace(split=base.steps + 1),
+                base._replace(stages=XG.MAX_STAGES + 1),
+                base._replace(tile_p=32, tile_m=64),
+                base._replace(tile_p=64, tile_m=64, split=2, kstep=8),
+                base._replace(split=XG.MAX_SPLIT + 1)):
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            cuda(xp, wp, mean, bias, 40, 1, 1, plan=bad)
 
 
 @pytest.mark.parametrize("ks,stride,pad", [(3, 2, 1), (1, 1, 0), (3, 1, 0)])

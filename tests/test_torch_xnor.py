@@ -246,6 +246,140 @@ def test_plain_versions_count_the_same_integer():
     np.testing.assert_array_equal(a, b)
 
 
+def _and_popc_conv(x, sign, mean, bias, activation="leaky"):
+    """K4's arithmetic (and-popcounts, then dot - pad_bits) as a conv."""
+    return XG.xnor_gemm_and_popc_plain(
+        XG.pack_activations(torch.from_numpy(x), sign.shape[2]),
+        torch.from_numpy(pack_sign_weights(sign)), torch.from_numpy(mean),
+        torch.from_numpy(bias), sign.shape[2], 1, 1, activation).numpy()
+
+
+@pytest.mark.parametrize("b,c,m,hw", GRID)
+def test_and_popcount_identity_equals_pm1_dot(b, c, m, hw):
+    """4*popc(a&b) - 2*popc(a) - 2*popc(b) + kwords*32 - pad_bits over the
+    patch matrix is the integer +-1 dot of xnor_gemm_mxu_plain, exactly:
+    border taps (0 words), half-padded words (C = 48) and kwords not a
+    multiple of 8 (9 and 18) included."""
+    x, _, sign, _, _ = _conv_inputs(7 * c + m, b, c, m, hw)
+    xp = XG.pack_activations(torch.from_numpy(x), c)
+    wp = torch.from_numpy(pack_sign_weights(sign))
+    pt = XG.im2col_bits(xp, 3, 1, 1)
+    wf = wp.reshape(m, -1)
+    assert pt.shape[1] % 8                      # not whole 256-bit steps
+    _, pad_bits = XG._constants(3, xp.shape[-1], c)
+    dot = XG.and_popc_dot(pt, wf) - pad_bits
+    pm1 = XG._unpack_pm1(pt) @ XG._unpack_pm1(wf).T - pad_bits
+    assert dot.dtype == torch.int64
+    assert torch.equal(dot, pm1.to(torch.int64))
+    assert (pt == 0).any()                      # the border's 0 words
+
+
+@pytest.mark.parametrize("activation", ["leaky", "linear"])
+@pytest.mark.parametrize("b,c,m,hw", GRID)
+def test_and_popcount_conv_bit_exact_to_eager_jax(activation, b, c, m, hw):
+    x, _, sign, mean, bias = _conv_inputs(c + m, b, c, m, hw)
+    ref = _jax_conv(x, sign, mean, bias, activation=activation)
+    np.testing.assert_array_equal(
+        _and_popc_conv(x, sign, mean, bias, activation), ref)
+
+
+@pytest.mark.parametrize("b,c,m,hw", GRID)
+def test_and_popcount_conv_matches_interpret_pallas(b, c, m, hw):
+    x, w, sign, mean, bias = _conv_inputs(c * m, b, c, m, hw)
+    packed, _, k_real = pack_weights(w)
+    ref = np.asarray(conv2d_xnor_pallas(
+        jnp.asarray(x), jnp.asarray(packed), jnp.asarray(mean),
+        jnp.asarray(bias), size=3, stride=1, pad=1, c_real=c, k_real=k_real,
+        interpret=True, engine="mxu"))
+    np.testing.assert_allclose(_and_popc_conv(x, sign, mean, bias), ref,
+                               rtol=1e-5, atol=1e-5)
+
+
+# (B, H, W, C, M): tiny-yolo-obj_xnor-416's seven XNOR convs, then ragged
+# and batched shapes
+PLAN_SHAPES = [(1, 208, 208, 16, 32), (1, 104, 104, 32, 64),
+               (1, 52, 52, 64, 128), (1, 26, 26, 128, 256),
+               (1, 13, 13, 256, 512), (1, 13, 13, 512, 1024),
+               (1, 13, 13, 1024, 1024), (2, 11, 9, 48, 40), (2, 7, 5, 16, 3),
+               (3, 1, 1, 33, 70), (4, 104, 104, 32, 64),
+               (1, 13, 13, 1024, 1000)]
+
+
+@pytest.mark.parametrize("engine", ["popcount", "mxu"])
+@pytest.mark.parametrize("b,h,w,c,m", PLAN_SHAPES)
+def test_plan_fits_the_card_and_covers_the_conv(engine, b, h, w, c, m):
+    c32 = -(-c // 32)
+    plan = XG.plan_launch(b, h, w, c32, m, 3, 1, 1, engine)
+    kwords = 9 * c32
+    assert (plan.tile_p, plan.tile_m) in XG.TILES + (XG.WARP_SPLIT_TILE,)
+    assert plan.warp_split == ((plan.tile_p, plan.tile_m)
+                               == XG.WARP_SPLIT_TILE)
+    assert plan.warp_split or plan.tile_p * plan.tile_m == XG.TILE_AREA
+    assert XG.THREADS <= 1024 and XG.THREADS % 32 == 0
+    assert plan.smem == XG.smem_bytes(plan.tile_p, plan.tile_m, plan.kstep,
+                                      plan.stages, plan.split) <= XG.MAX_SMEM
+    assert plan.p_tiles * plan.tile_p >= b * h * w > (plan.p_tiles - 1) \
+        * plan.tile_p
+    assert plan.m_tiles * plan.tile_m >= m > (plan.m_tiles - 1) * plan.tile_m
+    assert plan.kstep in XG.KSTEPS and plan.kstep % 8 == 0
+    assert plan.steps * plan.kstep >= kwords > (plan.steps - 1) * plan.kstep
+    assert 1 <= plan.split <= min(XG.MAX_SPLIT, plan.steps)
+    assert 2 <= plan.stages <= XG.MAX_STAGES
+    assert plan.blocks == plan.p_tiles * plan.m_tiles * plan.split
+    assert plan.m_tiles <= 65535 and plan.blocks < 2 ** 31
+
+
+@pytest.mark.parametrize("engine", ["popcount", "mxu"])
+def test_plan_gives_each_conv_its_geometry(engine):
+    """The kwords = 9 convs take large pixel tiles and no split; where the
+    4096-output tiles leave SMs idle and the window has 16 words or more
+    (52x52 down to 13x13) the warp split's 32x32 tile: K4 with 32-word
+    steps, split across a cluster of 2 at the 288-word conv; K3 split
+    across a cluster at the 13x13 convs of 144 and 288 words; a batch
+    whose tiles fill the card neither."""
+    plans = {(h, c): XG.plan_launch(b, h, w, -(-c // 32), m, 3, 1, 1, engine)
+             for b, h, w, c, m in PLAN_SHAPES[:7]}
+    for key in ((208, 16), (104, 32)):
+        plan = plans[key]
+        assert plan.split == 1 and plan.tile_p >= 64 and not plan.warp_split
+    assert plans[208, 16].tile_p == 128      # M = 32: no padded filters
+    for key in ((52, 64), (26, 128), (13, 256), (13, 512), (13, 1024)):
+        plan = plans[key]
+        assert plan.warp_split
+        if engine == "mxu":
+            assert plan.kstep == 32
+            assert plan.split == (2 if key == (13, 1024) else 1)
+        else:
+            assert (plan.split > 1) == (key in ((13, 512), (13, 1024)))
+    for b, h, c32, m in ((4, 104, 1, 64), (8, 26, 4, 256), (8, 13, 32, 1024)):
+        plan = XG.plan_launch(b, h, h, c32, m, 3, 1, 1, engine)
+        assert not plan.warp_split and plan.split == 1
+        assert plan.p_tiles * plan.m_tiles >= XG.SM_COUNT
+    with pytest.raises(ValueError, match="XNOR engine"):
+        XG.plan_launch(1, 13, 13, 8, 512, 3, 1, 1, "int8")
+
+
+@pytest.mark.parametrize("tiles,kwords,kstep,split", [
+    (192, 288, 16, 2), (192, 288, 32, 3), (96, 72, 32, 1), (176, 36, 16, 3),
+    (384, 144, 16, 5), (1, 9, 16, 1)])
+def test_busiest_sm_words_charges_the_first_rank(tiles, kwords, kstep,
+                                                 split):
+    """K3's planner model: the busiest SM holds ceil(blocks / 132) blocks,
+    each charged the real window words of a cluster's first rank, which
+    has the most under the kernel's division of the steps (each rank
+    steps // split, the first steps % split ranks one more), and
+    K3_BLOCK_WORDS for its set-up and epilogue."""
+    steps = -(-kwords // kstep)
+    words, lo = [], 0
+    for rank in range(split):
+        n = steps // split + (rank < steps % split)
+        words.append(min(kwords, (lo + n) * kstep) - lo * kstep)
+        lo += n
+    assert lo == steps and sum(words) == kwords and words[0] == max(words)
+    assert XG._busiest_sm_words(tiles, kwords, kstep, split) == \
+        -(-tiles * split // XG.SM_COUNT) * (words[0] + XG.K3_BLOCK_WORDS)
+
+
 def test_bit_engines_refuse_other_activations():
     x, _, sign, mean, bias = _conv_inputs(2, 1, 16, 8, 4)
     with pytest.raises(ValueError, match="epilogue"):

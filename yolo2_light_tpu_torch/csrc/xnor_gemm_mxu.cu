@@ -1,5 +1,6 @@
-// XNOR (BIT1) convolution on the int8 tensor cores: bit-packed operands
-// unpacked to +-1 int8 in registers and contracted with mma.sync.
+// XNOR (BIT1) convolution on the binary tensor cores: the bit-packed
+// operands are contracted as they are, with
+// mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc.
 //
 // Replaces the Pallas kernel yolo2_light_tpu/ops/pallas_xnor.py
 // xnor_gemm_mxu (_xnor_mxu_kernel, _unpack_pm1, _auto_tiles), the
@@ -11,29 +12,45 @@
 //
 // pm1(bit) = 2*bit - 1. The channel-pad bits are 0 in both operands, so each
 // adds (-1)*(-1) = +1 and pad_bits = ks*ks*(C32*32 - C) removes them; the
-// result equals the popcount kernel's bit for bit. Layouts in
-// xnor_common.cuh. The weights stay bit-packed in device memory (1/8 of the
-// int8 bytes) and are unpacked once per use in registers, where the TPU
-// kernel unpacks a weight tile into VMEM once per filter tile.
+// result equals the popcount kernel's bit for bit. Layouts and the launch
+// geometry in xnor_common.cuh.
 //
-// One 32-bit word holds exactly the k = 32 of an m16n8k32 int8 MMA, so a
-// thread takes its fragment's four channels straight from the word: for A
-// (row-major 16x32, pixels x channels) bits 4*tig .. +3 and 16 + 4*tig .. +3
-// of the words of pixels gid and gid + 8; for B (col-major 32x8) the same
-// bits of the word of filter gid (gid = lane / 4, tig = lane % 4, PTX ISA
-// fragment layouts of mma.m16n8k32 .s8). Four bits become four +-1 bytes
-// with one multiply-and-mask spread.
+// Where the TPU kernel (and this kernel before) unpacked the bits to +-1
+// int8 and ran an int8 dot, the binary MMA takes the packed words: for +-1
+// operands over the kwords*32 stored bits,
 //
-// What bounds it on an H100: the integer unpack (five ALU instructions per
-// four channels of each operand, at half the float issue rate) and, at
-// tiny-yolo-obj_xnor's 13x13 convs, too few output tiles to fill 132 SMs
-// evenly; the tensor cores and device memory are far from busy. What the
-// design does about it: each bit word is unpacked once per block, 32x32
-// output tiles, and a 4-way split of K inside the block (each warp the whole
-// tile over every fourth word, 2x4 MMA tiles, summed through shared memory),
-// so the 13x13 convs launch 192 blocks of 4 warps; each 32-word step's
-// successor is fetched into registers while it is reduced. A cheaper unpack
-// (larger tiles, or binary MMA), wgmma and TMA are later work.
+//   dot = 4*popc(a & b) - 2*popc(a) - 2*popc(b) + kwords*32,
+//
+// where popc(a & b) is the MMA's sum, popc(a) a pixel window's set bits and
+// popc(b) a filter's. Both come from the tensor cores too: one extra MMA a
+// K step against an all-ones B gives every row's popc(a) in the rows of the
+// C fragment a thread holds, one against an all-ones A every column's
+// popc(b), so no shuffle is needed. K is zero-padded to whole 256-bit MMA
+// steps (kwords = 9 runs as 16 words); zero words add to none of the three
+// counts, so the constant is the real kwords*32, not the padded width.
+//
+// Fragments are whole words of the [pixel][word] and [filter][word] tiles:
+// A a0..a3 = words tig, tig (row + 8), 4 + tig, 4 + tig (row + 8) of pixel
+// gid; B b0, b1 = words tig and 4 + tig of filter gid (gid = lane / 4, tig =
+// lane % 4). They are exactly ldmatrix.x4's m8n8 b16 fragments of a 32-byte
+// K step, so the int8 kernels' ldmatrix helpers load them (int8_mma.cuh).
+//
+// What bounds it on an H100: not the MMAs. The card issues 0.66 binary
+// MMAs an SM a cycle, the same rate as m16n8k32 s8 with 8x the bits
+// (scripts/trace_xnor_gemm.py), and tiny-yolo-obj_xnor's convs need at most
+// about 400 an SM. At b = 1 every conv's blocks fit on the card at once, so
+// a launch is a chain of latencies: the launch itself, a block's set-up, the
+// gather's round trips to L2, the epilogue's stores (1.4-5.5 MB of f32 at
+// the three large maps). A copy of the kernel with no copies and no MMAs
+// (the trace's skeleton variant) takes 3.7-5.2 us of the 5.5-9 us a launch
+// takes. What the design does: one shared core (xnor_common.cuh) with the
+// planner's tile, a cp.async ring whose first weights and the tile's mean
+// and bias are requested before anything else, and, where the 64x64-class
+// tiles would leave SMs idle (52x52 down to 13x13), 32x32 tiles whose four
+// warps split each K step (up to 384 blocks; the 288-word conv also splits
+// K across a cluster of 2, pushing its partial rows into the finishing
+// block's shared memory). Without a split the epilogue runs from the
+// accumulators with 8-byte stores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,131 +61,185 @@ namespace {
 
 using namespace xnor;
 
-constexpr int kThreads = 32 * kSplit;   // one warp per K-split group
-
-// Bits 0..3 of n -> four bytes of +-1 (bit i in byte i: 0x01 if set, else
-// 0xff): the multiply moves bit i to bit 8*i (no two partial products
-// overlap), the mask keeps those bits, and ~(t * 0xfe) maps each 0/1 byte to
-// 0xff/0x01.
-__device__ __forceinline__ uint32_t pm1_bytes(uint32_t n) {
-  const uint32_t t = ((n & 0xfu) * 0x00204081u) & 0x01010101u;
-  return ~(t * 0xfeu);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+__device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+template <int TP, int TM>
 __global__ void __launch_bounds__(kThreads)
-xnor_mma_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ w,
-                const float* __restrict__ mean, const float* __restrict__ bias,
-                float* __restrict__ out, int B, int H, int W, int C32, int M,
-                int OH, int OW, int ks, int stride, int pad, int pad_bits,
-                int leaky) {
-  __shared__ __align__(16) uint32_t a_tile[kStepW][kTileP + kPad];
-  __shared__ __align__(16) uint32_t b_tile[kStepW][kTileM + kPad];
-  __shared__ int red[kSplit][kTileP][kTileM + 1];
+xnor_mma_kernel(const XnorArgs a) {
+  constexpr bool kWs = warp_split(TP, TM);
+  constexpr int kWm = kWs ? 1 : TM / 32;   // warps along the filters
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int4* tab = reinterpret_cast<const int4*>(smem);
+  const float* mb = reinterpret_cast<const float*>(smem + mb_offset(TP));
+  const uint32_t ring = i8mma::smem_addr(smem + ring_offset(TP, TM));
 
   const int tid = threadIdx.x;
-  const int P = B * OH * OW;
-  const int kwords = ks * ks * C32;
-  const int p0 = blockIdx.x * kTileP;
-  const int m0 = blockIdx.y * kTileM;
-  StepLoader<kThreads> loader(tid, p0, P, OH, OW, stride, pad);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wp = kWs ? 0 : warp / kWm;
+  const int wn = kWs ? 0 : warp % kWm;
+  const Work b = block_work<TP, TM>(a);
+  Gather<TP, TM> g(a, b.s_lo * a.kstep);
+  start_block<TP, TM>(a, g, smem, b);
+  __syncthreads();   // the pixel table
 
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int gid = lane / 4;
-  const int sh = 4 * (lane % 4);
-  constexpr int kMt = kTileP / 16;   // m16 tiles (pixels)
-  constexpr int kNt = kTileM / 8;    // n8 tiles (filters)
-  int acc[kMt][kNt][4];
+  int acc[2][4][4], pa[2][4], pb[4][4];
 #pragma unroll
-  for (int i = 0; i < kMt; ++i)
+  for (int r = 0; r < 4; ++r) {
 #pragma unroll
-    for (int j = 0; j < kNt; ++j)
+    for (int i = 0; i < 2; ++i) {
+      pa[i][r] = 0;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  loader.fetch(x, w, 0, kwords, H, W, C32, ks, m0, M);
-  for (int k0 = 0; k0 < kwords; k0 += kStepW) {
-    loader.store(a_tile, b_tile);
-    __syncthreads();
-    if (k0 + kStepW < kwords)   // the next step's loads fly during this one
-      loader.fetch(x, w, k0 + kStepW, kwords, H, W, C32, ks, m0, M);
-#pragma unroll
-    for (int s = 0; s < kStepW / kSplit; ++s) {
-      const int kk = warp + kSplit * s;
-      if (k0 + kk >= kwords) continue;   // uniform over the warp
-      uint32_t a[kMt][4], b[kNt][2];
-#pragma unroll
-      for (int i = 0; i < kMt; ++i) {
-        const uint32_t lo = a_tile[kk][16 * i + gid];
-        const uint32_t hi = a_tile[kk][16 * i + gid + 8];
-        a[i][0] = pm1_bytes(lo >> sh);
-        a[i][1] = pm1_bytes(hi >> sh);
-        a[i][2] = pm1_bytes(lo >> (16 + sh));
-        a[i][3] = pm1_bytes(hi >> (16 + sh));
-      }
-#pragma unroll
-      for (int j = 0; j < kNt; ++j) {
-        const uint32_t v = b_tile[kk][8 * j + gid];
-        b[j][0] = pm1_bytes(v >> sh);
-        b[j][1] = pm1_bytes(v >> (16 + sh));
-      }
-#pragma unroll
-      for (int i = 0; i < kMt; ++i)
-#pragma unroll
-        for (int j = 0; j < kNt; ++j) mma_s8(acc[i][j], a[i], b[j]);
+      for (int j = 0; j < 4; ++j) acc[i][j][r] = 0;
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pb[j][r] = 0;
   }
+  const uint32_t rb = row_words(a.kstep) * 4;
+  const uint32_t a_off[2] = {
+      (wp * 32 + (lane & 15)) * rb + i8mma::a_lane_offset(lane),
+      (wp * 32 + 16 + (lane & 15)) * rb + i8mma::a_lane_offset(lane)};
+  const uint32_t b_off = (TP + wn * 32 + i8mma::b_lane_row(lane)) * rb +
+                         i8mma::b_lane_offset(lane);
+  const uint32_t ones[4] = {~0u, ~0u, ~0u, ~0u};
+  // one 256-bit MMA step a pass; with the warp split, warp w takes the
+  // step's slices w, w + 4, ...
+  const int kk0 = kWs ? 8 * warp : 0;
+  const int dkk = kWs ? 8 * kWarps : 8;
 
-  // C fragment: c0, c1 at row gid, columns 2*(lane%4) + 0/1; c2, c3 at
-  // row gid + 8.
+  // ---- K loop ----
+  k_loop<TP, TM>(a, g, tab, ring, b, [&](uint32_t stage, int nw) {
+#pragma unroll 1
+    for (int kk = kk0; kk < nw; kk += dkk) {
+      const uint32_t base = stage + kk * 4;
+      i8mma::Frags<2, 4> f;
+      const uint32_t aa[2] = {base + a_off[0], base + a_off[1]};
+      i8mma::load_frags(f, aa, base + b_off, 16 * rb);
 #pragma unroll
-  for (int i = 0; i < kMt; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < kNt; ++j) {
-      const int r = 16 * i + gid;
-      const int c = 8 * j + 2 * (lane % 4);
-      red[warp][r][c] = acc[i][j][0];
-      red[warp][r][c + 1] = acc[i][j][1];
-      red[warp][r + 8][c] = acc[i][j][2];
-      red[warp][r + 8][c + 1] = acc[i][j][3];
+        for (int j = 0; j < 4; ++j)
+          mma_b1(acc[i][j], f.a[i], f.b[j / 2][2 * (j & 1)],
+                 f.b[j / 2][2 * (j & 1) + 1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) mma_b1(pa[i], f.a[i], ~0u, ~0u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma_b1(pb[j], ones, f.b[j / 2][2 * (j & 1)],
+               f.b[j / 2][2 * (j & 1) + 1]);
     }
-  __syncthreads();
-  reduce_store<kThreads>(red, mean, bias, out, p0, m0, P, M, 1, pad_bits,
-                         leaky);
+  });
+  // ---- K loop done ----
+
+  // C fragment of m16 tile i, n8 tile j: r = 0, 1 at row gid, columns
+  // 2*tig, 2*tig + 1; r = 2, 3 at row gid + 8. pa[i][r] is popc(a) of r's
+  // row, pb[j][r] popc(b) of r's column, so each sum is elementwise.
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  if (kWs) {   // the warps' partial tiles, summed in shared memory
+    int* part =
+        reinterpret_cast<int*>(smem + part_offset(TP, TM, a.kstep, a.stages));
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int* dst = part + (warp * TP + 16 * i + gid + 8 * h) * (TM + 4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          int v[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int r = 2 * h + c;
+            v[c] = 4 * acc[i][j][r] - 2 * pa[i][r] - 2 * pb[j][r];
+          }
+          *reinterpret_cast<int2*>(dst + 8 * j + 2 * tig) =
+              make_int2(v[0], v[1]);
+        }
+      }
+    finish_warp_split<TP, TM>(a, part, part + warp_part_bytes(TP, TM) / 4,
+                              mb, b);
+    // ---- split done ----
+    return;
+  }
+  const bool even = (a.M & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = wn * 32 + 8 * j + 2 * tig;
+    const int m = b.m0 + col;
+    if (m >= a.M) continue;
+    const float mv[2] = {mb[col], mb[col + 1]};
+    const float bv[2] = {mb[TM + col], mb[TM + col + 1]};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = b.p0 + wp * 32 + 16 * i + gid + 8 * h;
+        if (p >= a.P) continue;
+        float y[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 2 * h + c;
+          y[c] = epilogue(4 * acc[i][j][r] - 2 * pa[i][r] - 2 * pb[j][r] +
+                              a.offset,
+                          mv[c], bv[c], a.leaky);
+        }
+        float* dst = a.out + static_cast<size_t>(p) * a.M + m;
+        if (even) {
+          *reinterpret_cast<float2*>(dst) = make_float2(y[0], y[1]);
+        } else {
+          dst[0] = y[0];
+          if (m + 1 < a.M) dst[1] = y[1];
+        }
+      }
+  }
+  // ---- stores done ----
 }
+
+const Kernel kKernels[kTiles] = {
+    xnor_mma_kernel<tile_p_of(0), tile_m_of(0)>,
+    xnor_mma_kernel<tile_p_of(1), tile_m_of(1)>,
+    xnor_mma_kernel<tile_p_of(2), tile_m_of(2)>,
+    xnor_mma_kernel<tile_p_of(3), tile_m_of(3)>};
+std::atomic<bool> g_configured[kMaxDevices];
 
 }  // namespace
 
 // Launches one XNOR convolution on `stream` of CUDA device `device`.
 // Pointers are device pointers to contiguous tensors: x [B,H,W,C32] int32,
-// w [M,ks,ks,C32] int32, mean and bias [M] f32, out [B,OH,OW,M] f32.
-// Requires B*OH*OW < 2^31. Returns the cudaError_t of the launch (0 on
-// success).
+// w [M,ks,ks,C32] int32, mean and bias [M] f32, out [B,OH,OW,M] f32
+// (8-byte aligned). The plan comes from ops/xnor_gemm.plan_launch: a tile of
+// tile_p x tile_m outputs (128x32, 64x64, 32x128, or 32x32 with the warp
+// split), K steps of kstep words (8, 16 or 32), `stages` ring stages (2-4),
+// `split` blocks per cluster (1-8, at most the K steps; 1 with the warp
+// split). Requires B*OH*OW and B*H*W*C32 below 2^31. Returns the
+// cudaError_t of the launch (0 on success; cudaErrorInvalidValue for a plan
+// the kernel does not take).
 extern "C" int xnor_gemm_mxu_nhwc(const void* x, const void* w,
                                   const void* mean, const void* bias,
                                   void* out, int B, int H, int W, int C32,
                                   int M, int OH, int OW, int ks, int stride,
-                                  int pad, int pad_bits, int leaky, int device,
+                                  int pad, int pad_bits, int leaky,
+                                  int tile_p, int tile_m, int kstep,
+                                  int stages, int split, int device,
                                   void* stream) {
-  const long long P = static_cast<long long>(B) * OH * OW;
-  if (P == 0 || M == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((P + kTileP - 1) / kTileP),
-                  static_cast<unsigned>((M + kTileM - 1) / kTileM));
-  xnor_mma_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(w),
-      static_cast<const float*>(mean), static_cast<const float*>(bias),
-      static_cast<float*>(out), B, H, W, C32, M, OH, OW, ks, stride, pad,
-      pad_bits, leaky);
-  return static_cast<int>(cudaGetLastError());
+  XnorArgs a = {};
+  a.x = static_cast<const uint32_t*>(x);
+  a.w = static_cast<const uint32_t*>(w);
+  a.mean = static_cast<const float*>(mean);
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<float*>(out);
+  a.B = B; a.H = H; a.W = W; a.C32 = C32; a.M = M; a.OH = OH; a.OW = OW;
+  a.ks = ks; a.stride = stride; a.pad = pad; a.leaky = leaky;
+  a.scale = 1;
+  a.offset = ks * ks * C32 * 32 - pad_bits;
+  a.kfill = (ks * ks * C32 + 7) / 8 * 8;   // whole 256-bit MMA steps
+  a.kstep = kstep; a.stages = stages; a.split = split;
+  return launch(kKernels, g_configured, a, tile_p, tile_m, device, stream);
 }

@@ -9,11 +9,13 @@ Counterparts of the Pallas kernels of ``yolo2_light_tpu/ops/pallas_xnor.py``:
       cnt = sum_f popcount(~(x_bits[p, f] ^ w_bits[m, f]))
       y   = (2 * cnt - adjust) * mean[m] + bias[m],  adjust = 2 * F*32 - K
 
-* ``csrc/xnor_gemm_mxu.cu`` replaces ``xnor_gemm_mxu`` (the bit-packed int8
-  engine, ``-xnor_kernel pallas_mxu``): both operands' bits are unpacked to
-  +-1 int8 inside the kernel and contracted on the int8 tensor cores::
+* ``csrc/xnor_gemm_mxu.cu`` replaces ``xnor_gemm_mxu`` (the bit-packed
+  tensor-core engine, ``-xnor_kernel pallas_mxu``): the packed words are
+  contracted on the binary tensor cores, and the +-1 dot is recovered from
+  and-popcounts::
 
-      y   = (dot_pm1 - pad_bits) * mean[m] + bias[m]
+      dot = 4*popc(x & w) - 2*popc(x) - 2*popc(w) + ks*ks*C32*32
+      y   = (dot - pad_bits) * mean[m] + bias[m]
 
 Both then apply ``y > 0 ? y : 0.1 * y`` (leaky; the XNOR path's slope is
 0.1*y, not the int8 path's y/10) or nothing (linear). The two formulations
@@ -28,7 +30,11 @@ Layouts: activations ``[B, H, W, C32]`` int32 (:func:`pack_activations`, bit
 b of word j is channel 32*j + b set iff x > 0), weights ``[M, ks, ks, C32]``
 int32 (``xnor.pack_sign_weights``). The kernels are implicit GEMMs: they
 gather their taps from the packed map, so no patch matrix is written to
-device memory. The plain versions build the patch matrix instead.
+device memory. The plain versions build the patch matrix instead. K4 runs
+on the binary tensor cores (``mma .b1 .and.popc``) and recovers the +-1 dot
+from and-popcounts (:func:`and_popc_dot`). :func:`plan_launch` gives each
+conv its launch geometry (tile, K step, ring depth, and the splits of K
+across a block's warps and across a cluster).
 
 Dispatch: :func:`xnor_gemm` and :func:`xnor_gemm_mxu` launch the kernel for
 a CUDA tensor and run the plain version for a CPU tensor; the CUDA path
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -51,18 +58,151 @@ _MXU = "xnor_gemm_mxu"
 _EPILOGUES = ("leaky", "linear")
 
 #: Largest GEMM M = batch * out_h * out_w at which ``xnor_impl="auto"``
-#: takes the bit-packed int8 engine (K4) over the dense +-1 conv. On an
+#: takes the bit-packed tensor-core engine (K4) over the dense +-1 conv. On an
 #: H100 (chip_smoke.py phase 7, PERF.md section 6) K4 with its input packing
 #: beat the dense engine at all seven XNOR convs of tiny-yolo-obj_xnor-416
-#: at b=1, from M = 169 (13x13) to M = 43,264 (208x208), by 1.8x to 3.1x;
-#: the threshold is the largest M measured. Above it the dense engine runs.
+#: at b=1, from M = 169 (13x13) to M = 43,264 (208x208), by 2.3x to 5.9x
+#: (on the binary tensor cores; 1.8x to 3.1x when it unpacked to int8); the
+#: threshold is the largest M measured. Above it the dense engine runs.
 AUTO_MXU_MAX_PIXELS = 43264
 
 
 def auto_prefers_mxu(total_out_pixels: int) -> bool:
-    """True where the bit-packed int8 engine measured faster than the dense
+    """True where the bit-packed tensor-core engine measured faster than the dense
     +-1 conv at this GEMM M = batch*oh*ow (see AUTO_MXU_MAX_PIXELS)."""
     return total_out_pixels <= AUTO_MXU_MAX_PIXELS
+
+
+# the kernels' geometry (csrc/xnor_common.cuh)
+SM_COUNT = 132            # H100 SXM
+THREADS = 128             # threads a block
+TILE_AREA = 4096          # outputs of a block whose warps split the tile
+# (pixels, filters) a block: the tiles whose four warps each take a 32x32
+# part, in order of preference at equal padding, then the 32x32 tile whose
+# warps each take a quarter of every K step (the warp split)
+TILES = ((64, 64), (128, 32), (32, 128))
+WARP_SPLIT_TILE = (32, 32)
+KSTEPS = (8, 16, 32)      # K step in words (K4: whole 256-bit MMA steps)
+MAX_STAGES = 4
+MAX_SPLIT = 8             # blocks per cluster (portable size)
+MAX_SMEM = 232448         # shared memory a block may use
+_ROW_PAD = 4              # words of padding per shared row
+_ENGINE_NAMES = ("popcount", "mxu")
+# How the planner splits K (scripts/trace_xnor_gemm.py --plans on an H100,
+# PERF.md section 6): only where the 4096-output tiles leave SMs idle and
+# the window has at least WARP_SPLIT_MIN_WORDS words, and then always with
+# the 32x32 tile of the warp split, which also takes a split across a
+# cluster: K4, bound by latency, 32-word steps (each warp a 256-bit slice)
+# and a cluster split where a block would have more than K4_BLOCK_WORDS
+# words; K3, bound by popcount issue, the cluster split and K step (16 or
+# 32 words) that load the busiest SM least, a block costing about as much
+# as K3_BLOCK_WORDS more words there (its set-up and epilogue) and a split
+# K3_SPLIT_WORDS (its barrier and pushes).
+WARP_SPLIT_MIN_WORDS = 16
+K4_BLOCK_WORDS = 160
+K3_BLOCK_WORDS = 16
+K3_SPLIT_WORDS = 24
+
+
+class Plan(NamedTuple):
+    """One launch of a bit kernel: ``tile_p`` x ``tile_m`` outputs a block,
+    K in steps of ``kstep`` words through a ring of ``stages``, ``split``
+    blocks of a cluster sharing a tile's steps, and what follows."""
+    tile_p: int
+    tile_m: int
+    kstep: int
+    stages: int
+    split: int
+    p_tiles: int
+    m_tiles: int
+    steps: int          # K steps over the window's words
+    blocks: int         # p_tiles * m_tiles * split
+    smem: int           # dynamic shared memory of one block, bytes
+
+    @property
+    def warp_split(self) -> bool:
+        """Whether the block's warps share each K step (the 32x32 tile; only
+    such a plan may also split K across a cluster)."""
+        return self.tile_p * self.tile_m < TILE_AREA
+
+
+def smem_bytes(tile_p: int, tile_m: int, kstep: int, stages: int,
+               split: int) -> int:
+    """The kernels' shared memory: the pixel table (16 bytes a pixel), the
+    tile's mean and bias (8 bytes a filter), the ring of ``stages`` steps
+    of (tile_p + tile_m) rows of kstep + 4 words, then, with the warp
+    split, the partial tiles: one per warp, and for a cluster split a slot
+    per cluster block of ceil(tile_p / split) rows, each row tile_m + 4
+    int32 sums."""
+    ring = stages * (tile_p + tile_m) * (kstep + _ROW_PAD) * 4
+    rows = 0
+    if tile_p * tile_m < TILE_AREA:
+        rows = THREADS // 32 * tile_p
+        if split > 1:
+            rows += split * -(-tile_p // split)
+    return tile_p * 16 + tile_m * 8 + ring + rows * (tile_m + 4) * 4
+
+
+def make_plan(p: int, m: int, kwords: int, tile: tuple, kstep: int,
+              split: int) -> Plan:
+    """The plan of one launch at a tile, K step and split, with the ring
+    that holds each block's steps (2 to 4)."""
+    tile_p, tile_m = tile
+    p_tiles, m_tiles = -(-p // tile_p), -(-m // tile_m)
+    steps = -(-kwords // kstep)
+    stages = min(MAX_STAGES, max(2, -(-steps // split)))
+    return Plan(tile_p, tile_m, kstep, stages, split, p_tiles, m_tiles, steps,
+                p_tiles * m_tiles * split,
+                smem_bytes(tile_p, tile_m, kstep, stages, split))
+
+
+def _busiest_sm_words(tiles: int, kwords: int, kstep: int,
+                      split: int) -> int:
+    """Window words the busiest SM reduces, when blocks are dealt evenly
+    over the SMs and the first rank of a cluster has the most steps, each
+    block charged K3_BLOCK_WORDS more."""
+    first = -(-(-(-kwords // kstep)) // split) * kstep
+    return -(-tiles * split // SM_COUNT) * (min(kwords, first)
+                                            + K3_BLOCK_WORDS)
+
+
+
+
+
+def plan_launch(b: int, h: int, w: int, c32: int, m: int, ks: int,
+                stride: int, pad: int, engine: str = "popcount") -> Plan:
+    """Geometry of one launch of ``engine``'s kernel ("popcount": K3,
+    "mxu": K4): the 4096-output tile that pads P and M least (64x64 among
+    equals) with the smallest K step that holds the window (at most 32
+    words); or, as set out at ``WARP_SPLIT_MIN_WORDS``, the warp split's
+    32x32 tile with its K step and cluster split."""
+    if engine not in _ENGINE_NAMES:
+        raise ValueError(f"unknown XNOR engine {engine!r} (expected popcount "
+                         "or mxu)")
+    oh, ow = _out_hw(h, w, ks, stride, pad)
+    p, kwords = b * oh * ow, ks * ks * c32
+    if p < 1 or m < 1 or kwords < 1:
+        raise ValueError(f"xnor plan: empty conv (P={p}, M={m}, "
+                         f"kwords={kwords})")
+
+    def padded(tile: tuple) -> int:
+        return -(-p // tile[0]) * tile[0] * -(-m // tile[1]) * tile[1]
+
+    tile = min(TILES, key=padded)
+    if (-(-p // tile[0]) * -(-m // tile[1]) >= SM_COUNT
+            or kwords < WARP_SPLIT_MIN_WORDS):
+        kstep = next((k for k in KSTEPS if k >= kwords), KSTEPS[-1])
+        return make_plan(p, m, kwords, tile, kstep, 1)
+    if engine == "mxu":
+        split = min(MAX_SPLIT, -(-kwords // K4_BLOCK_WORDS))
+        return make_plan(p, m, kwords, WARP_SPLIT_TILE, KSTEPS[-1], split)
+    ws_tiles = -(-p // WARP_SPLIT_TILE[0]) * -(-m // WARP_SPLIT_TILE[1])
+    kstep, split = min(
+        ((k, s) for k in KSTEPS[1:]
+         for s in range(1, min(MAX_SPLIT, -(-kwords // k)) + 1)),
+        key=lambda ks: (_busiest_sm_words(ws_tiles, kwords, *ks)
+                        + (ks[1] > 1) * K3_SPLIT_WORDS, ks[1], -ks[0]))
+    return make_plan(p, m, kwords, WARP_SPLIT_TILE, kstep, split)
 
 
 def _check_epilogue(activation: str) -> None:
@@ -131,6 +271,23 @@ def _unpack_pm1(words: torch.Tensor) -> torch.Tensor:
     return (2 * bits - 1).reshape(words.shape[0], -1).to(torch.float64)
 
 
+def and_popc_dot(pt: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
+    """The +-1 dot over every stored bit of patch rows ``pt`` [N, K] and
+    filter rows ``wf`` [M, K] (int32 words) as K4 forms it from
+    and-popcounts: ``4*popc(a & b) - 2*popc(a) - 2*popc(b) + K*32``,
+    int64 ``[N, M]``."""
+    a = pt.to(torch.int64) & 0xFFFFFFFF
+    b = wf.to(torch.int64) & 0xFFFFFFFF
+    both = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int64,
+                       device=pt.device)
+    step = max(1, (1 << 22) // max(1, a.numel()))
+    for m0 in range(0, b.shape[0], step):
+        both[:, m0:m0 + step] = _popcount32(
+            a[:, None, :] & b[None, m0:m0 + step, :]).sum(-1)
+    return (4 * both - 2 * _popcount32(a).sum(-1)[:, None]
+            - 2 * _popcount32(b).sum(-1)[None, :] + a.shape[1] * BITS)
+
+
 def epilogue_plain(dot: torch.Tensor, mean, bias, activation: str):
     """``dot * mean + bias`` with two roundings, then the 0.1*y leaky."""
     y = dot.to(torch.float32) * mean + bias
@@ -176,6 +333,21 @@ def xnor_gemm_mxu_plain(xp, wp, mean, bias, c_real: int, stride: int,
                           activation).reshape(b, oh, ow, m)
 
 
+def xnor_gemm_and_popc_plain(xp, wp, mean, bias, c_real: int, stride: int,
+                             pad: int, activation: str = "leaky"):
+    """K4's function in the kernel's own arithmetic: the +-1 dot from
+    and-popcounts (:func:`and_popc_dot`), then ``dot - pad_bits`` and the
+    epilogue. Equal to :func:`xnor_gemm_mxu_plain` bit for bit."""
+    _check_epilogue(activation)
+    b, h, w, c32 = xp.shape
+    m, ks = wp.shape[0], wp.shape[1]
+    oh, ow = _out_hw(h, w, ks, stride, pad)
+    dot = and_popc_dot(im2col_bits(xp, ks, stride, pad), wp.reshape(m, -1))
+    _, pad_bits = _constants(ks, c32, c_real)
+    return epilogue_plain(dot - pad_bits, mean, bias,
+                          activation).reshape(b, oh, ow, m)
+
+
 # ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
@@ -188,13 +360,13 @@ def load_kernel(name: str):
     from . import _build
     fn = getattr(_build.load(name), f"{name}_nhwc")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 18
                    + [ctypes.c_void_p])
     return fn
 
 
 def _launch(name: str, xp, wp, mean, bias, c_real: int, stride: int,
-            pad: int, activation: str):
+            pad: int, activation: str, plan: Plan | None):
     """Check the operands, then launch kernel ``name`` on the current
     stream of ``xp``'s device."""
     _check_epilogue(activation)
@@ -222,8 +394,12 @@ def _launch(name: str, xp, wp, mean, bias, c_real: int, stride: int,
     if not all(t.is_contiguous() for t in (xp, wp, mean, bias)):
         raise ValueError(f"{name}: x, w, mean and bias must be contiguous")
     oh, ow = _out_hw(h, w, ks, stride, pad)
-    if b * oh * ow >= 2 ** 31:
-        raise ValueError(f"{name}: B*OH*OW must stay below 2**31")
+    if b * oh * ow >= 2 ** 31 or xp.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: B*OH*OW and B*H*W*C32 must stay below "
+                         "2**31")
+    if plan is None:
+        plan = plan_launch(b, h, w, c32, m, ks, stride, pad,
+                           "popcount" if name == _POPCOUNT else "mxu")
     adjust, pad_bits = _constants(ks, c32, c_real)
     out = torch.empty((b, oh, ow, m), dtype=torch.float32, device=xp.device)
     kernel = load_kernel(name)
@@ -232,23 +408,28 @@ def _launch(name: str, xp, wp, mean, bias, c_real: int, stride: int,
     rc = kernel(xp.data_ptr(), wp.data_ptr(), mean.data_ptr(),
                 bias.data_ptr(), out.data_ptr(), b, h, w, c32, m, oh, ow, ks,
                 stride, pad, adjust if name == _POPCOUNT else pad_bits,
-                int(activation == "leaky"), xp.device.index, stream)
+                int(activation == "leaky"), plan.tile_p, plan.tile_m,
+                plan.kstep, plan.stages, plan.split, xp.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     return out
 
 
 def xnor_gemm_cuda(xp, wp, mean, bias, c_real: int, stride: int, pad: int,
-                   activation: str = "leaky"):
-    """Launch K3, the popcount kernel."""
+                   activation: str = "leaky", *, plan: Plan | None = None):
+    """Launch K3, the popcount kernel. ``plan``: :func:`plan_launch`'s by
+    default; a test may force another."""
     return _launch(_POPCOUNT, xp, wp, mean, bias, c_real, stride, pad,
-                   activation)
+                   activation, plan)
 
 
 def xnor_gemm_mxu_cuda(xp, wp, mean, bias, c_real: int, stride: int,
-                       pad: int, activation: str = "leaky"):
-    """Launch K4, the bit-packed int8 tensor-core kernel."""
-    return _launch(_MXU, xp, wp, mean, bias, c_real, stride, pad, activation)
+                       pad: int, activation: str = "leaky", *,
+                       plan: Plan | None = None):
+    """Launch K4, the binary tensor-core kernel (``plan`` as for
+    :func:`xnor_gemm_cuda`)."""
+    return _launch(_MXU, xp, wp, mean, bias, c_real, stride, pad, activation,
+                   plan)
 
 
 def _dispatch(cuda_fn, plain_fn, xp, *args):
@@ -270,7 +451,7 @@ def xnor_gemm(xp, wp, mean, bias, c_real: int, stride: int, pad: int,
 
 def xnor_gemm_mxu(xp, wp, mean, bias, c_real: int, stride: int, pad: int,
                   activation: str = "leaky"):
-    """As :func:`xnor_gemm`, with the bit-packed int8 engine (K4)."""
+    """As :func:`xnor_gemm`, with the bit-packed tensor-core engine (K4)."""
     return _dispatch(xnor_gemm_mxu_cuda, xnor_gemm_mxu_plain, xp, wp, mean,
                      bias, c_real, stride, pad, activation)
 
