@@ -59,9 +59,12 @@ Phases, each reported on its own lines:
 
 Every kernel time is printed beside the least time the card could take for
 the same work: the bytes the function must move (each input read once, each
-output written once) over the HBM rate, or its operations over the int8
-tensor-core peak, whichever is longer (the XNOR kernels' +-1 multiply-adds
-count as int8 operations: Hopper publishes no binary rate).
+output written once) over the HBM rate, or its operations over the peak of
+their type, whichever is longer: the int8 tensor cores' for K1 and K2, the
+binary tensor cores' for the XNOR kernels' +-1 multiply-adds (8x the int8
+peak, the rate scripts/trace_xnor_gemm.py measures; Hopper's data sheet
+gives none). The XNOR lines also print the bound with the +-1
+multiply-adds at the int8 peak, the count of the earlier XNOR figures.
 
 Any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -103,6 +106,10 @@ SLEEP_CYCLES = 50_000_000   # about 25 ms of device time to queue behind
 # NVIDIA H100 SXM peaks (data sheet, dense): int8 tensor cores, HBM3
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# the binary tensor cores (mma .b1 m16n8k256): an m16n8k256 .b1 MMA retires
+# at the m16n8k32 .s8 MMA's rate with 8x its multiply-adds
+# (scripts/trace_xnor_gemm.py's probe)
+PEAK_B1_OPS = 8 * PEAK_INT8_OPS
 # K3's floor: __popc issue, 16 an SM a clock, 132 SMs at the 1.98 GHz boost
 POPC_PER_SECOND = 16 * 132 * 1.98e9
 THRESH = "0.25"         # the CLI's default -thresh
@@ -287,13 +294,27 @@ def phase_build() -> None:
         f"parallel (nvcc {' '.join(_build.NVCC_FLAGS)})")
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
+def bound(bytes_moved: float, ops: float,
+          peak_ops: float = PEAK_INT8_OPS) -> tuple:
     """The least time the card could take for work that moves
     ``bytes_moved`` (each input read once, each output written once) and
-    does ``ops`` int8 operations: (ms, "bytes" or "operations")."""
+    does ``ops`` operations at ``peak_ops`` a second (by default int8):
+    (ms, "bytes" or "operations")."""
     b_ms = bytes_moved / PEAK_BYTES * 1e3
-    o_ms = ops / PEAK_INT8_OPS * 1e3
+    o_ms = ops / peak_ops * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def xnor_bound(xp, wp, c: int, peak_ops: float = PEAK_B1_OPS) -> tuple:
+    """:func:`bound` of one 3x3, stride 1, pad 1 XNOR conv of packed
+    ``xp`` [B, H, W, C32] and ``wp`` [M, 3, 3, C32] over C real channels:
+    the packed input, the weights, mean and bias read, the f32 output
+    written; the +-1 multiply-adds at ``peak_ops`` (by default the binary
+    tensor cores')."""
+    b, h, w, _ = xp.shape
+    m = wp.shape[0]
+    return bound(4 * (xp.numel() + wp.numel() + 2 * m + b * h * w * m),
+                 2.0 * b * h * w * m * 9 * c, peak_ops)
 
 
 def row_bound(rows: list) -> dict:
@@ -685,12 +706,9 @@ def phase_xnor_kernels() -> list:
                   "linear").view(b, h, w, m), k4),
               f"torch._int_mm's +-1 product != K4 at {label}")
         row["library_ms"] = event_ms(lambda: torch._int_mm(a8, wmat))
-        # the +-1 multiply-adds counted as int8 operations at the int8 peak:
-        # Hopper publishes no binary tensor-core rate
-        row["bound_ms"], row["bound_by"] = bound(
-            4 * (xp.numel() + wp.numel() + 2 * m + b * h * w * m),
-            2.0 * b * h * w * m * 9 * c)
-        row["popc_floor_ms"] = b * h * w * m * 9 * c32 / POPC_PER_SECOND * 1e3
+        row["bound_ms"], row["bound_by"] = xnor_bound(xp, wp, c)
+        int8_peak_ms, _ = xnor_bound(xp, wp, c, PEAK_INT8_OPS)
+        popc_floor_ms = b * h * w * m * 9 * c32 / POPC_PER_SECOND * 1e3
         row["xnor_gemm_ms"] = event_ms(lambda: xnor_gemm.xnor_gemm_cuda(
             xp, wp, mean, bias, c, 1, 1, "leaky"))
         row["xnor_gemm_mxu_ms"] = event_ms(
@@ -719,10 +737,13 @@ def phase_xnor_kernels() -> list:
             f"{row['library_ms']:.4f} ms; bound "
             f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}): K3 "
             f"{100 * row['bound_ms'] / row['xnor_gemm_ms']:.1f}%, K4 "
-            f"{100 * row['bound_ms'] / row['xnor_gemm_mxu_ms']:.1f}% of it; "
-            f"K3 at {100 * row['popc_floor_ms'] / row['xnor_gemm_ms']:.1f}% "
-            f"of its popcount floor "
-            f"({row['popc_floor_ms'] * 1e3:.2f} us)")
+            f"{100 * row['bound_ms'] / row['xnor_gemm_mxu_ms']:.1f}% of it "
+            f"(with the +-1 multiply-adds at the int8 peak: "
+            f"{int8_peak_ms * 1e3:.2f} us, K3 "
+            f"{100 * int8_peak_ms / row['xnor_gemm_ms']:.1f}%, K4 "
+            f"{100 * int8_peak_ms / row['xnor_gemm_mxu_ms']:.1f}%); K3 at "
+            f"{100 * popc_floor_ms / row['xnor_gemm_ms']:.1f}% of its "
+            f"popcount floor ({popc_floor_ms * 1e3:.2f} us)")
         rows.append(row)
     return rows
 
@@ -881,9 +902,7 @@ def main() -> int:
                         "plain_ms": r[f"{name}_plain_ms"],
                         "library_ms": r["library_ms"],
                         "dense_ms": r["dense_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        **({"popc_floor_ms": r["popc_floor_ms"]}
-                           if engine == "popcount" else {})}
+                        "bound_by": r["bound_by"]}
                        for r in xnor_rows]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

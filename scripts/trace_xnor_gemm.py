@@ -11,10 +11,11 @@ Two parts, both printed with the card's name and power limit first:
     ``clock64``. Also whether ptxas for ``sm_90a`` takes the ``.xor.popc``
     form beside ``.and.popc``.
 
-(b) Per-block phase cycles of a traced copy of each kernel (``%globaltimer``
-    at a block's start and end, ``clock64`` after its set-up, after its K
-    loop and after its epilogue and stores; the kernel's own code is
-    unchanged) at tiny-yolo-obj_xnor-416's seven XNOR convs, after checking
+(b) Per-block phase cycles of a traced build of each kernel (built with
+    ``-DXNOR_TRACE``: ``%globaltimer`` at a block's start and end,
+    ``clock64`` after its set-up, after its K loop and after its epilogue
+    and stores; see ``Trace`` in ``csrc/xnor_common.cuh``) at
+    tiny-yolo-obj_xnor-416's seven XNOR convs, after checking
     the traced copy against the plain version: the mean device time of a
     launch (CUDA events), the span from the first block's start to the last
     block's end, the blocks, the most on one SM, a block's mean duration and
@@ -24,21 +25,16 @@ Two parts, both printed with the card's name and power limit first:
     ``chip_smoke.py`` counts. ``--plans`` also times each shape under every
     other tile, K step and split the kernels take.
 
-With ``--variants`` it also times copies of the kernels whose results are
-wrong on purpose, to show what each shape's time follows: ``no_x`` drops
-the pixel-row copies of the gather, ``no_w`` the filter-row copies,
+With ``--variants`` it also times builds of the kernels whose results are
+wrong on purpose (``-DXNOR_DROP``, the ``kDrop`` bits of
+``csrc/xnor_common.cuh``), to show what each shape's time follows: ``no_x``
+drops the pixel-row copies of the gather, ``no_w`` the filter-row copies,
 ``no_compute`` the reduction of each step (MMAs or popcounts), ``no_start``
 the copies a block requests before its pixel table (mean, bias and the
 first weights), ``skeleton`` the first three (what is left: launch, set-up,
 barriers, epilogue and stores). Each prints its time and phase cycles.
 
-``--baseline DIR`` traces the kernels of another checkout instead (``DIR``:
-its root, for example a ``git archive`` of the parent commit, whose kernels
-take the fixed 32x32 geometry and the 19-argument entry of before the launch
-planner).
-
-Usage: ``python scripts/trace_xnor_gemm.py [--plans] [--variants]
-[--baseline DIR]``
+Usage: ``python scripts/trace_xnor_gemm.py [--plans] [--variants]``
 """
 
 from __future__ import annotations
@@ -60,8 +56,7 @@ from yolo2_light_tpu_torch.ops import _build  # noqa: E402
 from yolo2_light_tpu_torch.ops import xnor_gemm as XG  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "trace")
-MAX_BLOCKS = 8192
-FIELDS = 6
+FIELDS = 6                # kTraceFields of csrc/xnor_common.cuh
 POPC_PER_SM_CLOCK = 16
 SMS = 132
 
@@ -150,70 +145,11 @@ __global__ void xor_popc(const uint32_t* in, int* out) {
 }
 """
 
-# Kernel-side stamps shared by every traced copy: a per-block record of
-# start and end time, SM and three phase lengths in cycles.
-TRACE_DECL = (
-    f"__device__ unsigned long long g_trace[{MAX_BLOCKS} * {FIELDS}];\n"
-    "__device__ __forceinline__ unsigned long long gtime() {\n"
-    "  unsigned long long t;\n"
-    "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
-    "  return t;\n}\n")
-TRACE_START = ("  const unsigned long long tr_start = gtime();\n"
-               "  const long long tr_c0 = clock64();\n")
-TRACE_END = (
-    "  __syncthreads();\n"
-    "  const long long tr_c3 = clock64();\n"
-    "  unsigned tr_smid;\n"
-    "  asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(tr_smid));\n"
-    "  const int tr_blk = blockIdx.y * gridDim.x + blockIdx.x;\n"
-    f"  if (threadIdx.x == 0 && tr_blk < {MAX_BLOCKS}) {{\n"
-    f"    unsigned long long* tr_d = g_trace + tr_blk * {FIELDS};\n"
-    "    tr_d[0] = tr_start; tr_d[1] = gtime(); tr_d[2] = tr_smid;\n"
-    "    tr_d[3] = tr_c1 - tr_c0; tr_d[4] = tr_c2 - tr_c1;\n"
-    "    tr_d[5] = tr_c3 - tr_c2;\n"
-    "  }\n")
-
-# (anchor, insert after it) for the kernels of before the launch planner
-BASELINE_PATCHES = [
-    ("namespace {\n", TRACE_DECL),
-    ("  const int tid = threadIdx.x;\n", TRACE_START),
-    ("  StepLoader<kThreads> loader(tid, p0, P, OH, OW, stride, pad);\n",
-     "  const long long tr_c1 = clock64();\n"),
-    ("    __syncthreads();\n  }\n", "  const long long tr_c2 = clock64();\n"),
-    ("                         leaky);\n", TRACE_END),
-]
-
-
-# (anchor, insert after it) for the kernels on the launch planner
-PATCHES = [
-    ("namespace {\n", TRACE_DECL),
-    ("  const int tid = threadIdx.x;\n", TRACE_START),
-    ("  __syncthreads();   // the pixel table\n",
-     "  const long long tr_c1 = clock64();\n"),
-    ("  // ---- K loop done ----\n", "  const long long tr_c2 = clock64();\n"),
-    ("    // ---- split done ----\n", TRACE_END),
-    ("  // ---- stores done ----\n", TRACE_END),
-]
-# (text in xnor_common.cuh, its replacement) of each diagnostic variant
-_NO_X = [("          i8mma::cp_async16(dst, ok ? a.x + (e.x + tapoff) : a.x, ok);\n",
-          ""),
-         ("        i8mma::cp_async4(\n"
-          "            dst, ok ? a.x + (xe.x + (y * a.W + x) * a.C32 + cw) : a.x, ok);\n",
-          "")]
-_NO_W = [("      if (a.vec == 4) i8mma::cp_async16(dst, ok ? src : a.w, ok);\n"
-          "      else i8mma::cp_async4(dst, ok ? src : a.w, ok);\n", "")]
-_NO_START = [("  for (int i = threadIdx.x; i < 2 * TM; i += kThreads) {\n"
-               "    const int c = i < TM ? i : i - TM;\n"
-               "    const bool ok = b.m0 + c < a.M;\n"
-               "    i8mma::cp_async4(mb + 4 * i,\n"
-               "                     ok ? (i < TM ? a.mean : a.bias) + b.m0 + c : a.mean, ok);\n"
-               "  }\n", ""),
-              ("    g.issue_w(a, ring + d * stage_bytes(TP, TM, a.kstep), b.m0,\n"
-               "              g.kb + d * a.kstep);\n", "    ;\n")]
-_NO_COMPUTE = [("    compute(ring + out * bytes, left < a.kstep ? left : a.kstep);\n",
-                "")]
-VARIANTS = {"no_x": _NO_X, "no_w": _NO_W, "no_compute": _NO_COMPUTE,
-            "no_start": _NO_START, "skeleton": _NO_X + _NO_W + _NO_COMPUTE}
+# the kDrop bits of csrc/xnor_common.cuh each diagnostic variant sets
+DROP_X, DROP_W, DROP_COMPUTE, DROP_START = 1, 2, 4, 8
+VARIANTS = {"no_x": DROP_X, "no_w": DROP_W, "no_compute": DROP_COMPUTE,
+            "no_start": DROP_START,
+            "skeleton": DROP_X | DROP_W | DROP_COMPUTE}
 ENGINES = {"xnor_gemm": ("popcount", XG.xnor_gemm_cuda, XG.xnor_gemm_plain),
            "xnor_gemm_mxu": ("mxu", XG.xnor_gemm_mxu_cuda,
                              XG.xnor_gemm_mxu_plain)}
@@ -277,29 +213,13 @@ def probe() -> None:
           f"{'' if res.returncode == 0 else ': ' + first}", flush=True)
 
 
-def build_traced(csrc: str, name: str, patches, tag: str,
-                 header=()) -> ctypes.CDLL:
-    """A copy of ``csrc/<name>.cu`` with ``patches`` inserted, built into
-    ``build/trace/<tag>/``; ``header``: replacements in a copy of
-    ``xnor_common.cuh`` beside it (the copy the source's include finds)."""
-    src = open(os.path.join(csrc, f"{name}.cu")).read()
-    for anchor, insert in patches:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"{name}: anchor not found once: {anchor!r}")
-        src = src.replace(anchor, anchor + insert)
-    src += ('extern "C" int read_trace(void* host, int n) {\n'
-            f'  return (int)cudaMemcpyFromSymbol(host, g_trace, n * '
-            f'{8 * FIELDS});\n}}\n')
-    if header:
-        text = open(os.path.join(csrc, "xnor_common.cuh")).read()
-        for old, new in header:
-            if text.count(old) != 1:
-                raise RuntimeError(f"header text not found once: {old!r}")
-            text = text.replace(old, new)
-        write(os.path.join(tag, "xnor_common.cuh"), text)
+def build_traced(name: str, drop: int, tag: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built with its trace on and the parts ``drop``
+    (kDrop bits) left out, into ``build/trace/<tag>/``."""
     lib = os.path.join(OUT, tag, f"{name}.so")
-    res = nvcc(write(os.path.join(tag, f"{name}.cu"), src), lib,
-               ("-I", csrc))
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    res = nvcc(os.path.join(_build.CSRC_DIR, f"{name}.cu"), lib,
+               ("-DXNOR_TRACE", f"-DXNOR_DROP={drop}"))
     if res.returncode != 0:
         raise RuntimeError(res.stderr[-4000:])
     return ctypes.CDLL(lib)
@@ -321,49 +241,6 @@ def report(label: str, lib, n: int, ms: float, extra: str = "") -> None:
 
 def popc_floor_us(p: int, m: int, kwords: int, mhz: float) -> float:
     return p * m * kwords / (SMS * POPC_PER_SM_CLOCK) / mhz
-
-
-def trace_baseline(root: str, mhz: float) -> None:
-    """The kernels of a checkout from before the launch planner: fixed
-    32x32 tiles, entry (x, w, mean, bias, out, 13 ints, device, stream)."""
-    csrc = os.path.join(root, "yolo2_light_tpu_torch", "csrc")
-    dev = torch.device("cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    for name, plain in (("xnor_gemm", XG.xnor_gemm_plain),
-                        ("xnor_gemm_mxu", XG.xnor_gemm_mxu_plain)):
-        lib = build_traced(csrc, name, BASELINE_PATCHES, "baseline")
-        fn = getattr(lib, f"{name}_nhwc")
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
-                       + [ctypes.c_void_p])
-        for i, (label, (b, h, w, c, m)) in enumerate(cs.XNOR_SHAPES):
-            x, wp, _, mean, bias = cs._xnor_operands(dev, cs.SEED + i, b, h,
-                                                     w, c, m)
-            xp = XG.pack_activations(x, c)
-            c32 = xp.shape[-1]
-            adjust, pad_bits = XG._constants(3, c32, c)
-            out = torch.empty((b, h, w, m), dtype=torch.float32, device=dev)
-
-            def call():
-                rc = fn(xp.data_ptr(), wp.data_ptr(), mean.data_ptr(),
-                        bias.data_ptr(), out.data_ptr(), b, h, w, c32, m, h,
-                        w, 3, 1, 1,
-                        adjust if name == "xnor_gemm" else pad_bits, 1,
-                        dev.index or 0, stream)
-                cs.check(rc == 0, f"{name} launch: cudaError {rc}")
-                return out
-            cs.check(torch.equal(call(), plain(xp, wp, mean, bias, c, 1, 1)),
-                     f"baseline {name} != plain at {label}")
-            ms = cs.event_ms(call)
-            call()
-            torch.cuda.synchronize()
-            n = -(-b * h * w // 32) * -(-m // 32)
-            extra = ""
-            if name == "xnor_gemm":
-                fl = popc_floor_us(b * h * w, m, 9 * c32, mhz)
-                extra = (f"; popcount floor {fl:.2f} us "
-                         f"({100 * fl / (ms * 1e3):.1f}% of it)")
-            report(f"baseline {name} {label}", lib, n, ms, extra)
 
 
 def other_plans(base, p: int, m: int, kwords: int):
@@ -395,9 +272,8 @@ LOAD_KERNEL = XG.load_kernel
 def trace_variants() -> None:
     """The diagnostic variants' times and phases at the planner's plans."""
     dev = torch.device("cuda")
-    for variant, header in VARIANTS.items():
-        libs = {name: build_traced(_build.CSRC_DIR, name, PATCHES, variant,
-                                   header) for name in ENGINES}
+    for variant, drop in VARIANTS.items():
+        libs = {name: build_traced(name, drop, variant) for name in ENGINES}
         bind(libs)
         for name, (engine, cuda, _) in ENGINES.items():
             times = []
@@ -423,8 +299,7 @@ def trace_current(mhz: float, plans: bool) -> None:
     """The kernels of this checkout, at the planner's plan (and, with
     ``plans``, at every other)."""
     dev = torch.device("cuda")
-    libs = {name: build_traced(_build.CSRC_DIR, name, PATCHES, "traced")
-            for name in ENGINES}
+    libs = {name: build_traced(name, 0, "traced") for name in ENGINES}
     bind(libs)
     for name, (engine, cuda, plain) in ENGINES.items():
         for i, (label, (b, h, w, c, m)) in enumerate(cs.XNOR_SHAPES):
@@ -434,9 +309,7 @@ def trace_current(mhz: float, plans: bool) -> None:
             c32 = xp.shape[-1]
             ref = plain(xp, wp, mean, bias, c, 1, 1)
             base = XG.plan_launch(b, h, w, c32, m, 3, 1, 1, engine)
-            b_ms, _ = cs.bound(
-                4 * (xp.numel() + wp.numel() + 2 * m + b * h * w * m),
-                2.0 * b * h * w * m * 9 * c)
+            b_ms, _ = cs.xnor_bound(xp, wp, c)
             fl = popc_floor_us(b * h * w, m, 9 * c32, mhz)
             for plan in [base] + (other_plans(base, b * h * w, m, 9 * c32)
                                   if plans else []):
@@ -468,8 +341,6 @@ def main(argv=None) -> int:
                     help="also time every other tile and split")
     ap.add_argument("--variants", action="store_true",
                     help="also time the diagnostic variants")
-    ap.add_argument("--baseline", metavar="DIR",
-                    help="trace the kernels of the checkout at DIR instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_xnor_gemm: needs a CUDA device", file=sys.stderr)
@@ -478,12 +349,9 @@ def main(argv=None) -> int:
     mhz = float(smi("clocks.max.sm").split()[0])
     print(f"[clock] SM clock {mhz:.0f} MHz (clocks.max.sm)", flush=True)
     probe()
-    if args.baseline:
-        trace_baseline(os.path.abspath(args.baseline), mhz)
-    else:
-        trace_current(mhz, args.plans)
-        if args.variants:
-            trace_variants()
+    trace_current(mhz, args.plans)
+    if args.variants:
+        trace_variants()
     return 0
 
 

@@ -521,7 +521,7 @@ def test_xnor_kernels_bit_identical_to_plain(dev, b, h, w, c, m, activation):
 ])
 def test_xnor_every_plan_bit_identical(dev, name, b, h, w, c, m):
     """Every plan kind the kernels take: each 4096-output tile (128x32,
-    64x64, 32x128), and the warp split's 32x32 tile with no split and with
+    64x64), and the warp split's 32x32 tile with no split and with
     a split of K across a cluster (2 blocks, and as many as there are
     steps, up to 8); each K step and ring depth, leaky and linear, against
     the plain version."""
@@ -568,6 +568,7 @@ def test_xnor_kernel_refuses_a_plan_it_does_not_take(dev, name):
                 base._replace(split=base.steps + 1),
                 base._replace(stages=XG.MAX_STAGES + 1),
                 base._replace(tile_p=32, tile_m=64),
+                base._replace(tile_p=32, tile_m=128),
                 base._replace(tile_p=64, tile_m=64, split=2, kstep=8),
                 base._replace(split=XG.MAX_SPLIT + 1)):
         with pytest.raises(RuntimeError, match="cudaError 1"):

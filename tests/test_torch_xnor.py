@@ -246,12 +246,29 @@ def test_plain_versions_count_the_same_integer():
     np.testing.assert_array_equal(a, b)
 
 
+def _and_popc_dot(pt, wf):
+    """The +-1 dot over every stored bit of patch rows ``pt`` [N, K] and
+    filter rows ``wf`` [M, K] (int32 words) as K4 forms it from
+    and-popcounts: ``4*popc(a & b) - 2*popc(a) - 2*popc(b) + K*32``,
+    int64 ``[N, M]``."""
+    a = pt.to(torch.int64) & 0xFFFFFFFF
+    b = wf.to(torch.int64) & 0xFFFFFFFF
+    both = XG._popcount32(a[:, None, :] & b[None, :, :]).sum(-1)
+    return (4 * both - 2 * XG._popcount32(a).sum(-1)[:, None]
+            - 2 * XG._popcount32(b).sum(-1)[None, :] + a.shape[1] * 32)
+
+
 def _and_popc_conv(x, sign, mean, bias, activation="leaky"):
-    """K4's arithmetic (and-popcounts, then dot - pad_bits) as a conv."""
-    return XG.xnor_gemm_and_popc_plain(
-        XG.pack_activations(torch.from_numpy(x), sign.shape[2]),
-        torch.from_numpy(pack_sign_weights(sign)), torch.from_numpy(mean),
-        torch.from_numpy(bias), sign.shape[2], 1, 1, activation).numpy()
+    """K4's arithmetic (and-popcounts, then dot - pad_bits and the
+    epilogue) as a conv at stride 1, pad 1."""
+    c, m = sign.shape[2], sign.shape[3]
+    xp = XG.pack_activations(torch.from_numpy(x), c)
+    wp = torch.from_numpy(pack_sign_weights(sign))
+    dot = _and_popc_dot(XG.im2col_bits(xp, 3, 1, 1), wp.reshape(m, -1))
+    _, pad_bits = XG._constants(3, xp.shape[-1], c)
+    y = XG.epilogue_plain(dot - pad_bits, torch.from_numpy(mean),
+                          torch.from_numpy(bias), activation)
+    return y.reshape(*x.shape[:3], m).numpy()
 
 
 @pytest.mark.parametrize("b,c,m,hw", GRID)
@@ -267,7 +284,7 @@ def test_and_popcount_identity_equals_pm1_dot(b, c, m, hw):
     wf = wp.reshape(m, -1)
     assert pt.shape[1] % 8                      # not whole 256-bit steps
     _, pad_bits = XG._constants(3, xp.shape[-1], c)
-    dot = XG.and_popc_dot(pt, wf) - pad_bits
+    dot = _and_popc_dot(pt, wf) - pad_bits
     pm1 = XG._unpack_pm1(pt) @ XG._unpack_pm1(wf).T - pad_bits
     assert dot.dtype == torch.int64
     assert torch.equal(dot, pm1.to(torch.int64))

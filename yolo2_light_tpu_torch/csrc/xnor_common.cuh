@@ -13,7 +13,7 @@
 //
 // Geometry, chosen per conv by ops/xnor_gemm.plan_launch and passed in: a
 // block of 128 threads computes a tile of TP output pixels x TM filters:
-// 128x32, 64x64 or 32x128, each warp a 32x32 part of it over every K step;
+// 128x32 or 64x64, each warp a 32x32 part of it over every K step;
 // or 32x32, each warp the whole tile over a quarter of each K step, the four
 // partial tiles summed through shared memory at the end (the warp split).
 // K runs in steps of `kstep` words (8, 16 or 32); `stages` steps (2-4) sit
@@ -62,19 +62,74 @@ constexpr int kMaxSplit = 8;
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxDevices = 64;
 constexpr int kNoPixel = -(1 << 29);   // window origin of a pixel past P
-constexpr int kTiles = 4;              // tile shapes a kernel takes
+constexpr int kTiles = 3;              // tile shapes a kernel takes
 
 // The tile shapes, in the order of a kernel's instances.
 __host__ __device__ constexpr int tile_p_of(int i) {
   return i == 0 ? 128 : i == 1 ? 64 : 32;
 }
 __host__ __device__ constexpr int tile_m_of(int i) {
-  return i == 0 ? 32 : i == 1 ? 64 : i == 2 ? 128 : 32;
+  return i == 0 ? 32 : i == 1 ? 64 : 32;
 }
 // The warp split: the 32x32 tile's warps share each K step.
 __host__ __device__ constexpr bool warp_split(int tp, int tm) {
   return tp * tm < 4096;
 }
+
+// Diagnostics, off unless a build defines them (scripts/trace_xnor_gemm.py):
+// with XNOR_TRACE each block records in g_trace its start and end time, its
+// SM and the cycles of its set-up, K loop and epilogue (read_trace copies
+// the records out); XNOR_DROP, a mask of the kDrop bits, leaves parts of the
+// work out, so that a timing shows what it follows (the results are wrong).
+#ifndef XNOR_DROP
+#define XNOR_DROP 0
+#endif
+constexpr int kDropX = 1;         // the gather's pixel-row copies
+constexpr int kDropW = 2;         // its filter-row copies
+constexpr int kDropCompute = 4;   // the reduction of each step
+constexpr int kDropStart = 8;     // what a block requests before its table
+__host__ __device__ constexpr bool dropped(int bit) {
+  return (XNOR_DROP & bit) != 0;
+}
+
+#ifdef XNOR_TRACE
+constexpr int kTraceBlocks = 8192;
+constexpr int kTraceFields = 6;
+__device__ unsigned long long g_trace[kTraceBlocks * kTraceFields];
+#endif
+
+// A block's trace: construct it first thing, call set_up_done() and
+// k_loop_done() as they happen, finish() (a barrier) after the stores.
+struct Trace {
+#ifdef XNOR_TRACE
+  unsigned long long start;
+  long long c[3];
+  __device__ static unsigned long long now() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ Trace() : start(now()) { c[0] = clock64(); }
+  __device__ void set_up_done() { c[1] = clock64(); }
+  __device__ void k_loop_done() { c[2] = clock64(); }
+  __device__ void finish() {
+    __syncthreads();
+    const long long end = clock64();
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    const int blk = blockIdx.y * gridDim.x + blockIdx.x;
+    if (threadIdx.x == 0 && blk < kTraceBlocks) {
+      unsigned long long* d = g_trace + blk * kTraceFields;
+      d[0] = start; d[1] = now(); d[2] = sm;
+      d[3] = c[1] - c[0]; d[4] = c[2] - c[1]; d[5] = end - c[2];
+    }
+  }
+#else
+  __device__ __forceinline__ void set_up_done() {}
+  __device__ __forceinline__ void k_loop_done() {}
+  __device__ __forceinline__ void finish() {}
+#endif
+};
 
 struct XnorArgs {
   const uint32_t* x;        // [B][H][W][C32]
@@ -212,7 +267,7 @@ struct Gather {
   // The filter rows of the step whose column bcol is window word kw.
   __device__ __forceinline__ void issue_w(const XnorArgs& a, uint32_t stage,
                                           int m0, int kw) const {
-    if (kw >= a.kfill) return;
+    if (dropped(kDropW) || kw >= a.kfill) return;
     const bool k_ok = kw < a.kwords;   // vec 4: kwords % 4 == 0
     const uint32_t rb = row_words(a.kstep) * 4;
     uint32_t dst = stage + (TP + brow0) * rb + bcol * 4;
@@ -244,7 +299,8 @@ struct Gather {
               k_ok &&
               static_cast<unsigned>(e.y + ky) < static_cast<unsigned>(a.H) &&
               static_cast<unsigned>(e.z + kx) < static_cast<unsigned>(a.W);
-          i8mma::cp_async16(dst, ok ? a.x + (e.x + tapoff) : a.x, ok);
+          if (!dropped(kDropX))
+            i8mma::cp_async16(dst, ok ? a.x + (e.x + tapoff) : a.x, ok);
         }
       }
     } else {
@@ -256,8 +312,9 @@ struct Gather {
             kk < a.kwords &&
             static_cast<unsigned>(xe.y + y) < static_cast<unsigned>(a.H) &&
             static_cast<unsigned>(xe.z + x) < static_cast<unsigned>(a.W);
-        i8mma::cp_async4(
-            dst, ok ? a.x + (xe.x + (y * a.W + x) * a.C32 + cw) : a.x, ok);
+        if (!dropped(kDropX))
+          i8mma::cp_async4(
+              dst, ok ? a.x + (xe.x + (y * a.W + x) * a.C32 + cw) : a.x, ok);
         if (++cw == a.C32) {
           cw = 0;
           if (++x == a.ks) {
@@ -324,14 +381,15 @@ __device__ __forceinline__ void start_block(const XnorArgs& a,
                                             unsigned char* smem,
                                             const Work& b) {
   const uint32_t mb = i8mma::smem_addr(smem + mb_offset(TP));
-  for (int i = threadIdx.x; i < 2 * TM; i += kThreads) {
+  for (int i = dropped(kDropStart) ? 2 * TM : threadIdx.x; i < 2 * TM;
+       i += kThreads) {
     const int c = i < TM ? i : i - TM;
     const bool ok = b.m0 + c < a.M;
     i8mma::cp_async4(mb + 4 * i,
                      ok ? (i < TM ? a.mean : a.bias) + b.m0 + c : a.mean, ok);
   }
   const uint32_t ring = i8mma::smem_addr(smem + ring_offset(TP, TM));
-  for (int d = 0; d + 1 < a.stages && d < b.n; ++d)
+  for (int d = 0; d + 1 < a.stages && d < b.n && !dropped(kDropStart); ++d)
     g.issue_w(a, ring + d * stage_bytes(TP, TM, a.kstep), b.m0,
               g.kb + d * a.kstep);
   build_table<TP>(a, reinterpret_cast<int4*>(smem), b.p0);
@@ -369,7 +427,8 @@ __device__ __forceinline__ void k_loop(const XnorArgs& a, Gather<TP, TM>& g,
     }
     i8mma::cp_async_commit();
     const int left = a.kwords - k0;
-    compute(ring + out * bytes, left < a.kstep ? left : a.kstep);
+    if (!dropped(kDropCompute))
+      compute(ring + out * bytes, left < a.kstep ? left : a.kstep);
     if (++out == a.stages) out = 0;
   }
   i8mma::cp_async_wait<0>();
@@ -473,6 +532,14 @@ __device__ void finish_warp_split(const XnorArgs& a, const int* part,
 }
 
 using Kernel = void (*)(XnorArgs);
+
+#ifdef XNOR_TRACE
+// Copies the first n blocks' trace records (kTraceFields words each) to host.
+extern "C" int read_trace(void* host, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, g_trace, static_cast<size_t>(n) * kTraceFields * 8));
+}
+#endif
 
 // Checks a plan and launches the kernel instance of tile (tile_p, tile_m)
 // (kernels[i] for tile_p_of(i) x tile_m_of(i)) on `stream` of `device`,

@@ -75,6 +75,7 @@ __global__ void __launch_bounds__(kThreads)
 xnor_mma_kernel(const XnorArgs a) {
   constexpr bool kWs = warp_split(TP, TM);
   constexpr int kWm = kWs ? 1 : TM / 32;   // warps along the filters
+  Trace trace;
   extern __shared__ __align__(16) unsigned char smem[];
   const int4* tab = reinterpret_cast<const int4*>(smem);
   const float* mb = reinterpret_cast<const float*>(smem + mb_offset(TP));
@@ -89,6 +90,7 @@ xnor_mma_kernel(const XnorArgs a) {
   Gather<TP, TM> g(a, b.s_lo * a.kstep);
   start_block<TP, TM>(a, g, smem, b);
   __syncthreads();   // the pixel table
+  trace.set_up_done();
 
   int acc[2][4][4], pa[2][4], pb[4][4];
 #pragma unroll
@@ -114,7 +116,6 @@ xnor_mma_kernel(const XnorArgs a) {
   const int kk0 = kWs ? 8 * warp : 0;
   const int dkk = kWs ? 8 * kWarps : 8;
 
-  // ---- K loop ----
   k_loop<TP, TM>(a, g, tab, ring, b, [&](uint32_t stage, int nw) {
 #pragma unroll 1
     for (int kk = kk0; kk < nw; kk += dkk) {
@@ -136,7 +137,7 @@ xnor_mma_kernel(const XnorArgs a) {
                f.b[j / 2][2 * (j & 1) + 1]);
     }
   });
-  // ---- K loop done ----
+  trace.k_loop_done();
 
   // C fragment of m16 tile i, n8 tile j: r = 0, 1 at row gid, columns
   // 2*tig, 2*tig + 1; r = 2, 3 at row gid + 8. pa[i][r] is popc(a) of r's
@@ -165,7 +166,7 @@ xnor_mma_kernel(const XnorArgs a) {
       }
     finish_warp_split<TP, TM>(a, part, part + warp_part_bytes(TP, TM) / 4,
                               mb, b);
-    // ---- split done ----
+    trace.finish();
     return;
   }
   const bool even = (a.M & 1) == 0;
@@ -199,14 +200,13 @@ xnor_mma_kernel(const XnorArgs a) {
         }
       }
   }
-  // ---- stores done ----
+  trace.finish();
 }
 
 const Kernel kKernels[kTiles] = {
     xnor_mma_kernel<tile_p_of(0), tile_m_of(0)>,
     xnor_mma_kernel<tile_p_of(1), tile_m_of(1)>,
-    xnor_mma_kernel<tile_p_of(2), tile_m_of(2)>,
-    xnor_mma_kernel<tile_p_of(3), tile_m_of(3)>};
+    xnor_mma_kernel<tile_p_of(2), tile_m_of(2)>};
 std::atomic<bool> g_configured[kMaxDevices];
 
 }  // namespace
@@ -215,9 +215,9 @@ std::atomic<bool> g_configured[kMaxDevices];
 // Pointers are device pointers to contiguous tensors: x [B,H,W,C32] int32,
 // w [M,ks,ks,C32] int32, mean and bias [M] f32, out [B,OH,OW,M] f32
 // (8-byte aligned). The plan comes from ops/xnor_gemm.plan_launch: a tile of
-// tile_p x tile_m outputs (128x32, 64x64, 32x128, or 32x32 with the warp
-// split), K steps of kstep words (8, 16 or 32), `stages` ring stages (2-4),
-// `split` blocks per cluster (1-8, at most the K steps; 1 with the warp
+// tile_p x tile_m outputs (128x32, 64x64, or 32x32 with the warp split), K
+// steps of kstep words (8, 16 or 32), `stages` ring stages (2-4), `split`
+// blocks per cluster (1-8, at most the K steps; above 1 only with the warp
 // split). Requires B*OH*OW and B*H*W*C32 below 2^31. Returns the
 // cudaError_t of the launch (0 on success; cudaErrorInvalidValue for a plan
 // the kernel does not take).

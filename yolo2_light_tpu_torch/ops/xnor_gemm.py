@@ -32,7 +32,7 @@ int32 (``xnor.pack_sign_weights``). The kernels are implicit GEMMs: they
 gather their taps from the packed map, so no patch matrix is written to
 device memory. The plain versions build the patch matrix instead. K4 runs
 on the binary tensor cores (``mma .b1 .and.popc``) and recovers the +-1 dot
-from and-popcounts (:func:`and_popc_dot`). :func:`plan_launch` gives each
+from and-popcounts. :func:`plan_launch` gives each
 conv its launch geometry (tile, K step, ring depth, and the splits of K
 across a block's warps and across a cluster).
 
@@ -80,7 +80,7 @@ TILE_AREA = 4096          # outputs of a block whose warps split the tile
 # (pixels, filters) a block: the tiles whose four warps each take a 32x32
 # part, in order of preference at equal padding, then the 32x32 tile whose
 # warps each take a quarter of every K step (the warp split)
-TILES = ((64, 64), (128, 32), (32, 128))
+TILES = ((64, 64), (128, 32))
 WARP_SPLIT_TILE = (32, 32)
 KSTEPS = (8, 16, 32)      # K step in words (K4: whole 256-bit MMA steps)
 MAX_STAGES = 4
@@ -271,23 +271,6 @@ def _unpack_pm1(words: torch.Tensor) -> torch.Tensor:
     return (2 * bits - 1).reshape(words.shape[0], -1).to(torch.float64)
 
 
-def and_popc_dot(pt: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
-    """The +-1 dot over every stored bit of patch rows ``pt`` [N, K] and
-    filter rows ``wf`` [M, K] (int32 words) as K4 forms it from
-    and-popcounts: ``4*popc(a & b) - 2*popc(a) - 2*popc(b) + K*32``,
-    int64 ``[N, M]``."""
-    a = pt.to(torch.int64) & 0xFFFFFFFF
-    b = wf.to(torch.int64) & 0xFFFFFFFF
-    both = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int64,
-                       device=pt.device)
-    step = max(1, (1 << 22) // max(1, a.numel()))
-    for m0 in range(0, b.shape[0], step):
-        both[:, m0:m0 + step] = _popcount32(
-            a[:, None, :] & b[None, m0:m0 + step, :]).sum(-1)
-    return (4 * both - 2 * _popcount32(a).sum(-1)[:, None]
-            - 2 * _popcount32(b).sum(-1)[None, :] + a.shape[1] * BITS)
-
-
 def epilogue_plain(dot: torch.Tensor, mean, bias, activation: str):
     """``dot * mean + bias`` with two roundings, then the 0.1*y leaky."""
     y = dot.to(torch.float32) * mean + bias
@@ -328,21 +311,6 @@ def xnor_gemm_mxu_plain(xp, wp, mean, bias, c_real: int, stride: int,
     oh, ow = _out_hw(h, w, ks, stride, pad)
     pt = im2col_bits(xp, ks, stride, pad)
     dot = _unpack_pm1(pt) @ _unpack_pm1(wp.reshape(m, -1)).T
-    _, pad_bits = _constants(ks, c32, c_real)
-    return epilogue_plain(dot - pad_bits, mean, bias,
-                          activation).reshape(b, oh, ow, m)
-
-
-def xnor_gemm_and_popc_plain(xp, wp, mean, bias, c_real: int, stride: int,
-                             pad: int, activation: str = "leaky"):
-    """K4's function in the kernel's own arithmetic: the +-1 dot from
-    and-popcounts (:func:`and_popc_dot`), then ``dot - pad_bits`` and the
-    epilogue. Equal to :func:`xnor_gemm_mxu_plain` bit for bit."""
-    _check_epilogue(activation)
-    b, h, w, c32 = xp.shape
-    m, ks = wp.shape[0], wp.shape[1]
-    oh, ow = _out_hw(h, w, ks, stride, pad)
-    dot = and_popc_dot(im2col_bits(xp, ks, stride, pad), wp.reshape(m, -1))
     _, pad_bits = _constants(ks, c32, c_real)
     return epilogue_plain(dot - pad_bits, mean, bias,
                           activation).reshape(b, oh, ow, m)
