@@ -8,7 +8,7 @@ Phases, each reported on its own lines:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as nvidia-smi reports them.
-2. build: compiles the four kernels of ``yolo2_light_tpu_torch/csrc``, one
+2. build: compiles the five kernels of ``yolo2_light_tpu_torch/csrc``, one
    nvcc per source, all started together (each build and the phase timed).
 3. kernels: the int8 conv kernel in both input forms (f32 input quantized
    in its loader, the network's path; pre-quantized int8 input, the Pallas
@@ -56,6 +56,31 @@ Phases, each reported on its own lines:
    at the convs ``auto``'s rule gives it; the four engines and the plain
    versions on the card must give equal head maps and identical detection
    lines. Times the warm b=1 forward of each engine.
+8. pipeline: the NMS rank walk (``csrc/nms_walk.cu``) against its plain
+   version, bit for bit, at B=8, C=80 and K = 256, 1024 and 4096 (clustered
+   candidates with exact-prob ties), timed beside its byte bound. Then the
+   serving pipeline (``pipeline.DetectionPipeline``, device NMS on) on
+   yolov3-416 int8 (``xla`` and ``fused``) and fp32 and on
+   tiny-yolo-obj_xnor-416 ``pallas_mxu`` and ``pallas``, from 640x480 uint8
+   frames resized on the card, at b=1 and b=8: each replay of the captured CUDA graph must
+   equal the eager program bit for bit, the hand kernels of the mode must
+   launch inside the capture, and ``serve_scan`` over the 8-frame ring must
+   equal the per-frame calls. The detections of 8 frames at the net's size
+   (b=8) must print the lines ``detect_image`` (eager forward, host decode
+   and NMS) prints for the same frames as PNGs, as multisets; a line may
+   differ only by one print count in a box field, in at most 1% of the lines
+   (F7: CUDA's expf against the host's; the print's sort by left edge may
+   then swap two boxes with near-equal left edges). Random weights (seed 7) with
+   ``sparse_head_biases`` (a copy of bench.py's) at a head objectness bias
+   the script calibrates per mode so that about 300 candidates of a frame
+   pass detector map's thresh 0.005. Prints each mode's wall per batch, captured
+   and eager (median, host clock, uint8 frames in and the packed buffer
+   out), the device time of the same program queued behind a device sleep,
+   and the share of the wall the device idles. Last, ``detector map
+   -quantized`` through the CLI on yolov3-416 over 16 synthetic PNGs with
+   labels, host NMS and ``-device_nms -k 64`` (auto-grow): identical report
+   blocks; prints the live candidate counts, the K auto-grow reached and
+   the img/s of each run.
 
 Every kernel time is printed beside the least time the card could take for
 the same work: the bytes the function must move (each input read once, each
@@ -69,7 +94,8 @@ multiply-adds at the int8 peak, the count of the earlier XNOR figures.
 Any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
 preceded by the card's name and power limit and, before that, a line with one
-JSON object describing each of the six TPU kernels' counterparts: its
+JSON object describing each of the six TPU kernels' counterparts (after a
+``{"pipeline": ...}`` line with phase 8's numbers and the NMS walk's row): its
 launches on the main path, its time, the plain version's, the bound (sums
 over the shapes timed) and the library call's where there is one. Two Pallas
 functions that compute one function share a Hopper kernel and its numbers.
@@ -77,11 +103,14 @@ functions that compute one function share a Hopper kernel and its numbers.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
+import glob
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -90,10 +119,18 @@ import time
 import numpy as np
 import torch
 
+from yolo2_light_tpu_torch import pipeline
 from yolo2_light_tpu_torch.apps import cli, detect
+from yolo2_light_tpu_torch.cfg import (ConvSpec, RegionSpec, YoloSpec,
+                                       parse_network_cfg)
+from yolo2_light_tpu_torch.io import image as im_io
 from yolo2_light_tpu_torch.models import layers, network
-from yolo2_light_tpu_torch.ops import _build, fused_res, int8_conv, xnor_gemm
+from yolo2_light_tpu_torch.ops import (_build, fused_res, int8_conv,
+                                       nms_walk, xnor_gemm)
 from yolo2_light_tpu_torch.params import save_random_weights
+from yolo2_light_tpu_torch.post import boxes as post_boxes
+from yolo2_light_tpu_torch.post import device_nms
+from yolo2_light_tpu_torch.weights import random_params, save_weights
 from yolo2_light_tpu_torch.xnor import pack_sign_weights
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -177,6 +214,28 @@ KERNEL_LOADERS = {
     "fused_res": fused_res.load_kernel,
     "xnor_gemm": lambda: xnor_gemm.load_kernel("xnor_gemm"),
     "xnor_gemm_mxu": lambda: xnor_gemm.load_kernel("xnor_gemm_mxu"),
+    "nms_walk": nms_walk.load_kernel,
+}
+# phase 8: the serving pipeline
+NMS_SOURCE = "yolo2_light_tpu_torch/csrc/nms_walk.cu"
+# the lax.while_loop of nms_probs_with_order (an XLA loop, no pallas_call)
+NMS_REPLACES = "yolo2_light_tpu/post/device_nms.py:93"
+NMS_SHAPES = [(8, 256, 80), (8, 1024, 80), (8, 4096, 80)]   # B, K, C
+FRAME_H, FRAME_W = 480, 640
+MAP_IMAGES = 16
+TARGET_LIVE = 300       # candidates of a frame above detector map's thresh
+PIPE_THRESH, PIPE_NMS, PIPE_K = 0.005, 0.45, 1024   # detector map's settings
+# name: (cfg, -quantized, pipeline keywords, the hand kernel of its forward)
+PIPE_MODES = {
+    "yolov3 int8": (CFG, True, {"int8_impl": "xla"}, "int8_conv"),
+    "yolov3 int8 fused": (CFG, True, {"int8_impl": "fused"},
+                          "fused_res_block"),
+    "yolov3 fp32": (CFG, False, {}, None),
+    "tiny-yolo-obj_xnor pallas_mxu": (XNOR_CFG, False,
+                                      {"xnor_impl": "pallas_mxu"},
+                                      "xnor_gemm_mxu"),
+    "tiny-yolo-obj_xnor pallas": (XNOR_CFG, False, {"xnor_impl": "pallas"},
+                                  "xnor_gemm"),
 }
 
 
@@ -189,7 +248,8 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def event_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def event_ms(fn, iters: int = 50, warmup: int = 5,
+             sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls. The
     calls are queued behind a device-side sleep, so the host's dispatch
     (tens of microseconds a call) overlaps it and is not timed."""
@@ -198,7 +258,7 @@ def event_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -223,13 +283,14 @@ def forward_ms(pred, x, iters: int = 20, warmup: int = 3) -> float:
 
 
 def run_cli(args):
-    """``cli.main(args)`` with its streams captured; returns (rc, stdout)."""
+    """``cli.main(args)`` with its streams captured; returns (rc, stdout,
+    stderr)."""
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(args)
     if rc != 0:
         sys.stderr.write(err.getvalue()[-4000:])
-    return rc, out.getvalue()
+    return rc, out.getvalue(), err.getvalue()
 
 
 def detection_text(stdout: str) -> str:
@@ -420,7 +481,7 @@ def phase_int8(tmp: str, weights: str, names_file: str, names: list):
             "-dont_show", "-thresh", THRESH, "-save",
             os.path.join(tmp, "pred_int8")]
     int8_conv.reset_launch_counts()
-    rc, out = run_cli(args)
+    rc, out, _ = run_cli(args)
     launches = int8_conv.LAUNCH_COUNTS["int8_conv"]
     pre = dict(int8_conv.PRE_LAUNCHES)
     check(rc == 0, f"detector test -quantized exited {rc}")
@@ -564,7 +625,7 @@ def phase_fused(tmp: str, weights: str, names_file: str, k1: dict):
             "-int8_impl", "fused", "-dont_show", "-thresh", THRESH, "-save",
             os.path.join(tmp, "pred_fused")]
     int8_conv.reset_launch_counts()
-    rc, out = run_cli(args)
+    rc, out, _ = run_cli(args)
     launches = dict(int8_conv.LAUNCH_COUNTS)
     check(rc == 0, f"detector test -quantized -int8_impl fused exited {rc}")
     predicted = [l for l in out.splitlines() if "Predicted in" in l][0]
@@ -614,7 +675,7 @@ def phase_fused(tmp: str, weights: str, names_file: str, k1: dict):
 def phase_fp32(tmp: str, weights: str, names_file: str) -> None:
     args = ["detector", "test", names_file, CFG, weights, IMAGE, "-dont_show",
             "-thresh", THRESH, "-save", os.path.join(tmp, "pred_fp32")]
-    rc, out = run_cli(args)
+    rc, out, _ = run_cli(args)
     check(rc == 0, f"detector test exited {rc}")
     check(not torch.backends.cudnn.allow_tf32
           and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
@@ -774,10 +835,10 @@ def phase_xnor(tmp: str) -> dict:
     launches, texts = {}, {}
     for eng in XNOR_IMPLS:
         int8_conv.reset_launch_counts()
-        rc, out = run_cli(["detector", "test", names_file, XNOR_CFG, weights,
-                           IMAGE, "-xnor_kernel", eng, "-dont_show",
-                           "-thresh", XNOR_THRESH, "-save",
-                           os.path.join(tmp, f"pred_xnor_{eng}")])
+        rc, out, _ = run_cli(["detector", "test", names_file, XNOR_CFG,
+                              weights, IMAGE, "-xnor_kernel", eng,
+                              "-dont_show", "-thresh", XNOR_THRESH, "-save",
+                              os.path.join(tmp, f"pred_xnor_{eng}")])
         got = dict(int8_conv.LAUNCH_COUNTS)
         check(rc == 0, f"detector test -xnor_kernel {eng} exited {rc}")
         counts = (got.get("xnor_gemm", 0), got.get("xnor_gemm_mxu", 0))
@@ -825,6 +886,428 @@ def phase_xnor(tmp: str) -> dict:
             "pallas_mxu": launches["pallas_mxu"][1]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the serving pipeline
+# ---------------------------------------------------------------------------
+
+
+def sparse_head_biases(spec, params, obj_bias: float):
+    """bench.py's ``sparse_head_biases``, copied, with the objectness bias as
+    an argument: damp each head conv's weights and biases x0.02 and set its
+    anchors' objectness (t0) biases to ``obj_bias``, so random weights give
+    a sparse set of candidates. Works on unfused and fused host params."""
+    for l in spec.layers:
+        if isinstance(l, (YoloSpec, RegionSpec)):
+            conv = spec.layers[l.index - 1]
+            if not isinstance(conv, ConvSpec):
+                continue
+            p = params[conv.index]
+            entries = l.out_c // l.n
+            p["weights"] = np.asarray(p["weights"]) * 0.02
+            b = np.asarray(p["biases"]).copy() * 0.02
+            obj_entry = 4 if isinstance(l, YoloSpec) else l.coords
+            for a in range(l.n):
+                b[a * entries + obj_entry] = obj_bias
+            p["biases"] = b
+    return params
+
+
+def _obj_entry(l) -> int:
+    return 4 if isinstance(l, YoloSpec) else l.coords
+
+
+def calibrate_obj_bias(cfg: str, frame, quantized: bool, kw: dict) -> float:
+    """The objectness bias that leaves about ``TARGET_LIVE`` candidates of
+    ``frame`` above detector map's thresh in one mode (an int8 trunk feeds
+    its heads other features than the fp32 one): one forward with the bias
+    at 0 gives each candidate's objectness logit and best class score, then
+    a bisection on the bias counts the candidates the decode would keep."""
+    spec, params, mode = detect.build_params(cfg, None, quantized=quantized,
+                                             seed=SEED, echo=False)
+    sparse_head_biases(spec, params, 0.0)
+    pred = network.Predictor(spec, params, mode, device="cuda", **kw)
+    x = im_io.resize_image(frame.astype(np.float32) / np.float32(255),
+                           spec.net.w, spec.net.h)[None]
+    zs, scores, yolo = [], [], []
+    for h, l in zip(pred(x), pred.head_specs()):
+        d = h.data[0].double().cpu().numpy()
+        e = _obj_entry(l)
+        p = np.clip(d[..., e], 1e-15, 1 - 1e-15)
+        zs.append(np.log(p / (1 - p)).ravel())
+        scores.append(d[..., e + 1:].max(-1).ravel())
+        yolo.append(np.full(p.size, isinstance(l, YoloSpec)))
+    z, best, yolo = map(np.concatenate, (zs, scores, yolo))
+    del pred
+
+    def live(bias):
+        obj = 1 / (1 + np.exp(-(z + bias)))
+        return int(((obj * best > PIPE_THRESH)
+                    & (~yolo | (obj > PIPE_THRESH))).sum())
+
+    lo, hi = -60.0, 60.0
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if live(mid) < TARGET_LIVE else (lo, mid)
+    return float(np.float32(hi))
+
+
+def _frames(seed: int, n: int, h: int = FRAME_H, w: int = FRAME_W):
+    return (np.random.RandomState(seed).rand(n, h, w, 3) * 255).astype(
+        np.uint8)
+
+
+def _lines(dets, names, w: int, h: int) -> list:
+    return post_boxes.format_detections(dets, names, PIPE_THRESH, w,
+                                        h).splitlines()
+
+
+_LINE = re.compile(r"^(.*): (\d+)%(?:\t\(left_x:\s*(-?\d+)\s+top_y:\s*"
+                   r"(-?\d+)\s+width:\s*(-?\d+)\s+height:\s*(-?\d+)\))?$")
+
+
+def check_near_lines(got: list, want: list, what: str) -> tuple:
+    """Detection lines ``got`` against ``want`` as multisets: every line
+    identical, or paired with one of the same class and percentage whose box
+    fields are each within one count. Both are F7 noise of the device decode
+    (CUDA's expf against the host's): a box field rounds across a print
+    boundary, or two boxes with near-equal left edges print in the other
+    order (the print sorts by left edge). Fails if the counts differ, a line
+    has no such partner, or more than 1% of the lines are near; returns
+    (near lines, lines printed at another position)."""
+    check(len(got) == len(want),
+          f"{what}: {len(got)} against {len(want)} detection lines")
+    moved = sum(a != b for a, b in zip(got, want))
+    ca, cb = collections.Counter(got), collections.Counter(want)
+    rest_a, rest_b = list((ca - cb).elements()), list((cb - ca).elements())
+
+    def fields(line):
+        m = _LINE.match(line)
+        if m is None or m.group(3) is None:
+            return None
+        return m.group(1, 2), [int(v) for v in m.group(3, 4, 5, 6)]
+
+    for line in rest_a:
+        fa = fields(line)
+        partner = next((j for j, other in enumerate(rest_b)
+                        if fa is not None and fields(other) is not None
+                        and fields(other)[0] == fa[0]
+                        and all(abs(x - y) <= 1
+                                for x, y in zip(fa[1], fields(other)[1]))),
+                       None)
+        if partner is None:
+            print(f"{what}: no partner for {line!r} in {rest_b[:5]!r}",
+                  file=sys.stderr)
+        check(partner is not None,
+              f"{what}: a line differs beyond a print-boundary count")
+        rest_b.pop(partner)
+    check(len(rest_a) <= max(1, len(want) // 100),
+          f"{what}: {len(rest_a)} of {len(want)} lines off by a count")
+    return len(rest_a), moved
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median host wall time of ``fn`` (which ends on the host)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def busy_ms(fn, wall: float) -> float:
+    """Device time of one call of ``fn``, queued behind a device sleep longer
+    than the host takes to issue it (``wall`` ms), so no operation waits for
+    the host: what the device needs when it is never starved. One call: the
+    eager program's launches fill most of the card's queue of pending
+    launches, and a host blocked on a full queue would starve it."""
+    cycles = int(max(SLEEP_CYCLES, 2 * wall * 1e-3 * 2.0e9))
+    with torch.inference_mode():
+        return event_ms(fn, iters=1, warmup=1, sleep_cycles=cycles)
+
+
+def phase_nms_walk() -> list:
+    """The walk kernel against its plain version at detector map's K (1024),
+    the pipeline's default (256) and the device-NMS ceiling (4096), C = 80,
+    B = 8, on clustered candidates with exact-prob ties."""
+    dev = torch.device("cuda")
+    rows = []
+    for b, k, c in NMS_SHAPES:
+        rng = np.random.RandomState(SEED + k)
+        boxes = rng.rand(b, k, 4).astype(np.float32)
+        boxes[..., 2:] = 0.05 + 0.3 * boxes[..., 2:]
+        centers = rng.rand(b, k // 8, 2)
+        which = rng.randint(0, k // 8, (b, k))
+        boxes[..., :2] = (np.take_along_axis(centers, which[..., None], 1)
+                          + 0.02 * rng.randn(b, k, 2))
+        probs = rng.rand(b, k, c).astype(np.float32)
+        probs[probs < 0.6] = 0.0
+        probs = (np.round(probs * 8) / 8).astype(np.float32)
+        probs[:, k - k // 5:] = 0.0
+        probs = torch.from_numpy(probs).to(dev)
+        over, order, rhw, _ = device_nms.walk_inputs(
+            torch.from_numpy(boxes).to(dev), probs, PIPE_NMS)
+        out = nms_walk.nms_walk_cuda(over, order, rhw, probs)
+        ref = nms_walk.nms_walk_plain(over, order, rhw, probs)
+        torch.cuda.synchronize()
+        check(torch.equal(_bits(out), _bits(ref)),
+              f"nms_walk != plain at B={b} K={k} C={c}")
+        live = int((rhw > 0).sum(1).max())
+        ms = event_ms(lambda: nms_walk.nms_walk_cuda(over, order, rhw, probs))
+        # the plain walk reads its stop rank on the host: its time is its
+        # host-bound loop's
+        plain_ms = event_ms(lambda: nms_walk.nms_walk_plain(
+            over, order, rhw, probs), iters=2, warmup=1)
+        # each input read once, the output written once; the walk's
+        # operations (an and-not per row word and live rank) are far below
+        # the bytes' time
+        b_ms, b_by = bound(4 * (over.numel() + order.numel() + rhw.numel()
+                                + 2 * probs.numel()), 0.0)
+        suppressed = int((ref == 0).sum() - (probs == 0).sum())
+        say("pipeline", f"nms_walk B={b} K={k} C={c}: bit-identical to plain "
+            f"({suppressed} probs suppressed, {live} live ranks in the "
+            f"busiest image); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; "
+            f"bound {b_ms * 1e3:.2f} us ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of it")
+        rows.append({"shape": [b, k, c], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+                     "live_ranks": live, "suppressed": suppressed})
+    return rows
+
+
+def _pipeline_mode(name: str, cfg: str, quantized: bool, kw: dict,
+                   kernel, bias: float, frames, tmp: str, names) -> dict:
+    """One mode of the pipeline: graph replay against eager, detections
+    against ``detect_image``, ``serve_scan`` against per-frame calls, walls
+    and device time, at b=1 and b=8."""
+    spec, params, mode = detect.build_params(cfg, None, quantized=quantized,
+                                             seed=SEED, echo=False)
+    sparse_head_biases(spec, params, bias)
+    args = dict(thresh=PIPE_THRESH, nms=PIPE_NMS, k=PIPE_K,
+                device_nms=True, device="cuda", **kw)
+    int8_conv.reset_launch_counts()
+    graphed = pipeline.DetectionPipeline(spec, params, mode, **args)
+    eager = pipeline.DetectionPipeline(spec, graphed.params, mode,
+                                       cuda_graph=False, **args)
+    row = {"mode": name}
+    for b in (1, 8):
+        x = frames[:b]
+        a, e = graphed.raw(x), eager.raw(x)
+        torch.cuda.synchronize()
+        check(torch.equal(_bits(a), _bits(e)),
+              f"{name} b={b}: graph replay != eager")
+        other = np.ascontiguousarray(frames[::-1][:b])
+        check(torch.equal(_bits(graphed.raw(other)), _bits(eager.raw(other))),
+              f"{name} b={b}: replay on other frames != eager")
+        row[f"b{b}_captured_ms"] = wall_ms(
+            lambda: pipeline._fetch_packed(graphed.raw(x)))
+        row[f"b{b}_eager_ms"] = wall_ms(
+            lambda: pipeline._fetch_packed(eager.raw(x)), iters=10)
+        xd = torch.from_numpy(x).cuda()
+        g = graphed._graphs[(tuple(x.shape), torch.uint8)]
+        row[f"b{b}_busy_graph_ms"] = busy_ms(g.graph.replay,
+                                             row[f"b{b}_captured_ms"])
+        row[f"b{b}_busy_eager_ms"] = busy_ms(lambda: eager.run(xd),
+                                             row[f"b{b}_eager_ms"])
+        for kind in ("captured", "eager"):
+            busy = row[f"b{b}_busy_{'graph' if kind == 'captured' else kind}"
+                       "_ms"]
+            row[f"b{b}_{kind}_idle"] = 1 - busy / row[f"b{b}_{kind}_ms"]
+        say("pipeline", f"{name} b={b}: graph replay bit-identical to eager "
+            f"(packed {tuple(a.shape)}); wall per batch (uint8 {FRAME_W}x"
+            f"{FRAME_H} in, packed buffer out) captured "
+            f"{row[f'b{b}_captured_ms']:.3f} ms, eager "
+            f"{row[f'b{b}_eager_ms']:.3f} ms; device time "
+            f"{row[f'b{b}_busy_graph_ms']:.3f} / "
+            f"{row[f'b{b}_busy_eager_ms']:.3f} ms; device idle "
+            f"{100 * row[f'b{b}_captured_idle']:.1f}% / "
+            f"{100 * row[f'b{b}_eager_idle']:.1f}% of the wall")
+    launches = dict(int8_conv.LAUNCH_COUNTS)
+    if kernel is not None:
+        check(launches.get(kernel, 0) > 0,
+              f"{name}: {kernel} was not launched in the captures")
+    check(launches.get("nms_walk", 0) > 0,
+          f"{name}: nms_walk was not launched in the captures")
+    row["launches_at_capture"] = launches
+
+    # detections against the host path (eager forward, host decode and NMS)
+    # on frames at the net's size: the host resize of detect_image is a
+    # native build that contracts its lerps into FMAs, one ULP off the
+    # device resize, and the int8 trunk's quantizers carry such an ULP into
+    # other detections (F7)
+    from PIL import Image
+    net_frames = _frames(SEED + 1, len(frames), spec.net.h, spec.net.w)
+    pred = network.Predictor(spec, params, mode, device="cuda", **kw)
+    got = graphed(net_frames)
+    n_lines = n_near = n_moved = 0
+    for i, im in enumerate(net_frames):
+        path = os.path.join(tmp, f"net_frame{i}.png")
+        Image.fromarray(im).save(path)
+        host, _, _ = detect.detect_image(pred, spec, path, PIPE_THRESH,
+                                         PIPE_NMS, names)
+        want = _lines(host, names, spec.net.w, spec.net.h)
+        near, moved = check_near_lines(
+            _lines(got[i], names, spec.net.w, spec.net.h), want,
+            f"{name}: pipeline and detect_image detections of frame {i}")
+        n_near, n_moved = n_near + near, n_moved + moved
+        n_lines += len(want)
+    check(n_lines > 0, f"{name}: no detection line at thresh {PIPE_THRESH}")
+    row["detection_lines"] = n_lines
+    row["lines_off_by_a_count"] = n_near
+    row["lines_printed_elsewhere"] = n_moved
+    final = graphed
+    while final._promoted is not None:
+        final = final._promoted
+    row["k_reached"] = final.k
+    say("pipeline", f"{name}: detections of 8 net-size frames (b=8) equal "
+        f"detect_image's ({n_lines} lines at thresh {PIPE_THRESH}; {n_near} "
+        f"with a box field one count off, {n_moved} printed at another "
+        f"position); K reached {final.k}")
+
+    scanned = graphed.serve_scan(frames)
+    for i, d in enumerate(scanned):
+        one = graphed(frames[i:i + 1])[0]
+        check(np.array_equal(d.bbox, one.bbox)
+              and np.array_equal(d.prob, one.prob),
+              f"{name}: serve_scan frame {i} != its own call")
+    row["serve_scan_ms_frame"] = wall_ms(
+        lambda: graphed.serve_scan(frames), iters=5) / len(frames)
+    say("pipeline", f"{name}: serve_scan over an 8-frame ring equals the "
+        f"per-frame calls; {row['serve_scan_ms_frame']:.3f} ms a frame "
+        "(host finish included)")
+    return row
+
+
+def _map_dataset(tmp: str, names: list) -> str:
+    """16 synthetic PNGs with 1-3 random labels each, and their .data."""
+    from PIL import Image
+    root = os.path.join(tmp, "mapds")
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "labels"))
+    rng = np.random.RandomState(SEED)
+    paths = []
+    for i, im in enumerate(_frames(SEED + 100, MAP_IMAGES)):
+        p = os.path.join(root, "images", f"im{i}.png")
+        Image.fromarray(im).save(p)
+        paths.append(p)
+        with open(os.path.join(root, "labels", f"im{i}.txt"), "w") as f:
+            for _ in range(rng.randint(1, 4)):
+                x, y = rng.uniform(0.2, 0.8, 2)
+                w, h = rng.uniform(0.1, 0.4, 2)
+                f.write(f"{rng.randint(0, N_CLASSES)} {x:.6f} {y:.6f} "
+                        f"{w:.6f} {h:.6f}\n")
+    with open(os.path.join(root, "valid.txt"), "w") as f:
+        f.write("\n".join(paths) + "\n")
+    with open(os.path.join(root, "coco.names"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    data = os.path.join(root, "map.data")
+    with open(data, "w") as f:
+        f.write(f"classes={N_CLASSES}\nvalid={root}/valid.txt\n"
+                f"names={root}/coco.names\n")
+    return data
+
+
+def _report(text: str) -> list:
+    out, on = [], False
+    for line in text.splitlines():
+        if "detections_count" in line:
+            on = True
+        if on:
+            out.append(line.rstrip())
+        if "mean average precision" in line:
+            break
+    return out
+
+
+def phase_map(tmp: str, bias: float, names: list) -> dict:
+    """``detector map -quantized`` through the CLI on yolov3-416 over 16
+    synthetic PNGs: host NMS against ``-device_nms`` from a small ``-k``
+    (auto-grow), identical reports."""
+    data = _map_dataset(tmp, names)
+    spec = parse_network_cfg(CFG, batch=1, echo_table=False)
+    params = sparse_head_biases(spec, random_params(spec, seed=SEED), bias)
+    weights = os.path.join(tmp, "yolov3-sparse.weights")
+    save_weights(spec, params, weights)
+
+    spec, params, mode = detect.build_params(CFG, weights, quantized=True,
+                                             echo=False)
+    counter = pipeline.DetectionPipeline(
+        spec, params, mode, thresh=PIPE_THRESH, nms=0, k=10647)
+    imgs = np.stack([im_io.resize_image(im_io.load_image(p, 3), 416, 416)
+                     for p in sorted(
+                         glob.glob(os.path.join(tmp, "mapds", "images",
+                                                "*.png")))])
+    live = [d.n for d in counter(imgs)]
+    del counter
+    say("pipeline", f"map images: live candidates at thresh {PIPE_THRESH} "
+        f"(head objectness bias {bias:.4f}): min {min(live)}, median "
+        f"{int(np.median(live))}, max {max(live)} of 10647")
+
+    out = {"live_candidates": live}
+    reports = {}
+    for tag, extra in (("host_nms", []),
+                       ("device_nms", ["-device_nms", "-k", "64"])):
+        int8_conv.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, stdout, stderr = run_cli(["detector", "map", data, CFG, weights,
+                                      "-quantized"] + extra)
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"detector map ({tag}) exited {rc}")
+        reports[tag] = _report(stdout)
+        check(len(reports[tag]) > N_CLASSES,
+              f"detector map ({tag}) printed no report")
+        det_s = float(stderr.split("Total Detection Time: ")[1].split()[0])
+        grown = [int(l.split("with K=")[1].split()[0])
+                 for l in stderr.splitlines() if "re-running batch with K=" in l]
+        out[tag] = {"img_s": MAP_IMAGES / det_s, "detection_s": det_s,
+                    "cli_s": wall, "k_reached": max(grown, default=None),
+                    "launches": dict(int8_conv.LAUNCH_COUNTS)}
+        say("pipeline", f"detector map -quantized ({tag}): "
+            f"{MAP_IMAGES / det_s:.2f} img/s over {MAP_IMAGES} images "
+            f"(Total Detection Time {det_s:.3f} s, first captures included; "
+            f"CLI call {wall:.2f} s); auto-grow reached K="
+            f"{out[tag]['k_reached']}; {reports[tag][0]}")
+    check(reports["host_nms"] == reports["device_nms"],
+          "detector map: host NMS and -device_nms reports differ")
+    check(out["device_nms"]["k_reached"] is not None,
+          "detector map -device_nms -k 64 did not auto-grow")
+    say("pipeline", "detector map: host NMS and -device_nms print identical "
+        f"reports ({len(reports['host_nms'])} lines)")
+    out["nms_walk_launches"] = out["device_nms"]["launches"].get("nms_walk",
+                                                                 0)
+    return out
+
+
+def phase_pipeline(tmp: str) -> dict:
+    names = [f"class_{i:02d}" for i in range(N_CLASSES)]
+    voc = [f"class_{i:02d}" for i in range(VOC_CLASSES)]
+    walk = phase_nms_walk()
+    frames = _frames(SEED, 8)
+    modes, biases = [], {}
+    for name, (cfg, quantized, kw, kernel) in PIPE_MODES.items():
+        biases[name] = calibrate_obj_bias(cfg, frames[0], quantized, kw)
+        modes.append(_pipeline_mode(
+            name, cfg, quantized, kw, kernel, biases[name], frames, tmp,
+            names if cfg == CFG else voc))
+        modes[-1]["obj_bias"] = biases[name]
+    mapped = phase_map(tmp, biases["yolov3 int8"], names)
+    return {"nms_walk": {
+                "name": "nms_walk", "route": "cuda", "source": NMS_SOURCE,
+                "replaces": NMS_REPLACES,
+                "launches": mapped["nms_walk_launches"],
+                "max_abs_err": 0.0,
+                "ms": sum(r["ms"] for r in walk),
+                "plain_ms": sum(r["plain_ms"] for r in walk),
+                **row_bound(walk), "library_ms": None, "shapes": walk},
+            "modes": modes, "map": mapped}
+
+
 def main() -> int:
     smi_line = phase_device()
     phase_build()
@@ -845,6 +1328,7 @@ def main() -> int:
         phase_fp32(tmp, weights, names_file)
         xnor_rows = phase_xnor_kernels()
         xnor_launches = phase_xnor(tmp)
+        piped = phase_pipeline(tmp)
     k1 = {
         "kernel": "int8_conv", "route": "cuda", "source": KERNEL_SOURCE,
         "launches": launches,
@@ -904,6 +1388,7 @@ def main() -> int:
                         "dense_ms": r["dense_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"]}
                        for r in xnor_rows]})
+    print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

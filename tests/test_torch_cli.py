@@ -106,7 +106,7 @@ def test_int8_impl_fused_streams_match_jax_cli(capsys, tmp_path):
     assert_streams_match(err_t, err_j, drop=drop, context="stderr")
 
 
-@pytest.mark.parametrize("sub", ["map", "calibrate", "demo"])
+@pytest.mark.parametrize("sub", ["calibrate", "demo"])
 def test_other_apps_not_yet_ported(capsys, sub):
     rc, _, err = _run(torch_main, capsys,
                       ["detector", sub, "x.data", "x.cfg", "x.weights"])

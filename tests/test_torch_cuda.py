@@ -635,3 +635,188 @@ def test_xnor_predictor_launch_counts_and_heads(dev, engine):
                       xnor_impl="pallas" if engine == "int8" else engine)(x)
     assert torch.equal(heads[0].data, dense[0].data)
     assert torch.equal(heads[0].data, plain[0].data)
+
+
+# ---------------------------------------------------------------------------
+# The NMS rank walk and the serving pipeline's CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _walk_operands(dev, seed, b, k, c, tie_steps=8):
+    """Clustered candidates (overlap galore) with quantized probs (exact ties
+    galore) and zero-prob padding rows, as the device-NMS tests of the JAX
+    package build them; the walk's inputs on ``dev``."""
+    from yolo2_light_tpu_torch.post.device_nms import walk_inputs
+    rng = np.random.RandomState(seed)
+    boxes = rng.rand(b, k, 4).astype(np.float32)
+    boxes[..., 2:] = 0.05 + 0.3 * boxes[..., 2:]
+    centers = rng.rand(b, max(1, k // 8), 2)
+    which = rng.randint(0, centers.shape[1], (b, k))
+    boxes[..., :2] = (np.take_along_axis(centers, which[..., None], 1)
+                      + 0.02 * rng.randn(b, k, 2))
+    probs = rng.rand(b, k, c).astype(np.float32)
+    probs[probs < 0.6] = 0.0
+    probs = (np.round(probs * tie_steps) / tie_steps).astype(np.float32)
+    probs[:, k - k // 5:] = 0.0
+    boxes_t = torch.from_numpy(boxes).to(dev)
+    probs_t = torch.from_numpy(probs).to(dev)
+    over, order, rhw, _ = walk_inputs(boxes_t, probs_t, 0.45)
+    return over, order, rhw, probs_t
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("b,k,c", [(8, 256, 80), (8, 1024, 80), (8, 4096, 80),
+                                   (3, 1000, 7), (1, 1, 1), (2, 33, 3),
+                                   (2, 8192, 2)])
+def test_nms_walk_kernel_bit_identical_to_plain(dev, b, k, c):
+    from yolo2_light_tpu_torch.ops import nms_walk as NW
+    over, order, rhw, probs = _walk_operands(dev, k + c, b, k, c)
+    K.reset_launch_counts()
+    out = NW.nms_walk_cuda(over, order, rhw, probs)
+    assert K.LAUNCH_COUNTS["nms_walk"] == 1
+    ref = NW.nms_walk_plain(over, order, rhw, probs)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(ref))
+    assert bool((ref == 0).sum() > (probs == 0).sum()) or k == 1
+    if k <= 1024:
+        cpu = NW.nms_walk_plain(over.cpu(), order.cpu(), rhw.cpu(),
+                                probs.cpu())
+        assert torch.equal(_bits(out.cpu()), _bits(cpu))
+
+
+def test_nms_walk_keeps_signed_zeros_and_stops_at_the_stop_rank(dev):
+    """Entries no step zeroes keep their bits (a -0.0 stays -0.0), and no
+    rank at or past the first rank without work is walked."""
+    from yolo2_light_tpu_torch.ops import nms_walk as NW
+    over, order, rhw, probs = _walk_operands(dev, 3, 2, 96, 5)
+    probs = torch.where(probs == 0, -0.0, probs)
+    rhw = rhw.clone()
+    rhw[0, 20] = 0.0               # image 0 stops at rank 20
+    out = NW.nms_walk_cuda(over, order, rhw, probs)
+    ref = NW.nms_walk_plain(over, order, rhw, probs)
+    assert torch.equal(_bits(out), _bits(ref))
+
+
+@pytest.mark.parametrize("case", ["device", "dtype", "shape", "k"])
+def test_nms_walk_wrapper_refuses_what_the_kernel_does_not_take(dev, case):
+    from yolo2_light_tpu_torch.ops import nms_walk as NW
+    over, order, rhw, probs = _walk_operands(dev, 4, 1, 64, 3)
+    err = ValueError
+    if case == "device":
+        probs = probs.cpu()
+    elif case == "dtype":
+        order, err = order.long(), TypeError
+    elif case == "shape":
+        rhw = rhw[:, :32].contiguous()
+    else:
+        probs = torch.zeros((1, NW.MAX_K + 32, 1), device=dev)
+        over = torch.zeros((1, NW.MAX_K + 32, NW.words_for(NW.MAX_K + 32)),
+                           dtype=torch.int32, device=dev)
+        order = torch.zeros((1, 1, NW.MAX_K + 32), dtype=torch.int32,
+                            device=dev)
+        rhw = torch.zeros((1, NW.MAX_K + 32), device=dev)
+    K.reset_launch_counts()
+    with pytest.raises(err):
+        NW.nms_walk_cuda(over, order, rhw, probs)
+    assert K.LAUNCH_COUNTS["nms_walk"] == 0
+
+
+PIPELINE_MODES = [("mini-yolo3", True, {}),
+                  ("mini-res", True, {"int8_impl": "fused"}),
+                  ("mini-yolo3", False, {}),
+                  ("mini-xnor", False, {"xnor_impl": "pallas"}),
+                  ("mini-xnor", False, {"xnor_impl": "pallas_mxu"})]
+_MODE_IDS = ["int8", "int8-fused", "fp32", "xnor-pallas", "xnor-pallas_mxu"]
+_MODE_KERNELS = ["int8_conv", "fused_res_block", None, "xnor_gemm",
+                 "xnor_gemm_mxu"]
+
+
+def _pipelines(dev, name, quantized, kw, **pkw):
+    from yolo2_light_tpu_torch.pipeline import DetectionPipeline
+    spec, params, mode = build_params(os.path.join(DATA, f"{name}.cfg"), None,
+                                      quantized=quantized, echo=False)
+    args = dict(thresh=0.1, nms=0.4, k=512, device=dev, **kw, **pkw)
+    return (spec, DetectionPipeline(spec, params, mode, **args),
+            DetectionPipeline(spec, params, mode, cuda_graph=False, **args))
+
+
+@pytest.mark.parametrize("device_nms", [False, True], ids=["host_nms",
+                                                           "device_nms"])
+@pytest.mark.parametrize("mode", range(len(PIPELINE_MODES)), ids=_MODE_IDS)
+def test_pipeline_graph_replay_equals_eager(dev, mode, device_nms):
+    """Each replay of the captured graph (uint8 source-size frames resized
+    on the card, decode, compaction, device NMS) gives the eager program's
+    packed buffer bit for bit, with new data in the static input; the hand
+    kernels launch inside the capture."""
+    name, quantized, kw = PIPELINE_MODES[mode]
+    spec, graphed, eager = _pipelines(dev, name, quantized, kw,
+                                      device_nms=device_nms)
+    rng = np.random.RandomState(mode)
+    K.reset_launch_counts()
+    for i in range(3):
+        x = (rng.rand(2, 96, 128, 3) * 255).astype(np.uint8)
+        a, b = graphed.raw(x), eager.raw(x)
+        k = min(512, graphed._total_candidates)
+        assert a.shape == (2, k + device_nms, 5 + 3)
+        assert torch.equal(_bits(a), _bits(b)), i
+        assert bool((a[:, :-1 if device_nms else None, 5:] > 0).any())
+    assert len(graphed._graphs) == 1
+    kernel = _MODE_KERNELS[mode]
+    if kernel is not None:
+        assert K.LAUNCH_COUNTS[kernel] > 0
+    if device_nms:
+        assert K.LAUNCH_COUNTS["nms_walk"] > 0
+
+
+def test_pipeline_serve_scan_equals_per_frame_calls(dev):
+    spec, graphed, eager = _pipelines(dev, "mini-yolo3", True, {},
+                                      device_nms=True)
+    frames = (np.random.RandomState(9).rand(5, 80, 96, 3) * 255).astype(
+        np.uint8)
+    scanned = graphed.serve_scan(frames)
+    for i, d in enumerate(scanned):
+        for one in (graphed(frames[i:i + 1])[0], eager(frames[i:i + 1])[0]):
+            np.testing.assert_array_equal(d.bbox, one.bbox)
+            np.testing.assert_array_equal(d.prob, one.prob)
+    assert sum(d.n for d in scanned) > 0
+
+
+def test_pipeline_yuv_and_batch_sizes_each_capture_once(dev):
+    spec, graphed, eager = _pipelines(dev, "mini-yolo3", False, {})
+    rng = np.random.RandomState(2)
+    yuv = (rng.rand(3, 96 * 3 // 2, 128) * 255).astype(np.uint8)
+    rgb1 = (rng.rand(1, 64, 64, 3)).astype(np.float32)
+    for x in (yuv, rgb1, yuv, rgb1):
+        assert torch.equal(_bits(graphed.raw(x)), _bits(eager.raw(x)))
+    assert len(graphed._graphs) == 2
+
+
+def test_pipeline_grown_shares_params_and_graph_pool(dev, capsys):
+    """A saturated K=16 buffer grows (same note as the JAX pipeline); the
+    grown pipeline holds the same parameter tensors."""
+    from yolo2_light_tpu_torch.pipeline import DetectionPipeline
+    spec, params, mode = build_params(os.path.join(DATA, "mini-yolo3.cfg"),
+                                      None, echo=False)
+    pipe = DetectionPipeline(spec, params, mode, thresh=0.05, nms=0.4, k=16,
+                             device=dev)
+    big = DetectionPipeline(spec, params, mode, thresh=0.05, nms=0.4,
+                            k=4096, device=dev)
+    x = np.random.RandomState(0).rand(1, 64, 64, 3).astype(np.float32)
+    got, want = pipe(x)[0], big(x)[0]
+    assert "note: candidate buffer K=16 saturated" in capsys.readouterr().err
+    assert pipe._promoted is not None
+    assert pipe._promoted.params is pipe.params
+    np.testing.assert_array_equal(got.prob, want.prob)
+
+
+def test_pipeline_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without a CUDA device")
+    from yolo2_light_tpu_torch.pipeline import DetectionPipeline
+    spec, params, mode = build_params(os.path.join(DATA, "mini-yolo3.cfg"),
+                                      None, echo=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DetectionPipeline(spec, params, mode)

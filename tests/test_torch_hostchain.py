@@ -20,6 +20,7 @@ from yolo2_light_tpu import native as JNat
 from yolo2_light_tpu import quant as JQ
 from yolo2_light_tpu import tree as JT
 from yolo2_light_tpu import weights as JW
+from yolo2_light_tpu.eval import map as JM
 from yolo2_light_tpu.io import image as JI
 from yolo2_light_tpu.post import boxes as JB
 from yolo2_light_tpu_torch import cfg as TC
@@ -28,6 +29,7 @@ from yolo2_light_tpu_torch import native as TNat
 from yolo2_light_tpu_torch import quant as TQ
 from yolo2_light_tpu_torch import tree as TT
 from yolo2_light_tpu_torch import weights as TW
+from yolo2_light_tpu_torch.eval import map as TM
 from yolo2_light_tpu_torch.io import image as TI
 from yolo2_light_tpu_torch.post import boxes as TB
 
@@ -196,6 +198,56 @@ def test_decode_nms_and_print_lines_match(name, seed):
     tl = TB.format_detections(td, names, 0.2, 160, 120)
     jl = JB.format_detections(jd, names, 0.2, 160, 120)
     assert tl == jl and tl.count("\n") >= 5
+
+
+@pytest.mark.parametrize("iou_thresh", [0.5, 0.25])
+def test_map_accounting_and_report_match(tmp_path, iou_thresh):
+    """eval/map: the accumulator, the rank sweep, the report (NaN spelling
+    included) and the label-file helpers, on random post-NMS detections with
+    exact-prob ties and difficult boxes."""
+    rng = np.random.RandomState(int(iou_thresh * 100))
+    accs = [M.MapAccumulator(classes=4, iou_thresh=iou_thresh,
+                             thresh_calc_avg_iou=0.25) for M in (JM, TM)]
+    for i in range(5):
+        n = rng.randint(0, 30)
+        bbox = np.concatenate([rng.uniform(0.2, 0.8, (n, 2)),
+                               rng.uniform(0.05, 0.4, (n, 2))],
+                              1).astype(np.float32)
+        prob = np.where(rng.rand(n, 4) < 0.6, 0.0,
+                        np.round(rng.rand(n, 4) * 8) / 8).astype(np.float32)
+        truth = np.concatenate([rng.randint(0, 4, (3, 1)),
+                                rng.uniform(0.2, 0.8, (3, 2)),
+                                rng.uniform(0.05, 0.4, (3, 2))],
+                               1).astype(np.float32)
+        dif = truth[:1] + np.float32(0.01) if i % 2 else None
+        for acc, B in zip(accs, (JB, TB)):
+            dets = B.Detections(bbox.copy(), np.ones(n, np.float32),
+                                prob.copy())
+            B.do_nms_sort(dets, 4, 0.45)
+            acc.add_image(dets, truth, dif)
+    jr, tr = accs[0].compute(), accs[1].compute()
+    assert tr.keys() == jr.keys()
+    for k in tr:
+        # NaN metrics (0/0, printed as -nan) compare by their bits
+        _assert_same(np.asarray(tr[k]).view(np.uint64)
+                     if isinstance(tr[k], float) else tr[k],
+                     np.asarray(jr[k]).view(np.uint64)
+                     if isinstance(jr[k], float) else jr[k], k)
+    names = ["a", "b", "c", "d"]
+    assert (TM.format_map_report(tr, names, iou_thresh, 0.25)
+            == JM.format_map_report(jr, names, iou_thresh, 0.25))
+    empty = [M.MapAccumulator(classes=2).compute() for M in (JM, TM)]
+    assert (TM.format_map_report(empty[1], names, 0.5, 0.25)
+            == JM.format_map_report(empty[0], names, 0.5, 0.25))
+    label = tmp_path / "labels" / "x.txt"
+    label.parent.mkdir()
+    label.write_text("1 0.5 0.5 0.2 0.2\n2 0.1 0.2 0.3 0.4\nbad\n")
+    _assert_same(TM.read_truth_boxes(str(label)),
+                 JM.read_truth_boxes(str(label)))
+    _assert_same(TM.read_truth_boxes("/nope.txt"),
+                 JM.read_truth_boxes("/nope.txt"))
+    for p in ("/d/images/a.jpg", "/d/JPEGImages/b.png", "/x/c.JPEG"):
+        assert TM.label_path_for(p) == JM.label_path_for(p)
 
 
 def test_native_nms_and_resize_match():

@@ -34,7 +34,14 @@ def test_port_modules_are_found():
               "yolo2_light_tpu_torch.models.network",
               "yolo2_light_tpu_torch.params",
               "yolo2_light_tpu_torch.apps.detect",
-              "yolo2_light_tpu_torch.apps.cli"):
+              "yolo2_light_tpu_torch.apps.cli",
+              "yolo2_light_tpu_torch.apps.map",
+              "yolo2_light_tpu_torch.eval.map",
+              "yolo2_light_tpu_torch.ops.nms_walk",
+              "yolo2_light_tpu_torch.ops.resize",
+              "yolo2_light_tpu_torch.pipeline",
+              "yolo2_light_tpu_torch.post.device_decode",
+              "yolo2_light_tpu_torch.post.device_nms"):
         assert m in mods
 
 

@@ -1,31 +1,39 @@
-"""Command-line interface with the reference's usage, ``detector test`` only
-(reference: main/run_detector, src/main.c:584-667):
+"""Command-line interface with the reference's usage, ``detector test`` and
+``detector map`` (reference: main/run_detector, src/main.c:584-667):
 
     python -m yolo2_light_tpu_torch detector test <names> <cfg> [weights] [image]
         [-thresh T] [-dont_show] [-quantized] [-int8_impl xla|pallas|fused]
         [-xnor_kernel int8|pallas|pallas_mxu|auto] [-letterbox] [-save PATH]
         [-int8_policy cpu] [-device cuda|cpu]
+    python -m yolo2_light_tpu_torch detector map <datacfg> <cfg> [weights]
+        [-thresh T] [-iou_thresh F] [-quantized] [-int8_impl xla|pallas|fused]
+        [-batch N] [-k N] [-device_nms] [-int8_policy cpu] [-device cuda|cpu]
 
 ``-int8_impl fused`` runs each darknet53 residual block as one launch of the
 fused kernel; ``xla`` and ``pallas`` run every int8 conv on the int8 conv
 kernel. ``-xnor_kernel`` picks the engine of the XNOR convs: ``int8`` (the
 default) the dense +-1 conv, ``pallas`` the popcount kernel, ``pallas_mxu``
 the bit-packed int8 kernel, ``auto`` the faster of the last and the dense
-conv per layer. ``-device`` defaults to ``cuda``; ``cpu`` runs the plain PyTorch
-versions of the kernels. ``map``, ``calibrate`` and ``demo``, and the JAX CLI's other
-flags, are not yet ported: they exit non-zero and say so.
+conv per layer. ``map`` runs the serving pipeline (``pipeline.py``, one CUDA
+graph per batch shape): ``-batch N`` images a batch (default 8), ``-k N`` the
+initial candidate buffer (default 1024; a saturated buffer grows to the
+net's total candidate count, or 4096 with ``-device_nms``), ``-device_nms``
+the exact greedy NMS on the device. ``-device`` defaults to ``cuda``; ``cpu``
+runs the plain PyTorch versions of the kernels. ``calibrate`` and ``demo``,
+and the JAX CLI's other flags, are not yet ported: they exit non-zero and say
+so.
 """
 
 from __future__ import annotations
 
 import sys
 
-_NOT_PORTED_FLAGS = ("-bf16", "-fp32", "-turbo", "-turbo_int8", "-device_nms",
+_NOT_PORTED_FLAGS = ("-bf16", "-fp32", "-turbo", "-turbo_int8",
                      "-device_resize", "-uint8_ingest", "-no_uint8_ingest")
 _NOT_PORTED_VALUES = ("-pp", "-pp_tp", "-parallel", "-tp",
-                      "-sp", "-params_cache", "-profile", "-batch", "-k", "-i",
+                      "-sp", "-params_cache", "-profile", "-i",
                       "-c", "-s", "-prefix", "-out_filename",
-                      "-input_calibration", "-calib_method", "-iou_thresh")
+                      "-input_calibration", "-calib_method")
 
 
 def _find_flag(args, name):
@@ -75,6 +83,10 @@ def _main(argv=None) -> int:
     quantized = _find_flag(args, "-quantized")
     letterbox = _find_flag(args, "-letterbox")
     thresh = _find_value(args, "-thresh", 0.25, float)
+    iou_thresh = _find_value(args, "-iou_thresh", 0.5, float)
+    device_nms = _find_flag(args, "-device_nms")
+    batch = _find_value(args, "-batch", 0, int)
+    topk = _find_value(args, "-k", 0, int)   # candidate-buffer K (map)
     save_path = _find_value(args, "-save", "predictions")
     int8_policy = _find_value(args, "-int8_policy", "cpu")
     int8_impl = _find_value(args, "-int8_impl", "xla")
@@ -91,10 +103,18 @@ def _main(argv=None) -> int:
               "[names/datacfg] [cfg] [weights (optional)]", file=sys.stderr)
         return 1
     sub = args[0]
-    if sub in ("map", "calibrate", "demo"):
+    if device_nms and sub in ("test", "calibrate"):
+        # -device_nms is only consumed by map/demo (the test app is the
+        # host-post oracle path); silently ignoring it would tell a user
+        # their NMS ran on the device when it did not
+        print("error: -device_nms applies to detector map/demo only "
+              "(detector test uses the reference host post-processing path)",
+              file=sys.stderr)
+        return 1
+    if sub in ("calibrate", "demo"):
         raise NotImplementedError(
             f"detector {sub} is not yet ported to yolo2_light_tpu_torch")
-    if sub != "test":
+    if sub not in ("test", "map"):
         print(f"Not an option: {sub}", file=sys.stderr)
         return 1
     obj_names = args[1]
@@ -111,6 +131,18 @@ def _main(argv=None) -> int:
                   "plain PyTorch path", file=sys.stderr)
             return 1
 
+    if sub == "map":
+        from .map import validate_detector_map
+        kw = {}
+        if batch > 0:
+            kw["batch"] = batch
+        if topk > 0:
+            kw["k"] = topk
+        validate_detector_map(obj_names, cfg, weights, thresh=thresh,
+                              quantized=quantized, iou_thresh=iou_thresh,
+                              int8_policy=int8_policy, device_nms=device_nms,
+                              int8_impl=int8_impl, device=device, **kw)
+        return 0
     from ..datacfg import load_names
     from .detect import run
     names = load_names(obj_names)

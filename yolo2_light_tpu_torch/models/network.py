@@ -329,6 +329,35 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
     return forward
 
 
+def device_params(spec: ModelSpec, params: list, mode: str, device, *,
+                  int8_policy: str = "cpu", xnor_impl: str = "int8") -> list:
+    """``params`` on ``device`` through ``params.params_to_torch``, each conv
+    keeping only the weights of the path it runs: in int8 mode the int8
+    convs their int8 weights, an XNOR conv those of its engines."""
+    int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else ()
+    drops = [_dropped_fields(l, int8_set, xnor_impl) for l in spec.layers]
+    return params_to_torch(params, device, drops)
+
+
+def load_kernels(spec: ModelSpec, mode: str, *, int8_policy: str = "cpu",
+                 int8_impl: str = "xla", xnor_impl: str = "int8") -> None:
+    """Build and bind the hand kernels a forward of ``spec`` launches on the
+    card, so that the first forward does not include their builds."""
+    if int8_impl == "plain":
+        return
+    int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else ()
+    if mode == "int8":
+        int8_conv.load_kernel()
+        if int8_impl == "fused":
+            fused_res.load_kernel()
+    if any(isinstance(l, ConvSpec) and l.xnor and _bit_path(l)
+           and l.index not in int8_set for l in spec.layers):
+        if xnor_impl == "pallas":
+            xnor_gemm.load_kernel("xnor_gemm")
+        elif xnor_impl in ("pallas_mxu", "auto"):
+            xnor_gemm.load_kernel("xnor_gemm_mxu")
+
+
 class Predictor(nn.Module):
     """One call, image(s) in, head maps out, on one explicit device.
 
@@ -353,10 +382,10 @@ class Predictor(nn.Module):
         self._forward = build_forward(spec, mode, int8_policy=int8_policy,
                                       int8_impl=int8_impl, xnor_impl=xnor_impl,
                                       compute_dtype=compute_dtype, turbo=turbo)
-        int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else ()
-        drops = [_dropped_fields(l, int8_set, xnor_impl) for l in spec.layers]
         self._layout: list = []   # per layer: None or (tensor names, scalars)
-        for i, p in enumerate(params_to_torch(params, self.device, drops)):
+        for i, p in enumerate(device_params(spec, params, mode, self.device,
+                                            int8_policy=int8_policy,
+                                            xnor_impl=xnor_impl)):
             if p is None:
                 self._layout.append(None)
                 continue
@@ -368,17 +397,9 @@ class Predictor(nn.Module):
                 else:
                     scalars[k] = v
             self._layout.append((names, scalars))
-        if self.device.type == "cuda" and int8_impl != "plain":
-            if mode == "int8":
-                int8_conv.load_kernel()
-                if int8_impl == "fused":
-                    fused_res.load_kernel()
-            if any(isinstance(l, ConvSpec) and l.xnor and _bit_path(l)
-                   and l.index not in int8_set for l in spec.layers):
-                if xnor_impl == "pallas":
-                    xnor_gemm.load_kernel("xnor_gemm")
-                elif xnor_impl in ("pallas_mxu", "auto"):
-                    xnor_gemm.load_kernel("xnor_gemm_mxu")
+        if self.device.type == "cuda":
+            load_kernels(spec, mode, int8_policy=int8_policy,
+                         int8_impl=int8_impl, xnor_impl=xnor_impl)
 
     def layer_params(self) -> list:
         """The per-layer param dicts ``forward`` reads, from the buffers."""

@@ -1,0 +1,492 @@
+"""Fused frame->boxes serving pipeline: (optional YUV or uint8 ingest and
+resize) + network forward + on-device decode/compaction (+ optionally exact
+greedy NMS, ``device_nms=True``) as ONE captured CUDA graph per input
+signature; the host does only exact NMS (or, with device NMS, none) and
+formatting over <=K candidates.
+
+Counterpart of ``yolo2_light_tpu/pipeline.py``, whose ``jax.jit(run)`` is
+this module's CUDA graph: on the card, :meth:`DetectionPipeline.raw`
+captures ``run`` once per (shape, dtype) of its input into a
+``torch.cuda.CUDAGraph`` with a static input buffer, after warming it up
+eagerly on a side stream (kernel builds, the kernels' one-time function
+attributes, cuDNN's algorithm choice), and then replays it: one launch for
+the whole network, decode and NMS. All graphs of a pipeline share one memory
+pool. On the CPU ``run`` stays eager.
+
+Transfers: inputs ship as uint8 (or planar YUV420, half of that) and are
+normalized on the device; the device returns ONE packed [K, 4+1+classes]
+candidate buffer per image instead of full head maps.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+
+import numpy as np
+import torch
+
+from .cfg import ModelSpec, RegionSpec, YoloSpec
+from .models.network import build_forward, device_params, load_kernels
+from .ops.nms_walk import load_kernel as load_nms_kernel
+from .ops.resize import Resizer
+from .post import boxes as post
+from .post.device_decode import Decoder
+from .post.device_nms import nms_packed
+
+# eager runs on a side stream before a capture (PyTorch's recipe)
+_WARMUP_RUNS = 2
+
+
+def _fetch_packed(raw: torch.Tensor) -> np.ndarray:
+    """D2H fetch of a packed candidate buffer, as ONE host transfer."""
+    return raw.cpu().numpy()
+
+
+def yuv420_to_rgb(x: torch.Tensor) -> torch.Tensor:
+    """Planar YUV420 (I420) [B, H*3/2, W] uint8 -> RGB f32 [B,H,W,3] in [0,1].
+
+    BT.601 full-range conversion on the device; U/V planes are
+    nearest-upsampled 2x. Half the host->device bytes of uint8 RGB."""
+    b, h32, w = x.shape
+    h = (h32 * 2) // 3
+    y = x[:, :h, :].to(torch.float32)
+    u = x[:, h: h + h // 4, :].reshape(b, h // 2, w // 2).to(torch.float32)
+    v = x[:, h + h // 4:, :].reshape(b, h // 2, w // 2).to(torch.float32)
+    u = u.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2) - 128.0
+    v = v.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2) - 128.0
+    r = y + 1.402 * v
+    g = y - 0.344136 * u - 0.714136 * v
+    bch = y + 1.772 * u
+    rgb = torch.stack([r, g, bch], dim=-1)
+    return torch.clamp(rgb, 0.0, 255.0) * (1.0 / 255.0)
+
+
+def _as_input(images) -> torch.Tensor:
+    """A batch as a tensor: NumPy arrays are wrapped (no copy where they are
+    contiguous with nonnegative strides); float64 becomes float32."""
+    if not isinstance(images, torch.Tensor):
+        a = np.ascontiguousarray(images)
+        # NumPy calls a reversed size-1 axis contiguous; torch refuses it
+        images = torch.from_numpy(a if min(a.strides, default=0) >= 0
+                                  else a.copy())
+    x = images
+    if x.is_floating_point() and x.dtype != torch.float32:
+        x = x.to(torch.float32)
+    return x
+
+
+def _source_sizes(shape, spec: ModelSpec):
+    """Default ``im_sizes`` of a batch of ``shape``: device-resized source
+    frames correct back to the SOURCE dims, matching the reference's
+    im.w/im.h arguments (src/main.c:222); net-size frames need none."""
+    if len(shape) == 3:                       # planar YUV420 [B,H*3/2,W]
+        sw, sh = shape[2], shape[1] * 2 // 3
+    else:
+        sw, sh = shape[2], shape[1]
+    if (sw, sh) != (spec.net.w, spec.net.h):
+        return [(sw, sh)] * shape[0]
+    return None
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to "
+                               f"yolo2_light_tpu_torch (ROADMAP Queue 1 "
+                               f"{item})")
+
+
+class _Graph:
+    """One captured ``run``: its graph and static input and output."""
+
+    def __init__(self, graph, static_in, static_out):
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+
+
+class DetectionPipeline:
+    """End-to-end detector: ``__call__(images) -> list[Detections]``.
+
+    ``images``: [B,H,W,C] uint8 (preferred, [0,255]) or float32 in [0,1], or
+    planar YUV420 [B, H*3/2, W] uint8. Frames whose spatial dims differ from
+    the net's are resized ON DEVICE with the darknet-exact bilinear
+    (ops/resize.py); all frames of a batch share one source size, and each
+    source size has its own graph.
+
+    ``device_nms=True`` fuses exact greedy NMS (post/device_nms.py) into the
+    graph: the packed buffer arrives pre-suppressed and the host skips
+    ``do_nms_sort`` — same detections, no host post-processing beyond
+    coordinate correction and formatting.
+
+    ``device``: ``"cuda"`` (default; raises where CUDA is missing) or
+    ``"cpu"``, which runs every kernel's plain version. ``cuda_graph=False``
+    runs ``run`` eagerly on the card too (the graph's reference). ``params``:
+    the per-layer host params of ``apps/detect.build_params``, or the
+    converted params of another pipeline on the same device.
+    """
+
+    def __init__(self, spec: ModelSpec, params: list, mode: str = "fp32", *,
+                 thresh: float = 0.24, nms: float = 0.4, k: int = 256,
+                 int8_policy: str = "cpu", compute_dtype=torch.float32,
+                 letter: bool = False, xnor_impl: str = "int8", mesh=None,
+                 device_nms: bool = False, turbo=False, int8_impl: str = "xla",
+                 pp_stages: int = 0, pp_microbatch: int = 1, pp_tp: int = 1,
+                 device="cuda", cuda_graph: bool = True):
+        if mesh is not None:
+            raise _not_ported("a device mesh (-parallel/-tp/-sp)", "#12")
+        if pp_stages > 1 or pp_tp > 1:
+            raise _not_ported("pipeline parallelism (-pp/-pp_tp)", "#12")
+        if turbo:
+            raise _not_ported("-turbo / -turbo_int8", "#6")
+        if compute_dtype != torch.float32:
+            raise _not_ported(f"compute dtype {compute_dtype} (-bf16)", "#6")
+        self.spec = spec
+        self.thresh = thresh
+        self.nms = nms
+        self.k = k
+        self.letter = letter
+        self.device_nms = bool(device_nms and nms)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available (use device='cpu' to "
+                               "run the plain PyTorch path)")
+        self._mode = mode
+        self._int8_policy = int8_policy
+        self._xnor_impl = xnor_impl
+        self._int8_impl = int8_impl
+        self._cuda_graph = cuda_graph and self.device.type == "cuda"
+        self._grow_lock = threading.Lock()
+        self._run_lock = threading.Lock()
+        self._fwd = build_forward(spec, mode, int8_policy=int8_policy,
+                                  xnor_impl=xnor_impl, int8_impl=int8_impl)
+        self.params = (params if _converted(params)
+                       else device_params(spec, params, mode, self.device,
+                                          int8_policy=int8_policy,
+                                          xnor_impl=xnor_impl))
+        self.head_specs = [l for l in spec.layers
+                           if isinstance(l, (YoloSpec, RegionSpec))]
+        self.classes = self.head_specs[-1].classes
+        # total raw candidates the net can produce (sum over heads of
+        # h*w*anchors): the top-k clamps to this N, so K >= N cannot drop a
+        # detection — it is the saturation auto-grow ceiling. device_nms
+        # keeps a 4096 cap: its per-image [K,K] IoU matrix is O(K^2) memory.
+        self._total_candidates = sum(l.out_h * l.out_w * l.n
+                                     for l in self.head_specs)
+        # both paths build the buffer in DECODE order (the reference NMS's
+        # tie-break order): the host path runs do_nms_sort over it; device
+        # NMS seeds its carried-qsort permutation from it and returns rows
+        # already permuted to the reference's POST-NMS order
+        self._decoder = Decoder(
+            self.head_specs, [(None, l.out_h, l.out_w, l.n, None)
+                              for l in self.head_specs],
+            spec.net.w, spec.net.h, thresh, k, self.device, decode_order=True)
+        self._255 = torch.tensor(255.0, dtype=torch.float32,
+                                 device=self.device)
+        self._resizers: dict = {}
+        self._graphs: dict = {}
+        self._serve_out: dict = {}
+        self._pool = None
+        self._promoted = None
+        self._grown_cache = None
+        if self.device.type == "cuda":
+            load_kernels(spec, mode, int8_policy=int8_policy,
+                         int8_impl=int8_impl, xnor_impl=xnor_impl)
+            if self.device_nms:
+                load_nms_kernel()
+            if self._cuda_graph:
+                self._pool = torch.cuda.graph_pool_handle()
+
+    # ---- the program ----------------------------------------------------
+
+    def _resizer(self, ih: int, iw: int) -> Resizer:
+        r = self._resizers.get((ih, iw))
+        if r is None:
+            r = Resizer(ih, iw, self.spec.net.h, self.spec.net.w, self.device)
+            self._resizers[(ih, iw)] = r
+        return r
+
+    def ingest(self, x: torch.Tensor) -> torch.Tensor:
+        """Device input -> [B, net_h, net_w, 3] f32 in [0, 1]."""
+        if x.dim() == 3:
+            # planar YUV420 ingest [B, H*3/2, W] uint8: BT.601 on the device
+            x = yuv420_to_rgb(x)
+        if x.dtype == torch.uint8:
+            # /255 as the host loader and the reference divide
+            # (load_image_stb), by a device tensor (ROADMAP F9)
+            x = x.to(torch.float32) / self._255
+        if x.shape[1] != self.spec.net.h or x.shape[2] != self.spec.net.w:
+            # source-resolution frames: darknet-exact bilinear resize ON
+            # DEVICE (the reference resizes every input on the host,
+            # src/main.c:188, additionally.c:3021)
+            x = self._resizer(x.shape[1], x.shape[2])(x)
+        return x
+
+    def post(self, head_datas) -> torch.Tensor:
+        """Head maps -> the packed [B, K(+1), 4+1+classes] buffer."""
+        packed = self._decoder.packed(list(head_datas))
+        if not self.device_nms:
+            return packed
+        # suppression zeroes probs, which would hide buffer saturation from
+        # the host, so a PRE-NMS saturation FLAG (1.0 iff every slot held a
+        # candidate) rides along as one extra all-zero row
+        score = packed[..., 5:].amax(dim=-1)
+        if packed.shape[1] == self.k:
+            saturated = (score > 0).all(dim=-1)
+        else:
+            # the buffer holds EVERY decoded candidate (total N < k)
+            saturated = torch.zeros(packed.shape[0], dtype=torch.bool,
+                                    device=packed.device)
+        packed = nms_packed(packed, self.nms)
+        extra = torch.zeros((packed.shape[0], 1, packed.shape[2]),
+                            dtype=packed.dtype, device=packed.device)
+        extra[:, 0, 0] = saturated.to(packed.dtype)
+        return torch.cat([packed, extra], dim=1)
+
+    def run(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole device program on a device batch, eagerly."""
+        heads, _ = self._fwd(self.params, self.ingest(x))
+        return self.post([h.data for h in heads])
+
+    def _graph_for(self, x: torch.Tensor) -> _Graph:
+        """The graph of ``x``'s signature, captured at its first use
+        (``x``: a device batch of that signature, for the warm-up)."""
+        key = (tuple(x.shape), x.dtype)
+        g = self._graphs.get(key)
+        if g is not None:
+            return g
+        static_in = torch.empty(x.shape, dtype=x.dtype, device=self.device)
+        static_in.copy_(x)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(_WARMUP_RUNS):
+                self.run(static_in)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
+            static_out = self.run(static_in)
+        g = _Graph(graph, static_in, static_out)
+        self._graphs[key] = g
+        return g
+
+    def _replay(self, g: _Graph, x: torch.Tensor) -> torch.Tensor:
+        """Copy ``x`` into the graph's input, replay, and clone the output
+        (the next replay overwrites the static output)."""
+        g.static_in.copy_(x)
+        g.graph.replay()
+        return g.static_out.clone()
+
+    def raw(self, images) -> torch.Tensor:
+        """Packed device output [B, K(+1), 4+1+classes] — still on the
+        device."""
+        x = _as_input(images)
+        with torch.inference_mode(), self._run_lock:
+            if not self._cuda_graph:
+                return self.run(x.to(self.device))
+            x = x.to(self.device)
+            return self._replay(self._graph_for(x), x)
+
+    # ---- batches ----------------------------------------------------------
+
+    def dispatch(self, images):
+        """Start a batch: H2D + enqueue the graph. Returns a ticket for
+        :meth:`collect`; host work between the two overlaps the device."""
+        if self._promoted is not None:
+            return self._promoted.dispatch(images)
+        return (self, self.raw(images), images)
+
+    def collect(self, ticket, im_sizes=None):
+        """Blocking half of :meth:`dispatch`: one D2H fetch, saturation
+        handling (auto-grow re-run of the kept input batch), host finish."""
+        pipe, raw_dev, images = ticket
+        if im_sizes is None:
+            im_sizes = _source_sizes(tuple(images.shape), pipe.spec)
+        packed = _fetch_packed(raw_dev)        # one D2H transfer
+        if pipe._saturated(packed) and pipe.k < pipe._max_k:
+            grown = pipe._grow_and_promote()
+            return grown(images, im_sizes)
+        return pipe._finish_batch(packed, im_sizes)
+
+    @property
+    def _max_k(self) -> int:
+        """Auto-grow ceiling: the net's total candidate count (K >= N cannot
+        drop anything), bounded at 4096 under device_nms (O(K^2) IoU)."""
+        return (min(4096, self._total_candidates) if self.device_nms
+                else self._total_candidates)
+
+    def _saturated(self, packed: np.ndarray) -> bool:
+        """True when this pipeline's candidate buffer filled for any image of
+        an already-fetched packed batch (detections may have been dropped)."""
+        if self.k >= self._total_candidates:
+            # K covers every decodable candidate: nothing can be dropped
+            return False
+        rows = self.k + 1 if self.device_nms else self.k  # +1: flag row
+        if packed.shape[1] != rows:
+            return False
+        if self.device_nms:
+            return bool((packed[:, -1, 0] > 0).any())
+        return bool((packed[:, :, 5:].max(axis=-1) > 0).all(axis=-1).any())
+
+    def _grow_and_promote(self) -> "DetectionPipeline":
+        """Build (or reuse) the Kx4 pipeline and promote future dispatches to
+        it. Thread-safe: stream() grows from finish-worker threads."""
+        with self._grow_lock:
+            new_k = min(self._max_k, self.k * 4)
+            print(f"note: candidate buffer K={self.k} saturated; re-running "
+                  f"batch with K={new_k} (future batches use the grown buffer)",
+                  file=sys.stderr)
+            grown = self._grown(new_k)
+            # promote: saturating workloads shouldn't pay a double forward
+            # per batch
+            self._promoted = grown
+            return grown
+
+    def _finish_batch(self, packed: np.ndarray, im_sizes=None):
+        """Per-image host finish over an already-fetched packed batch."""
+        netw, neth = self.spec.net.w, self.spec.net.h
+        out = []
+        for i in range(packed.shape[0]):
+            w, h = im_sizes[i] if im_sizes is not None else (netw, neth)
+            out.append(self._finish(packed[i], w, h))
+        return out
+
+    def serve_scan(self, frames, im_sizes=None):
+        """Multi-frame serving loop: a device-resident ring of N frames runs
+        SEQUENTIALLY at b=1 (one replay of the b=1 graph per frame, each
+        writing row i of one [N, K(+1), 4+1+classes] buffer) and every
+        frame's detections come from ONE D2H fetch. Each frame is exactly
+        the b=1 program, so the results are bit-identical to frame-at-a-time
+        calls. ``frames``: [N, H, W, C] f32/uint8 or planar YUV420
+        [N, H*3/2, W], any source size. Returns list[Detections], saturation
+        auto-grow included."""
+        if self._promoted is not None:
+            return self._promoted.serve_scan(frames, im_sizes)
+        ring = _as_input(frames)
+        with torch.inference_mode(), self._run_lock:
+            ring = ring.to(self.device)                  # one H2D transfer
+            if self._cuda_graph:
+                g = self._graph_for(ring[:1])
+                out = torch.empty((ring.shape[0],) + g.static_out.shape[1:],
+                                  dtype=g.static_out.dtype,
+                                  device=self.device)
+                for i in range(ring.shape[0]):
+                    g.static_in.copy_(ring[i:i + 1])
+                    g.graph.replay()
+                    out[i] = g.static_out[0]
+            else:
+                out = torch.cat([self.run(ring[i:i + 1])
+                                 for i in range(ring.shape[0])])
+        if im_sizes is None:
+            im_sizes = _source_sizes(tuple(ring.shape), self.spec)
+        packed = _fetch_packed(out)            # one D2H transfer
+        if self._saturated(packed) and self.k < self._max_k:
+            grown = self._grow_and_promote()
+            return grown.serve_scan(frames, im_sizes)
+        return self._finish_batch(packed, im_sizes)
+
+    def __call__(self, images, im_sizes=None):
+        """Full pipeline for a batch. ``im_sizes``: list of (w,h) original
+        image sizes for coordinate correction (defaults to net dims, or the
+        source dims of device-resized frames). Returns list[Detections]
+        after exact per-class NMS.
+
+        If the candidate buffer saturates (all K slots used — detections may
+        have been dropped), the batch transparently re-runs with K x4, up to
+        the net's total candidate count (4096 under device_nms)."""
+        return self.collect(self.dispatch(images), im_sizes)
+
+    def _grown(self, new_k: int) -> "DetectionPipeline":
+        """A pipeline identical to this one but with a larger candidate
+        buffer, sharing this one's converted params (cached, so repeated
+        saturation does not capture again every batch)."""
+        cached = self._grown_cache
+        if cached is None or cached.k != new_k:
+            cached = DetectionPipeline(
+                self.spec, self.params, self._mode, thresh=self.thresh,
+                nms=self.nms, k=new_k, int8_policy=self._int8_policy,
+                letter=self.letter, xnor_impl=self._xnor_impl,
+                device_nms=self.device_nms, int8_impl=self._int8_impl,
+                device=self.device, cuda_graph=self._cuda_graph)
+            self._grown_cache = cached
+        return cached
+
+    def stream(self, batches, im_sizes_iter=None, depth: int = 2,
+               workers: int = 1):
+        """Pipelined streaming inference: keeps ``depth`` batches in flight
+        on the device AND runs the host finish stage (D2H fetch + NMS) in
+        ``workers`` threads, so device compute and host NMS overlap.
+
+        ``batches``: iterable of [B,H,W,C] arrays. Yields lists of Detections
+        in submission order. Saturation auto-grows the candidate buffer
+        exactly like ``__call__``: the saturated batch re-runs at Kx4 and
+        every LATER dispatch uses the grown pipeline; batches already in
+        flight at the old K re-run individually if they also saturated."""
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
+        # at most ONE old-K in-flight batch re-runs at a time
+        rerun_lock = threading.Lock()
+
+        def finish_batch(pipe, packed_dev, sizes, xb):
+            packed = _fetch_packed(packed_dev)
+            if pipe._saturated(packed) and pipe.k < pipe._max_k:
+                grown = pipe._grow_and_promote()
+                with rerun_lock:
+                    return grown(xb, sizes)
+            return pipe._finish_batch(packed, sizes)
+
+        it = iter(batches)
+        sizes_it = iter(im_sizes_iter) if im_sizes_iter is not None else None
+        inflight: deque = deque()
+        done = False
+        with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
+            while True:
+                while not done and len(inflight) < depth:
+                    try:
+                        xb = next(it)
+                    except StopIteration:
+                        done = True
+                        break
+                    sizes = (next(sizes_it) if sizes_it is not None else None)
+                    src = self
+                    while src._promoted is not None:
+                        src = src._promoted
+                    inflight.append(pool.submit(finish_batch, src,
+                                                src.raw(xb), sizes, xb))
+                if not inflight:
+                    return
+                yield inflight.popleft().result()
+
+    def _finish(self, packed_i: np.ndarray, w: int, h: int):
+        saturated = False
+        if self.device_nms:
+            # last row is the pre-NMS saturation flag (see post()); probs are
+            # already suppressed on the device, so no host NMS
+            saturated = packed_i[-1, 0] > 0
+            packed_i = packed_i[:-1]
+        boxes = packed_i[:, :4]
+        obj = packed_i[:, 4]
+        probs = packed_i[:, 5:]
+        keep = probs.max(axis=-1) > 0
+        if (self.k < self._total_candidates
+                and (saturated or (keep.all()
+                                   and packed_i.shape[0] == self.k))):
+            print(f"warning: candidate buffer K={self.k} saturated; "
+                  "some detections may be dropped (raise k)", file=sys.stderr)
+        boxes, obj, probs = boxes[keep], obj[keep], probs[keep]
+        boxes = post.correct_boxes(boxes.astype(np.float32), w, h,
+                                   self.spec.net.w, self.spec.net.h,
+                                   relative=True, letter=self.letter)
+        dets = post.Detections(boxes.astype(np.float32),
+                               obj.astype(np.float32),
+                               probs.astype(np.float32))
+        if self.nms and not self.device_nms:
+            post.do_nms_sort(dets, self.classes, self.nms)
+        return dets
+
+
+def _converted(params: list) -> bool:
+    """True for params already converted to tensors (``device_params``)."""
+    return any(isinstance(v, torch.Tensor)
+               for p in params if p is not None for v in p.values())
