@@ -62,13 +62,17 @@ Phases, each reported on its own lines:
    serving pipeline (``pipeline.DetectionPipeline``, device NMS on) on
    yolov3-416 int8 (``xla`` and ``fused``) and fp32 and on
    tiny-yolo-obj_xnor-416 ``pallas_mxu`` and ``pallas``, from 640x480 uint8
-   frames resized on the card, at b=1 and b=8: each replay of the captured CUDA graph must
+   frames resized on the card, at b=1 and b=8, and yolov3-416 in phase 9's
+   precision modes (``-int8_policy gpu``, ``-turbo``, ``-turbo_int8``,
+   ``-quantized -bf16``, ``-bf16``): each replay of the captured CUDA graph must
    equal the eager program bit for bit, the hand kernels of the mode must
    launch inside the capture, and ``serve_scan`` over the 8-frame ring must
    equal the per-frame calls. The detections of 8 frames at the net's size
    (b=8) must print the lines ``detect_image`` (eager forward, host decode
    and NMS) prints for the same frames as PNGs, as multisets; a line may
-   differ only by one print count in a box field, in at most 1% of the lines
+   differ only by one print count in a box field, in at most 1% of the lines;
+   under ``-bf16`` both at b=1, since cuDNN's bf16 conv, rounded to bf16,
+   picks its algorithm by the batch too
    (F7: CUDA's expf against the host's; the print's sort by left edge may
    then swap two boxes with near-equal left edges). Random weights (seed 7) with
    ``sparse_head_biases`` (a copy of bench.py's) at a head objectness bias
@@ -81,6 +85,25 @@ Phases, each reported on its own lines:
    labels, host NMS and ``-device_nms -k 64`` (auto-grow): identical report
    blocks; prints the live candidate counts, the K auto-grow reached and
    the img/s of each run.
+9. precision: K1's new forms (``<input>/<semantics>/<store>``: the bf16
+   input form, the gpu epilogue, the bf16 and int8 stores) against their
+   plain twins, bit for bit, leaky and linear, at yolov3-416's 15 int8 conv
+   classes (the gpu epilogue at the gpu set's 6: 3x3/s1 and the first
+   3x3/s2); the forms the precision modes launch timed beside their bounds
+   (bytes at the form's widths) and ``torch._int_mm``. Then ``detector test``
+   through the CLI on yolov3-416 (random weights, seed 7) with
+   ``-quantized -int8_policy gpu`` (26 ``int8_conv`` launches a forward),
+   ``-quantized -turbo`` (71, with no quantize launch or input copy in
+   front: K1 reads and stores bf16), ``-quantized -turbo_int8`` (71),
+   ``-quantized -turbo_int8 -int8_impl fused`` (23 ``fused_res_block`` and 25
+   ``int8_conv``), ``-quantized -bf16`` (71) and ``-bf16`` (none), and on
+   tiny-yolo-obj_xnor-416 with ``-turbo -xnor_kernel pallas_mxu`` (7 K4):
+   head maps and detection lines of the kernel path equal those of the
+   plain path on the card (``fused_plain`` for the fused engine, whose runs
+   keep a float32 interior under ``-turbo_int8``); warm b=1 forwards. Last,
+   the largest difference of cuDNN's bfloat16 conv (the card's ``-bf16``)
+   against the float32 conv of the same bfloat16 operands (the CPU's) at
+   yolov3's float conv shapes.
 
 Every kernel time is printed beside the least time the card could take for
 the same work: the bytes the function must move (each input read once, each
@@ -95,10 +118,12 @@ Any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
 preceded by the card's name and power limit and, before that, a line with one
 JSON object describing each of the six TPU kernels' counterparts (after a
-``{"pipeline": ...}`` line with phase 8's numbers and the NMS walk's row): its
-launches on the main path, its time, the plain version's, the bound (sums
-over the shapes timed) and the library call's where there is one. Two Pallas
-functions that compute one function share a Hopper kernel and its numbers.
+``{"pipeline": ...}`` line with phase 8's numbers and the NMS walk's row, and
+a ``{"precision": ...}`` line with phase 9's): its launches on the main path,
+its time, the plain version's, the bound (sums over the shapes timed) and
+the library call's where there is one, and a row for each of K1's forms on
+the precision modes' path, with its launches there. Two Pallas functions
+that compute one function share a Hopper kernel and its numbers.
 """
 
 from __future__ import annotations
@@ -236,6 +261,55 @@ PIPE_MODES = {
                                       "xnor_gemm_mxu"),
     "tiny-yolo-obj_xnor pallas": (XNOR_CFG, False, {"xnor_impl": "pallas"},
                                   "xnor_gemm"),
+    # phase 9's precision modes in the pipeline
+    "yolov3 int8 gpu": (CFG, True, {"int8_policy": "gpu"}, "int8_conv"),
+    "yolov3 int8 turbo": (CFG, True, {"turbo": True}, "int8_conv"),
+    "yolov3 int8 turbo_int8": (CFG, True, {"turbo": "int8"}, "int8_conv"),
+    "yolov3 int8 bf16": (CFG, True, {"compute_dtype": torch.bfloat16},
+                         "int8_conv"),
+    "yolov3 bf16": (CFG, False, {"compute_dtype": torch.bfloat16}, None),
+}
+# phase 9: K1's forms, "<input>/<semantics>/<store>" as
+# int8_conv.FORM_LAUNCHES names them, and what runs each on the main path
+K1_PATH_FORMS = {
+    "bf16/cpu/bf16": "bf16 input and store (-turbo)",
+    "f32/gpu/f32": "gpu epilogue (-int8_policy gpu)",
+    "f32/cpu/int8": "int8 store (-turbo_int8)",
+    "int8/cpu/int8": "chained int8 input, int8 store (-turbo_int8)",
+}
+# forms no phase 9 run launches, checked all the same: the bf16 input and
+# the bf16 store each alone, and the gpu epilogue with the narrow stores
+K1_OTHER_FORMS = ("bf16/cpu/f32", "f32/cpu/bf16", "bf16/gpu/bf16",
+                  "int8/gpu/int8")
+GPU_CLASSES = {label for label, (_, _, _, _, _, ks, s, _) in SHAPES
+               if (ks, s) == (3, 1)} | {"3x3/s2 416x416x32->208x208x64"}
+STORE_MULT = 12.5        # the int8 store's multiplier in the form checks
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+# name: (cfg, CLI flags, Predictor keywords, the launches of one forward,
+# whether no quantize or input copy may precede an int8 conv)
+PRECISION_RUNS = {
+    "yolov3 -quantized -int8_policy gpu": (
+        CFG, ["-quantized", "-int8_policy", "gpu"], {"int8_policy": "gpu"},
+        {"int8_conv": 26}, True),
+    "yolov3 -quantized -turbo": (CFG, ["-quantized", "-turbo"],
+                                 {"turbo": True}, {"int8_conv": 71}, True),
+    "yolov3 -quantized -turbo_int8": (
+        CFG, ["-quantized", "-turbo_int8"], {"turbo": "int8"},
+        {"int8_conv": 71}, False),
+    "yolov3 -quantized -turbo_int8 -int8_impl fused": (
+        CFG, ["-quantized", "-turbo_int8", "-int8_impl", "fused"],
+        {"turbo": "int8", "int8_impl": "fused"},
+        {"int8_conv": N_UNFUSED_INT8, "fused_res_block": N_FUSED_BLOCKS},
+        False),
+    "yolov3 -quantized -bf16": (CFG, ["-quantized", "-bf16"],
+                                {"compute_dtype": torch.bfloat16},
+                                {"int8_conv": 71}, True),
+    "yolov3 -bf16": (CFG, ["-bf16"], {"compute_dtype": torch.bfloat16}, {},
+                     True),
+    "tiny-yolo-obj_xnor -turbo -xnor_kernel pallas_mxu": (
+        XNOR_CFG, ["-turbo", "-xnor_kernel", "pallas_mxu"],
+        {"turbo": True, "xnor_impl": "pallas_mxu"}, {"xnor_gemm_mxu": 7},
+        True),
 }
 
 
@@ -1145,6 +1219,17 @@ def _pipeline_mode(name: str, cfg: str, quantized: bool, kw: dict,
     net_frames = _frames(SEED + 1, len(frames), spec.net.h, spec.net.w)
     pred = network.Predictor(spec, params, mode, device="cuda", **kw)
     got = graphed(net_frames)
+    if kw.get("compute_dtype") == torch.bfloat16:
+        # cuDNN picks each bfloat16 conv's algorithm by its shape, batch
+        # included, and rounds that algorithm's float32 sum to bfloat16:
+        # -bf16's detections depend on the batch, so they are compared at
+        # detect_image's b=1, and the frames whose b=8 lines differ counted
+        one = [graphed(net_frames[i:i + 1])[0] for i in range(len(frames))]
+        row["frames_b8_unlike_b1"] = sum(
+            _lines(a, names, spec.net.w, spec.net.h)
+            != _lines(b, names, spec.net.w, spec.net.h)
+            for a, b in zip(got, one))
+        got = one
     n_lines = n_near = n_moved = 0
     for i, im in enumerate(net_frames):
         path = os.path.join(tmp, f"net_frame{i}.png")
@@ -1165,8 +1250,11 @@ def _pipeline_mode(name: str, cfg: str, quantized: bool, kw: dict,
     while final._promoted is not None:
         final = final._promoted
     row["k_reached"] = final.k
-    say("pipeline", f"{name}: detections of 8 net-size frames (b=8) equal "
-        f"detect_image's ({n_lines} lines at thresh {PIPE_THRESH}; {n_near} "
+    batch = ("b=1; at b=8 the lines of "
+             f"{row['frames_b8_unlike_b1']} of 8 frames differ"
+             if "frames_b8_unlike_b1" in row else "b=8")
+    say("pipeline", f"{name}: detections of 8 net-size frames ({batch}) "
+        f"equal detect_image's ({n_lines} lines at thresh {PIPE_THRESH}; {n_near} "
         f"with a box field one count off, {n_moved} printed at another "
         f"position); K reached {final.k}")
 
@@ -1308,6 +1396,211 @@ def phase_pipeline(tmp: str) -> dict:
             "modes": modes, "map": mapped}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the precision modes
+# ---------------------------------------------------------------------------
+
+
+def _form_operands(dev, seed: int, shape, x_form: str):
+    """One int8 conv class's operands with the input in ``x_form``."""
+    b, h, w, c, m, ks, _, _ = shape
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(b, h, w, c) * 4).astype(
+        np.float32)).to(dev)
+    wt = torch.from_numpy(rng.randint(-127, 128, (m, ks, ks, c)).astype(
+        np.int8)).to(dev)
+    bias = torch.from_numpy(rng.randn(m).astype(np.float32)).to(dev)
+    xin = (int8_conv.quantize_i8(x, IN_MULT) if x_form == "int8"
+           else x.to(_DTYPES[x_form]))
+    return xin, wt, bias
+
+
+def _run_form(form: str, plain: bool, xin, wt, bias, s: int, pad: int,
+              act: str = "leaky"):
+    """K1 (or its plain twin) in ``form`` on ``xin``."""
+    x_form, semantics, store = form.split("/")
+    scale = int8_conv.alpha_f32(IN_MULT, W_MULT,
+                                32 if semantics == "cpu" else 1)
+    kw = dict(semantics=semantics, out_dtype=_DTYPES[store],
+              out_mult=STORE_MULT if store == "int8" else None)
+    if x_form == "int8":
+        fn = (int8_conv.conv2d_int8_plain if plain
+              else int8_conv.conv2d_int8_cuda)
+        return fn(xin, wt, bias, scale, s, pad, act, **kw)
+    fn = (int8_conv.conv2d_int8_f32_plain if plain
+          else int8_conv.conv2d_int8_f32_cuda)
+    return fn(xin, wt, bias, IN_MULT, scale, s, pad, act, **kw)
+
+
+def phase_precision_kernels() -> dict:
+    """K1's new forms against their plain twins, bit for bit, leaky and
+    linear: every form at yolov3-416's 15 int8 classes, the gpu epilogue at
+    the gpu set's 6 classes. Each path form is timed beside its bound (bytes
+    at the form's real widths) and ``torch._int_mm`` on the same product."""
+    dev = torch.device("cuda")
+    rows = {}
+    for form in list(K1_PATH_FORMS) + list(K1_OTHER_FORMS):
+        x_form, semantics, store = form.split("/")
+        shapes = []
+        for i, (label, shape) in enumerate(SHAPES):
+            if semantics == "gpu" and label not in GPU_CLASSES:
+                continue
+            b, h, w, c, m, ks, s, pad = shape
+            xin, wt, bias = _form_operands(dev, SEED + i, shape, x_form)
+            err = 0.0
+            for act in ("leaky", "linear"):
+                out = _run_form(form, False, xin, wt, bias, s, pad, act)
+                ref = _run_form(form, True, xin, wt, bias, s, pad, act)
+                torch.cuda.synchronize()
+                check(out.dtype == _DTYPES[store] and torch.equal(out, ref),
+                      f"K1 {form} != plain at {label} ({act})")
+                err = max(err, float((out.float() - ref.float()).abs().max()))
+            row = {"shape": label, "max_abs_err": err}
+            if form in K1_PATH_FORMS:
+                x8 = (xin if x_form == "int8"
+                      else int8_conv.quantize_i8(xin.float(), IN_MULT))
+                a = im2col_int8(x8, ks, s, pad)
+                wmat = wt.view(m, -1).t()
+                row["ms"] = event_ms(lambda: _run_form(
+                    form, False, xin, wt, bias, s, pad))
+                row["plain_ms"] = event_ms(lambda: _run_form(
+                    form, True, xin, wt, bias, s, pad), iters=10)
+                row["library_ms"] = event_ms(lambda: torch._int_mm(a, wmat))
+                oh, ow = ref.shape[1:3]
+                p = b * oh * ow
+                row["bound_ms"], row["bound_by"] = bound(
+                    xin.element_size() * xin.numel() + wt.numel() + 4 * m
+                    + _DTYPES[store].itemsize * p * m,
+                    2.0 * p * m * ks * ks * c)
+            shapes.append(row)
+        rows[form] = shapes
+        if form in K1_PATH_FORMS:
+            ms = sum(r["ms"] for r in shapes)
+            b_ms = sum(r["bound_ms"] for r in shapes)
+            say("precision", f"K1 {form} ({K1_PATH_FORMS[form]}): "
+                f"bit-identical to plain at {len(shapes)} classes, leaky and "
+                f"linear; kernel {ms:.4f} ms summed (per class "
+                f"{min(r['ms'] for r in shapes):.4f}-"
+                f"{max(r['ms'] for r in shapes):.4f}), plain "
+                f"{sum(r['plain_ms'] for r in shapes):.4f}, torch._int_mm "
+                f"{sum(r['library_ms'] for r in shapes):.4f} ms; bound "
+                f"{b_ms * 1e3:.2f} us, {100 * b_ms / ms:.1f}% of it")
+        else:
+            say("precision", f"K1 {form}: bit-identical to plain at "
+                f"{len(shapes)} classes, leaky and linear")
+    return rows
+
+
+def bf16_conv_diff() -> dict:
+    """cuDNN's bfloat16 conv (the -bf16 path on the card: its sum rounded to
+    bfloat16) against the float32 conv of the same bfloat16 operands (the
+    path on the CPU, XLA's result up to summation order), at each distinct
+    float conv shape of yolov3-416 under -bf16."""
+    dev = torch.device("cuda")
+    spec = parse_network_cfg(CFG, batch=1, echo_table=False)
+    shapes = sorted({(l.h, l.w, l.c, l.n, l.size, l.stride, l.pad)
+                     for l in spec.conv_layers()})
+    worst_abs = worst_rel = 0.0
+    for i, (h, w, c, n, ks, s, pad) in enumerate(shapes):
+        rng = np.random.RandomState(SEED + i)
+        x = torch.from_numpy(rng.rand(1, h, w, c).astype(np.float32)).to(dev)
+        wt = torch.from_numpy((rng.randn(n, c, ks, ks) / np.sqrt(c * ks * ks)
+                               ).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+        y = layers.conv2d_fp32(x, wt.to(torch.bfloat16), bias, s, pad,
+                               "linear", compute_dtype=torch.bfloat16)
+        up = torch.nn.functional.conv2d(
+            x.to(torch.bfloat16).float().permute(0, 3, 1, 2),
+            wt.to(torch.bfloat16).float(), stride=s, padding=pad).permute(
+                0, 2, 3, 1) + bias
+        d = float((y - up).abs().max())
+        worst_abs = max(worst_abs, d)
+        worst_rel = max(worst_rel, d / float(up.abs().max()))
+    say("precision", f"-bf16 on the card: cuDNN's bfloat16 conv against the "
+        f"float32 conv of the same bfloat16 operands at yolov3's "
+        f"{len(shapes)} float conv shapes: largest difference {worst_abs:.3g}"
+        f" ({worst_rel:.3g} of the largest output), the bfloat16 rounding of "
+        "the sum")
+    return {"shapes": len(shapes), "max_abs_diff": worst_abs,
+            "max_rel_diff": worst_rel}
+
+
+def phase_precision(tmp: str, weights: str, names_file: str,
+                    names: list) -> dict:
+    """``detector test`` through the CLI in each precision mode: the
+    launches of one forward, head maps and detection lines of the kernel
+    path equal to the plain path's, and the warm b=1 forward."""
+    xnor_weights = os.path.join(tmp, "tiny-yolo-obj_xnor.weights")
+    voc = [f"class_{i:02d}" for i in range(VOC_CLASSES)]
+    voc_file = os.path.join(tmp, "voc20.names")
+    forms: collections.Counter = collections.Counter()
+    runs = {}
+    for name, (cfg, flags, kw, expect, no_pre) in PRECISION_RUNS.items():
+        yolo = cfg == CFG
+        thresh = THRESH if yolo else XNOR_THRESH
+        wfile, nfile, nlist = ((weights, names_file, names) if yolo
+                               else (xnor_weights, voc_file, voc))
+        quantized = "-quantized" in flags
+        int8_conv.reset_launch_counts()
+        rc, out, _ = run_cli(["detector", "test", nfile, cfg, wfile, IMAGE,
+                              "-dont_show", "-thresh", thresh, "-save",
+                              os.path.join(tmp, "pred_precision")] + flags)
+        launches = {k: v for k, v in int8_conv.LAUNCH_COUNTS.items() if v}
+        pre = {k: v for k, v in int8_conv.PRE_LAUNCHES.items() if v}
+        run_forms = {k: v for k, v in int8_conv.FORM_LAUNCHES.items() if v}
+        forms.update(run_forms)
+        check(rc == 0, f"detector test {' '.join(flags)} exited {rc}")
+        check(launches == expect, f"{name}: launches {launches} in one "
+              f"forward, expected {expect}")
+        if no_pre:
+            check(not pre, f"{name}: launches in front of the int8 convs: "
+                  f"{pre}")
+        text = detection_text(out)
+
+        spec, params, mode = detect.build_params(cfg, wfile,
+                                                 quantized=quantized,
+                                                 echo=False)
+        plain_impl = ("fused_plain" if kw.get("int8_impl") == "fused"
+                      else "plain")
+        kernel = network.Predictor(spec, params, mode, device="cuda", **kw)
+        plain = network.Predictor(spec, params, mode, device="cuda",
+                                  **dict(kw, int8_impl=plain_impl))
+        x = np.random.RandomState(SEED).rand(1, 416, 416, 3).astype(
+            np.float32)
+        hk, hp = kernel(x), plain(x)
+        (check_heads if yolo else check_region_heads)(hk, name)
+        for a, b in zip(hk, hp):
+            check(a.data.dtype == torch.float32
+                  and torch.equal(a.data, b.data),
+                  f"{name} head {a.index}: kernel path != plain path")
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            plain_text = detect.run(
+                nlist, cfg, wfile, IMAGE, thresh=float(thresh),
+                quantized=quantized,
+                save_path=os.path.join(tmp, "pred_precision_plain"),
+                device="cuda", **dict(kw, int8_impl=plain_impl))
+        check_same_lines(text, plain_text.rstrip("\n"),
+                         f"{name}: detection lines of the kernel and the "
+                         "plain path")
+        ms = forward_ms(kernel, x)
+        runs[name] = {"launches": launches, "pre_launches": pre,
+                      "forms": run_forms,
+                      "detection_lines": len(text.splitlines()),
+                      "forward_ms": ms}
+        say("precision", f"CLI {' '.join(flags)} on {os.path.basename(cfg)}"
+            f": launches in one forward {launches}, K1 forms "
+            f"{runs[name]['forms']}, in front of the int8 convs "
+            f"{pre or 'none'}; {len(text.splitlines())} detection lines; "
+            f"heads and lines of the kernel and the plain path equal; warm "
+            f"b=1 forward {ms:.3f} ms (median, host clock, synchronised)")
+        del kernel, plain
+    for form in K1_PATH_FORMS:
+        check(forms[form] > 0, f"K1 {form} was not launched by phase 9")
+    return {"runs": runs, "form_launches": dict(forms),
+            "bf16_conv": bf16_conv_diff()}
+
+
 def main() -> int:
     smi_line = phase_device()
     phase_build()
@@ -1329,6 +1622,8 @@ def main() -> int:
         xnor_rows = phase_xnor_kernels()
         xnor_launches = phase_xnor(tmp)
         piped = phase_pipeline(tmp)
+        form_rows = phase_precision_kernels()
+        precision = phase_precision(tmp, weights, names_file, names)
     k1 = {
         "kernel": "int8_conv", "route": "cuda", "source": KERNEL_SOURCE,
         "launches": launches,
@@ -1388,7 +1683,23 @@ def main() -> int:
                         "dense_ms": r["dense_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"]}
                        for r in xnor_rows]})
+    # K1's forms on the precision modes' main path: the same kernel and TPU
+    # kernel as K1's row, its launches in those forms
+    for form, what in K1_PATH_FORMS.items():
+        shapes = form_rows[form]
+        kernels.append({
+            "name": f"conv3x3_int8_tiled [{form}]", "kernel": "int8_conv",
+            "form": form, "what": what, "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "launches": precision["form_launches"][form],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": sum(r["ms"] for r in shapes),
+            "plain_ms": sum(r["plain_ms"] for r in shapes),
+            **row_bound(shapes),
+            "library_ms": sum(r["library_ms"] for r in shapes),
+            "library": k1["library"], "shapes": shapes})
     print(json.dumps({"pipeline": piped}), flush=True)
+    print(json.dumps({"precision": precision}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

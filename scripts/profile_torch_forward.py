@@ -3,9 +3,13 @@
 Profiles warm b=1 forwards with the input already on the device, random
 weights from ``--seed``: yolov3-416 (``tests/data/yolov3.cfg``) in int8
 (``-quantized``, cpu policy; ``int8-fused`` adds ``-int8_impl fused``) and
-fp32, and tiny-yolo-obj_xnor-416 (``tests/data/tiny-yolo-obj_xnor.cfg``) in
-each ``-xnor_kernel`` engine (``xnor-int8``, ``xnor-pallas``,
-``xnor-pallas_mxu``, ``xnor-auto``). Prints per mode: host wall time per forward (CUDA-synchronised,
+fp32, and in the precision modes (``int8-gpu``: ``-int8_policy gpu``;
+``int8-turbo``, ``int8-turbo_int8``, ``int8-turbo_int8-fused``,
+``int8-bf16``, ``bf16``), and tiny-yolo-obj_xnor-416
+(``tests/data/tiny-yolo-obj_xnor.cfg``) in each ``-xnor_kernel`` engine
+(``xnor-int8``, ``xnor-pallas``, ``xnor-pallas_mxu``, ``xnor-auto``) and
+under ``-turbo`` with ``pallas_mxu`` (``xnor-pallas_mxu-turbo``). Prints
+per mode: host wall time per forward (CUDA-synchronised,
 profiler off), device busy time per forward (sum of GPU kernel and copy time
 under ``torch.profiler``), their ratio, the device operations per forward,
 the device time of the largest kernels, and the port's hand-written kernels
@@ -39,12 +43,21 @@ from yolo2_light_tpu_torch.params import save_random_weights  # noqa: E402
 CFG = os.path.join(ROOT, "tests", "data", "yolov3.cfg")
 XNOR_CFG = os.path.join(ROOT, "tests", "data", "tiny-yolo-obj_xnor.cfg")
 
-# name: (cfg, mode, int8_impl, xnor_impl)
-MODES = {"int8": (CFG, "int8", "xla", "int8"),
-         "int8-fused": (CFG, "int8", "fused", "int8"),
-         "fp32": (CFG, "fp32", "xla", "int8")}
-MODES.update({f"xnor-{eng}": (XNOR_CFG, "fp32", "xla", eng)
+# name: (cfg, mode, Predictor keywords)
+MODES = {"int8": (CFG, "int8", {}),
+         "int8-fused": (CFG, "int8", {"int8_impl": "fused"}),
+         "fp32": (CFG, "fp32", {}),
+         "int8-gpu": (CFG, "int8", {"int8_policy": "gpu"}),
+         "int8-turbo": (CFG, "int8", {"turbo": True}),
+         "int8-turbo_int8": (CFG, "int8", {"turbo": "int8"}),
+         "int8-turbo_int8-fused": (CFG, "int8", {"turbo": "int8",
+                                                 "int8_impl": "fused"}),
+         "int8-bf16": (CFG, "int8", {"compute_dtype": torch.bfloat16}),
+         "bf16": (CFG, "fp32", {"compute_dtype": torch.bfloat16})}
+MODES.update({f"xnor-{eng}": (XNOR_CFG, "fp32", {"xnor_impl": eng})
               for eng in ("int8", "pallas", "pallas_mxu", "auto")})
+MODES["xnor-pallas_mxu-turbo"] = (XNOR_CFG, "fp32", {"xnor_impl": "pallas_mxu",
+                                                     "turbo": True})
 # the kernels of yolo2_light_tpu_torch/csrc, as the profiler names them
 HAND_KERNELS = ("int8_conv_kernel", "fused_res_kernel", "xnor_popcount_kernel",
                 "xnor_mma_kernel")
@@ -52,11 +65,10 @@ HAND_KERNELS = ("int8_conv_kernel", "fused_res_kernel", "xnor_popcount_kernel",
 
 def profile_mode(weights: str, name: str, seed: int, iters: int,
                  top: int = 8) -> None:
-    cfg, mode, int8_impl, xnor_impl = MODES[name]
+    cfg, mode, kw = MODES[name]
     spec, params, _ = build_params(cfg, weights, quantized=mode == "int8",
                                    echo=False)
-    pred = Predictor(spec, params, mode, device="cuda", int8_impl=int8_impl,
-                     xnor_impl=xnor_impl)
+    pred = Predictor(spec, params, mode, device="cuda", **kw)
     x = torch.from_numpy(np.random.RandomState(seed).rand(
         1, spec.net.h, spec.net.w, spec.net.c).astype(np.float32)).cuda()
     for _ in range(5):

@@ -2,8 +2,9 @@
 
 Runs ``pipeline.DetectionPipeline`` (device NMS, detector map's thresh 0.005,
 nms 0.45 and K 1024) on 640x480 uint8 frames resized on the card, at b=1 and
-b=8: yolov3-416 int8 (``xla`` and ``fused``) and fp32, and
-tiny-yolo-obj_xnor-416 ``pallas_mxu`` and ``pallas``. Random weights from
+b=8: each mode of ``chip_smoke.PIPE_MODES`` (yolov3-416 int8 ``xla`` and
+``fused``, fp32 and the precision modes, tiny-yolo-obj_xnor-416
+``pallas_mxu`` and ``pallas``). Random weights from
 ``--seed`` with the head objectness bias ``chip_smoke.calibrate_obj_bias``
 picks per mode (about 300 live candidates a frame). Prints per mode and batch the device time of
 one replay of the captured graph and of each stage run alone (ingest and

@@ -1,7 +1,9 @@
 """``python -m yolo2_light_tpu_torch detector test`` against the JAX CLI: the
 same cfg, weights and image must print the same streams, detection lines
-included, fp32 and -quantized (on the CPU, the port runs its plain PyTorch
-kernels). Only the "Predicted in <seconds>" timing line is dropped."""
+included, fp32 and -quantized, and in the precision modes (``-int8_policy
+gpu``, ``-turbo``, ``-turbo_int8``, ``-bf16``; on the CPU, the port runs its
+plain PyTorch kernels). Only the "Predicted in <seconds>" timing line is
+dropped."""
 
 import os
 import subprocess
@@ -106,6 +108,46 @@ def test_int8_impl_fused_streams_match_jax_cli(capsys, tmp_path):
     assert_streams_match(err_t, err_j, drop=drop, context="stderr")
 
 
+@pytest.mark.parametrize("flags,thresh", [
+    (["-quantized", "-int8_policy", "gpu"], "0.1"),
+    (["-quantized", "-turbo"], "0.1"),
+    (["-quantized", "-turbo_int8"], "0.1"),
+    (["-bf16"], "0.3"),
+], ids=["int8_gpu", "int8_turbo", "int8_turbo_int8", "bf16"])
+def test_precision_modes_stream_match_jax_cli(assets, capsys, flags, thresh):
+    """The precision modes print the JAX CLI's streams, detection lines
+    included."""
+    d, names, weights = assets
+    args = ["detector", "test", names, CFG, weights, IMAGE, "-thresh", thresh,
+            "-dont_show"] + flags
+    rc_j, out_j, err_j = _run(jax_main, capsys,
+                              args + ["-save", str(d / "jax")])
+    rc_t, out_t, err_t = _run(torch_main, capsys,
+                              args + ["-save", str(d / "torch"),
+                                      "-device", "cpu"])
+    assert rc_j == rc_t == 0, err_t[-2000:]
+    assert len(parse_detection_lines(out_t)[0]) >= 10
+    drop = ("Predicted in",)
+    assert_streams_match(out_t, out_j, drop=drop, context="stdout")
+    assert_streams_match(err_t, err_j, drop=drop, context="stderr")
+
+
+@pytest.mark.parametrize("flags", [["-quantized", "-turbo", "-turbo_int8"],
+                                   ["-turbo_int8"]],
+                         ids=["both_turbos", "turbo_int8_without_int8"])
+def test_turbo_flag_guards_match_jax_cli(assets, capsys, flags):
+    """-turbo with -turbo_int8, and -turbo_int8 without -quantized, exit 1
+    with the JAX CLI's message."""
+    d, names, weights = assets
+    args = ["detector", "test", names, CFG, weights, IMAGE, "-dont_show",
+            "-save", str(d / "g")] + flags
+    rc_j, out_j, err_j = _run(jax_main, capsys, args)
+    rc_t, out_t, err_t = _run(torch_main, capsys, args + ["-device", "cpu"])
+    assert rc_j == rc_t == 1
+    assert err_t == err_j and err_t.startswith("error: -turbo")
+    assert out_t == out_j == ""
+
+
 @pytest.mark.parametrize("sub", ["calibrate", "demo"])
 def test_other_apps_not_yet_ported(capsys, sub):
     rc, _, err = _run(torch_main, capsys,
@@ -113,8 +155,8 @@ def test_other_apps_not_yet_ported(capsys, sub):
     assert rc != 0 and "not yet ported" in err
 
 
-@pytest.mark.parametrize("flag", [["-bf16"], ["-turbo"], ["-pp", "2"],
-                                  ["-int8_policy", "gpu", "-quantized"]])
+@pytest.mark.parametrize("flag", [["-device_resize"], ["-uint8_ingest"],
+                                  ["-pp", "2"], ["-no_uint8_ingest"]])
 def test_unported_flags_exit_nonzero(assets, capsys, flag):
     d, names, weights = assets
     rc, _, err = _run(torch_main, capsys,

@@ -820,3 +820,150 @@ def test_pipeline_without_cuda_raises():
                                       None, echo=False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DetectionPipeline(spec, params, mode)
+
+
+# ---------------------------------------------------------------------------
+# the precision modes: K1's epilogues, input forms and stores, and the modes'
+# forwards and graphs
+# ---------------------------------------------------------------------------
+
+# (input form, semantics, store): the network's forms under -turbo (bf16 in,
+# bf16 out), -turbo_int8 (int8 store; int8 input from the chain), -int8_policy
+# gpu and -bf16, and their mixtures
+K1_FORMS = [("bf16", "cpu", "bf16"), ("bf16", "cpu", "f32"),
+            ("f32", "cpu", "bf16"), ("f32", "cpu", "int8"),
+            ("int8", "cpu", "int8"), ("int8", "cpu", "bf16"),
+            ("f32", "gpu", "f32"), ("int8", "gpu", "f32"),
+            ("bf16", "gpu", "bf16"), ("f32", "gpu", "int8")]
+_DT = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+@pytest.mark.parametrize("form", K1_FORMS, ids="-".join)
+@pytest.mark.parametrize("shape", YOLOV3_CLASSES + RAGGED,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_forms_bit_identical_to_plain(dev, shape, form):
+    """Each new form of K1 against its plain twin (quantize of the upcast
+    input, exact accumulator, the semantics' epilogue, the store), on the
+    card and on the CPU, at yolov3-416's 15 int8 classes and ragged shapes
+    (M % 4 != 0 takes the element stores, C % 8 != 0 the bf16 loader's
+    unaligned rows)."""
+    x_form, semantics, store = form
+    b, h, w, c, m, ks, stride, pad = shape
+    x, wt, bias = _f32_operands(dev, h * c + m + len(x_form), b, h, w, c, m,
+                                ks)
+    scale = K.alpha_f32(40.0, 16.0, 32 if semantics == "cpu" else 1)
+    kw = dict(semantics=semantics, out_dtype=_DT[store],
+              out_mult=1.7 if store == "int8" else None)
+    for activation in ("leaky", "linear"):
+        K.reset_launch_counts()
+        if x_form == "int8":
+            xi = K.quantize_i8(x, 40.0)
+            out = K.conv2d_int8_cuda(xi, wt, bias, scale, stride, pad,
+                                     activation, **kw)
+            ref = K.conv2d_int8_plain(xi, wt, bias, scale, stride, pad,
+                                      activation, **kw)
+            cpu = K.conv2d_int8_plain(xi.cpu(), wt.cpu(), bias.cpu(), scale,
+                                      stride, pad, activation, **kw)
+        else:
+            xi = x.to(_DT[x_form])
+            out = K.conv2d_int8_f32_cuda(xi, wt, bias, 40.0, scale, stride,
+                                         pad, activation, **kw)
+            ref = K.conv2d_int8_f32_plain(xi, wt, bias, 40.0, scale, stride,
+                                          pad, activation, **kw)
+            cpu = K.conv2d_int8_f32_plain(xi.cpu(), wt.cpu(), bias.cpu(),
+                                          40.0, scale, stride, pad,
+                                          activation, **kw)
+        assert K.FORM_LAUNCHES == {"/".join(form): 1}
+        torch.cuda.synchronize()
+        assert out.dtype == _DT[store] and out.shape == ref.shape
+        assert torch.equal(out, ref), activation
+        assert torch.equal(out.cpu(), cpu), activation
+
+
+def test_k1_refuses_a_bf16_map_at_its_int8_entry(dev):
+    x, wt, bias = _f32_operands(dev, 0, 1, 4, 4, 8, 8, 3)
+    with pytest.raises(TypeError, match="int8"):
+        K.conv2d_int8_cuda(x.to(torch.bfloat16), wt, bias, 0.05, 1, 1)
+    with pytest.raises(TypeError, match="store"):
+        K.conv2d_int8_f32_cuda(x, wt, bias, 40.0, 0.05, 1, 1,
+                               out_dtype=torch.float16)
+
+
+# name: (cfg, mode, keywords, int8 convs a forward launches K1 for)
+PRECISION_MODES = {
+    "gpu": ("mini-yolo3", "int8", dict(int8_policy="gpu")),
+    "turbo": ("mini-yolo3", "int8", dict(turbo=True)),
+    "turbo-fp32": ("mini-yolo3", "fp32", dict(turbo=True)),
+    "turbo_int8": ("mini-res", "int8", dict(turbo="int8")),
+    "turbo_int8-fused": ("mini-res", "int8",
+                         dict(turbo="int8", int8_impl="fused")),
+    "bf16": ("mini-yolo3", "fp32", dict(compute_dtype=torch.bfloat16)),
+    "bf16-int8": ("mini-res", "int8", dict(compute_dtype=torch.bfloat16)),
+    "turbo-xnor": ("mini-xnor", "fp32", dict(turbo=True,
+                                             xnor_impl="pallas_mxu")),
+}
+
+
+@pytest.mark.parametrize("name", list(PRECISION_MODES))
+def test_precision_mode_kernel_path_equals_plain_path(dev, name):
+    """Each mode's kernel path on the card against its plain path on the
+    card, head for head, bit for bit; under -turbo in int8 mode K1 reads
+    and stores bf16 with nothing launched in front of it."""
+    from yolo2_light_tpu_torch.models import network as TN
+    cfg, mode, kw = PRECISION_MODES[name]
+    spec, params, _ = build_params(os.path.join(DATA, f"{cfg}.cfg"), None,
+                                   quantized=mode == "int8", echo=False)
+    x = np.random.RandomState(2).rand(2, spec.net.h, spec.net.w,
+                                      3).astype(np.float32)
+    kernel = Predictor(spec, params, mode, device=dev, **kw)
+    plain_impl = ("fused_plain" if kw.get("int8_impl") == "fused"
+                  else "plain")
+    plain = Predictor(spec, params, mode, device=dev, **dict(
+        kw, int8_impl=plain_impl))
+    K.reset_launch_counts()
+    hk = kernel(x)
+    torch.cuda.synchronize()
+    launches, pre = dict(K.LAUNCH_COUNTS), dict(K.PRE_LAUNCHES)
+    for a, b in zip(hk, plain(x)):
+        assert a.data.dtype == torch.float32
+        assert torch.equal(a.data, b.data), a.index
+    if mode == "int8" and kw.get("int8_impl") != "fused":
+        policy = kw.get("int8_policy", "cpu")
+        assert launches["int8_conv"] == len(TN._int8_layer_set(spec, policy))
+    if name == "turbo":
+        assert not any(pre.values()), pre
+        assert set(K.FORM_LAUNCHES) == {"bf16/cpu/bf16"}
+
+
+@pytest.mark.parametrize("name", ["gpu", "turbo", "turbo_int8", "bf16"])
+def test_pipeline_graph_replay_equals_eager_in_precision_modes(dev, name):
+    """The captured graph of each mode gives its eager program's packed
+    buffer bit for bit, on new frames too."""
+    cfg, mode, kw = PRECISION_MODES[name]
+    spec, graphed, eager = _pipelines(dev, cfg, mode == "int8", kw,
+                                      device_nms=True)
+    rng = np.random.RandomState(3)
+    for i in range(3):
+        x = (rng.rand(2, 96, 128, 3) * 255).astype(np.uint8)
+        a, b = graphed.raw(x), eager.raw(x)
+        assert a.dtype == torch.float32
+        assert torch.equal(_bits(a), _bits(b)), i
+    assert len(graphed._graphs) == 1
+
+
+def test_bf16_conv_does_not_depend_on_the_input_layout(dev):
+    """cuDNN picks a bfloat16 conv's algorithm by the input's memory layout
+    and rounds that algorithm's sum: the float conv takes an NCHW-strided
+    map (a plain twin's output) as the same map laid out NHWC."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(1, 64, 13, 13).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.randn(255, 64, 1, 1).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    b = torch.zeros(255, device=dev)
+    strided = x.permute(0, 2, 3, 1)                 # NHWC view of NCHW
+    dense = strided.contiguous()
+    a = L.conv2d_fp32(strided, w, b, 1, 0, "linear",
+                      compute_dtype=torch.bfloat16)
+    c = L.conv2d_fp32(dense, w, b, 1, 0, "linear",
+                      compute_dtype=torch.bfloat16)
+    assert torch.equal(a, c)

@@ -159,9 +159,21 @@ def test_fused_predictor_matches_jax_fused(tmp_path, name):
 
 
 def test_gpu_policy_stays_unported_with_fused():
-    _, tspec = _specs(MINI_RES)
-    with pytest.raises(NotImplementedError, match="int8_policy gpu"):
-        TN.build_forward(tspec, "int8", int8_policy="gpu", int8_impl="fused")
+    """The fused kernel implements the cpu requant only: under the gpu
+    policy ``-int8_impl fused`` fuses nothing (JAX network.py:319-321), and
+    its forward is the xla engine's, which matches JAX's."""
+    spec, tspec = _specs(MINI_RES)
+    params = _params(spec, "int8")
+    x = np.random.RandomState(1).rand(1, 32, 32, 3).astype(np.float32)
+    a = Predictor(tspec, params, "int8", device="cpu", int8_policy="gpu",
+                  int8_impl="fused")(x)
+    b = Predictor(tspec, params, "int8", device="cpu", int8_policy="gpu")(x)
+    ref = JN.Predictor(spec, params, "int8", int8_policy="gpu",
+                       int8_impl="fused")(x)
+    for o, p, r in zip(a, b, ref):
+        assert torch.equal(o.data, p.data)
+        np.testing.assert_allclose(o.data.numpy(), np.asarray(r.data),
+                                   rtol=1e-4, atol=1e-5)
 
 
 def test_fused_in_fp32_mode_runs_the_fp32_path():

@@ -217,9 +217,9 @@ def test_conv2d_int8_hands_the_kernel_dense_nhwc(monkeypatch):
     from yolo2_light_tpu_torch.ops import int8_conv
     seen = []
 
-    def record(xf, *args):
+    def record(xf, *args, **store):
         seen.append(xf.is_contiguous())
-        return int8_conv.conv2d_int8_f32_plain(xf, *args)
+        return int8_conv.conv2d_int8_f32_plain(xf, *args, **store)
 
     monkeypatch.setattr(int8_conv, "conv2d_int8_f32", record)
     x = torch.rand(1, 8, 6, 5).permute(0, 2, 3, 1)      # NHWC view of NCHW

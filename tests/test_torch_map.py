@@ -76,8 +76,9 @@ def _progress(err):
     return [l for l in err.splitlines() if l.strip().isdigit()]
 
 
-@pytest.mark.parametrize("extra", [[], ["-quantized"], ["-device_nms"]],
-                         ids=["fp32", "int8", "device_nms"])
+@pytest.mark.parametrize("extra", [[], ["-quantized"], ["-device_nms"],
+                                   ["-quantized", "-turbo"]],
+                         ids=["fp32", "int8", "device_nms", "int8_turbo"])
 def test_map_report_matches_jax_cli(dataset, capsys, extra):
     args = ["detector", "map", dataset["data"], CFG, dataset["weights"],
             "-thresh", "0.24", "-batch", "3", "-k", "4096"] + extra
@@ -123,7 +124,8 @@ def test_map_without_cuda_fails_with_a_message(dataset, capsys):
 
 
 @pytest.mark.parametrize("flag", [["-pp", "2"], ["-parallel", "2"],
-                                  ["-turbo"], ["-params_cache", "/tmp/x"]])
+                                  ["-device_resize"],
+                                  ["-params_cache", "/tmp/x"]])
 def test_map_unported_flags_exit_nonzero(dataset, capsys, flag):
     rc, _, err = _run(torch_main, capsys,
                       ["detector", "map", dataset["data"], CFG,

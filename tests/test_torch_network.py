@@ -134,18 +134,24 @@ def test_int8_layer_set_and_consumers_match_jax():
         assert TN._consumers(tspec) == JN._consumers(spec)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(mode="int8", int8_impl="fused", int8_policy="gpu"),
-     "int8_policy gpu"),
-    (dict(mode="int8", int8_policy="gpu"), "int8_policy gpu"),
-    (dict(mode="int8", int8_policy="cpu_old"), "int8_policy cpu_old"),
-    (dict(mode="fp32", turbo=True), "turbo"),
-    (dict(mode="int8", turbo="int8"), "turbo"),
-    (dict(mode="fp32", compute_dtype=torch.bfloat16), "bf16"),
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(mode="int8", int8_impl="fused", int8_policy="cpu_old"),
+     NotImplementedError, "int8_policy cpu_old"),
+    (dict(mode="int8", turbo="int4"), ValueError, "unknown turbo mode"),
+    (dict(mode="int8", int8_policy="cpu_old"), NotImplementedError,
+     "int8_policy cpu_old"),
+    (dict(mode="fp32", turbo="fp8"), ValueError, "unknown turbo mode"),
+    (dict(mode="fp32", turbo="int8"), ValueError, "requires int8 mode"),
+    (dict(mode="fp32", compute_dtype=torch.float16), ValueError,
+     "compute dtype"),
 ])
-def test_unported_modes_raise(kwargs, match):
+def test_unported_modes_raise(kwargs, error, match):
+    """``cpu_old`` is not ported (ROADMAP Queue 1); the other cases are the
+    JAX package's mode gates (tests/test_turbo_int8.py::test_mode_gates):
+    an unknown turbo mode, turbo_int8 outside int8 mode, a compute dtype
+    other than float32 and bfloat16."""
     spec = TC.parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         TN.build_forward(spec, **kwargs)
 
 

@@ -466,7 +466,7 @@ def test_pipeline_refuses_what_is_not_ported(tmp_path):
     spec, params, mode = build_params(os.path.join(DATA, "mini-yolo3.cfg"),
                                       None, echo=False)
     for kw, item in (({"mesh": object()}, "#12"), ({"pp_stages": 2}, "#12"),
-                     ({"turbo": True}, "#6"),
-                     ({"compute_dtype": torch.bfloat16}, "#6")):
+                     ({"pp_tp": 2}, "#12"),
+                     ({"pp_stages": 2, "pp_tp": 2}, "#12")):
         with pytest.raises(NotImplementedError, match=item):
             DetectionPipeline(spec, params, mode, device="cpu", **kw)

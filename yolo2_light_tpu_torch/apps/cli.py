@@ -4,10 +4,12 @@
     python -m yolo2_light_tpu_torch detector test <names> <cfg> [weights] [image]
         [-thresh T] [-dont_show] [-quantized] [-int8_impl xla|pallas|fused]
         [-xnor_kernel int8|pallas|pallas_mxu|auto] [-letterbox] [-save PATH]
-        [-int8_policy cpu] [-device cuda|cpu]
+        [-int8_policy cpu|gpu] [-bf16|-fp32] [-turbo|-turbo_int8]
+        [-device cuda|cpu]
     python -m yolo2_light_tpu_torch detector map <datacfg> <cfg> [weights]
         [-thresh T] [-iou_thresh F] [-quantized] [-int8_impl xla|pallas|fused]
-        [-batch N] [-k N] [-device_nms] [-int8_policy cpu] [-device cuda|cpu]
+        [-batch N] [-k N] [-device_nms] [-int8_policy cpu|gpu] [-bf16|-fp32]
+        [-turbo|-turbo_int8] [-device cuda|cpu]
 
 ``-int8_impl fused`` runs each darknet53 residual block as one launch of the
 fused kernel; ``xla`` and ``pallas`` run every int8 conv on the int8 conv
@@ -19,17 +21,26 @@ graph per batch shape): ``-batch N`` images a batch (default 8), ``-k N`` the
 initial candidate buffer (default 1024; a saturated buffer grows to the
 net's total candidate count, or 4096 with ``-device_nms``), ``-device_nms``
 the exact greedy NMS on the device. ``-device`` defaults to ``cuda``; ``cpu``
-runs the plain PyTorch versions of the kernels. ``calibrate`` and ``demo``,
-and the JAX CLI's other flags, are not yet ported: they exit non-zero and say
-so.
+runs the plain PyTorch versions of the kernels.
+
+Precision modes, as the JAX CLI's: ``-int8_policy gpu`` (with
+``-quantized``) runs the reference's cuDNN INT8x4 flavor on the int8 conv
+kernel (only the convs with the cfg's ``quantized`` flag are int8; no
+requant, 0.1*y leaky); ``-bf16`` runs the float convs in bfloat16 (``-fp32``
+is the default float32); ``-turbo`` materializes the activations between
+layers as bfloat16 and ``-turbo_int8`` (with ``-quantized`` only) the
+residual trunk as int8, both TPU-native extensions of the JAX package, not
+reference semantics. ``-turbo`` and ``-turbo_int8`` together exit 1.
+``calibrate`` and ``demo``, and the JAX CLI's other flags (``-device_resize``
+and ``-uint8_ingest``/``-no_uint8_ingest`` are demo flags), are not yet
+ported: they exit non-zero and say so.
 """
 
 from __future__ import annotations
 
 import sys
 
-_NOT_PORTED_FLAGS = ("-bf16", "-fp32", "-turbo", "-turbo_int8",
-                     "-device_resize", "-uint8_ingest", "-no_uint8_ingest")
+_NOT_PORTED_FLAGS = ("-device_resize", "-uint8_ingest", "-no_uint8_ingest")
 _NOT_PORTED_VALUES = ("-pp", "-pp_tp", "-parallel", "-tp",
                       "-sp", "-params_cache", "-profile", "-i",
                       "-c", "-s", "-prefix", "-out_filename",
@@ -80,7 +91,22 @@ def _main(argv=None) -> int:
                 f"{flag} is not yet ported to yolo2_light_tpu_torch")
 
     dont_show = _find_flag(args, "-dont_show")
+    bf16 = _find_flag(args, "-bf16")
+    _find_flag(args, "-fp32")   # float32 convs: the default of test and map
+    turbo = _find_flag(args, "-turbo")
+    turbo_int8 = _find_flag(args, "-turbo_int8")
+    if turbo and turbo_int8:
+        print("error: -turbo and -turbo_int8 are mutually exclusive (bf16 "
+              "vs int8 residual materialization)", file=sys.stderr)
+        return 1
+    if turbo_int8:
+        turbo = "int8"   # the rung below -turbo: int8 residual trunk
     quantized = _find_flag(args, "-quantized")
+    if turbo_int8 and not quantized:
+        print("error: -turbo_int8 requires -quantized (the residual trunk "
+              "quantizes at the int8 convs' calibrated input multipliers)",
+              file=sys.stderr)
+        return 1
     letterbox = _find_flag(args, "-letterbox")
     thresh = _find_value(args, "-thresh", 0.25, float)
     iou_thresh = _find_value(args, "-iou_thresh", 0.5, float)
@@ -124,8 +150,9 @@ def _main(argv=None) -> int:
     if cfg is None:
         print("error: missing cfg file", file=sys.stderr)
         return 1
+    import torch
+    compute_dtype = torch.bfloat16 if bf16 else None
     if device == "cuda":
-        import torch
         if not torch.cuda.is_available():
             print("error: CUDA is not available; pass -device cpu to run the "
                   "plain PyTorch path", file=sys.stderr)
@@ -141,7 +168,8 @@ def _main(argv=None) -> int:
         validate_detector_map(obj_names, cfg, weights, thresh=thresh,
                               quantized=quantized, iou_thresh=iou_thresh,
                               int8_policy=int8_policy, device_nms=device_nms,
-                              int8_impl=int8_impl, device=device, **kw)
+                              int8_impl=int8_impl, device=device,
+                              compute_dtype=compute_dtype, turbo=turbo, **kw)
         return 0
     from ..datacfg import load_names
     from .detect import run
@@ -149,7 +177,7 @@ def _main(argv=None) -> int:
     run(names, cfg, weights, filename, thresh=thresh, quantized=quantized,
         dont_show=dont_show, int8_policy=int8_policy, save_path=save_path,
         letter=letterbox, int8_impl=int8_impl, xnor_impl=xnor_kernel,
-        device=device)
+        device=device, compute_dtype=compute_dtype, turbo=turbo)
     return 0
 
 

@@ -12,6 +12,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from ..cfg import ConvSpec, SoftmaxSpec, parse_network_cfg
 from ..io import image as im_io
@@ -46,12 +47,17 @@ def build_params(cfgfile: str, weightfile, quantized: bool = False,
 
 def build_predictor(cfgfile: str, weightfile, quantized: bool = False,
                     int8_policy: str = "cpu", int8_impl: str = "xla",
-                    xnor_impl: str = "int8", device="cuda"):
+                    xnor_impl: str = "int8", device="cuda",
+                    compute_dtype=None, turbo=False):
+    """``compute_dtype``: None (float32) or torch.bfloat16 (``-bf16``);
+    ``turbo``: False, True (``-turbo``) or "int8" (``-turbo_int8``)."""
     spec, params, mode = build_params(cfgfile, weightfile, quantized,
                                       quant_banner=True)
     pred = Predictor(spec, params, mode, device=device,
                      int8_policy=int8_policy, int8_impl=int8_impl,
-                     xnor_impl=xnor_impl)
+                     xnor_impl=xnor_impl, turbo=turbo,
+                     compute_dtype=(compute_dtype if compute_dtype is not None
+                                    else torch.float32))
     return spec, pred
 
 
@@ -97,13 +103,14 @@ def run(names, cfgfile: str, weightfile, filename, thresh: float = 0.24,
         quantized: bool = False, dont_show: bool = True,
         int8_policy: str = "cpu", save_path: str = "predictions",
         letter: bool = False, int8_impl: str = "xla", xnor_impl: str = "int8",
-        device="cuda") -> str:
+        device="cuda", compute_dtype=None, turbo=False) -> str:
     """Single-image detect; with no filename, loops reading image paths from
     stdin (reference: test_detector_cpu while(1) fgets loop,
     src/main.c:176-186). Returns the last image's detection text."""
     spec, pred = build_predictor(cfgfile, weightfile, quantized,
                                  int8_policy=int8_policy, int8_impl=int8_impl,
-                                 xnor_impl=xnor_impl, device=device)
+                                 xnor_impl=xnor_impl, device=device,
+                                 compute_dtype=compute_dtype, turbo=turbo)
     nms = 0.2 if quantized else 0.4  # reference: src/main.c:174,213
     head_specs = pred.head_specs()
     classes = head_specs[-1].classes if head_specs else 0

@@ -17,6 +17,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from ..datacfg import load_names, read_data_cfg
 from ..eval.map import (MapAccumulator, format_map_report, label_path_for,
@@ -36,7 +37,8 @@ def validate_detector_map(datacfg: str, cfgfile: str, weightfile, *,
                           iou_thresh: float = 0.5, int8_policy: str = "cpu",
                           batch: int = 8, nthreads: int = 4, k: int = 1024,
                           device_nms: bool = False, int8_impl: str = "xla",
-                          device="cuda") -> dict:
+                          device="cuda", compute_dtype=None,
+                          turbo=False) -> dict:
     options = read_data_cfg(datacfg)
     valid_images = options.get("valid", "data/train.txt")
     difficult_images = options.get("difficult")
@@ -48,7 +50,10 @@ def validate_detector_map(datacfg: str, cfgfile: str, weightfile, *,
     spec, params, mode = build_params(cfgfile, weightfile, quantized=quantized)
     pipe = DetectionPipeline(spec, params, mode, thresh=0.005, nms=0.45, k=k,
                              int8_policy=int8_policy, device_nms=device_nms,
-                             int8_impl=int8_impl, device=device)
+                             int8_impl=int8_impl, device=device, turbo=turbo,
+                             compute_dtype=(compute_dtype
+                                            if compute_dtype is not None
+                                            else torch.float32))
     classes = pipe.classes
 
     with open(valid_images) as f:

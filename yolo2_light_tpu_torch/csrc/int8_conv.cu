@@ -1,20 +1,27 @@
 // INT8 implicit-GEMM convolution on the tensor cores, with the reference's
-// int8-"cpu" input quantize and requant epilogue fused.
+// input quantize and either of its int8 epilogues fused.
 //
 // Replaces the Pallas kernels yolo2_light_tpu/ops/pallas_int8.py
 // conv3x3_int8_fused (v1) and conv3x3_int8_tiled (v2), and extends them to
 // every int8-eligible conv of a darknet net (any size, stride and pad whose
 // tiles fit in shared memory: sizes 1 to 5 at strides 1 and 2). The function:
 //
-//   xq  = clamp(trunc(x * input_mult), +-127)          (f32-input entry only)
+//   xq  = clamp(trunc(x * input_mult), +-127)      (f32 and bf16 input forms)
 //   acc = sum_{ky,kx,c} xq[b, oy*s-pad+ky, ox*s-pad+kx, c] * w[m, ky, kx, c]
 //         (int8 x int8, int32 accumulation, zero padding of xq)
+//   "cpu" epilogue (the Pallas kernels' function):
 //   q   = clamp(trunc_div(acc, 2^shift), +-32767)
 //   y   = q * alpha + bias[m]                           (two roundings)
 //   y   = y > 0 ? y : y / 10                            (leaky, IEEE division)
+//   "gpu" epilogue (the reference's cuDNN INT8x4 flavor, -int8_policy gpu):
+//   y   = float(acc) * inv + bias[m]                    (two roundings)
+//   y   = y > 0 ? y : 0.1f * y                          (leaky)
+//   store: f32; bf16 (round to nearest even); or int8 at out_mult,
+//   clamp(trunc(y * out_mult), +-127) (the int8 residual trunk's quantize)
 //
-// Layouts: x NHWC (float32 for the f32-input entry, int8 for the int8-input
-// entry that the Pallas signatures use), w [M][ks][ks][C] int8, out NHWC f32.
+// Layouts: x NHWC (float32 or bfloat16 for the float-input forms, int8 for
+// the int8-input form that the Pallas signatures and the int8 chain use),
+// w [M][ks][ks][C] int8, out NHWC in the store's type.
 //
 // What bounds it on an H100: at yolov3-416's shapes (b=1) the least time is
 // the bytes (the f32 input read once, the weights, the f32 output written
@@ -42,22 +49,25 @@
 //   zero-filled by src-size 0. Int8 rows are padded to an odd number of
 //   16-byte units, so ldmatrix is free of bank conflicts. One __syncthreads
 //   per slab.
-// * The f32-input entry stages the halo as f32 in its ring. After the
+// * The f32-input form stages the halo as f32 in its ring. After the
 //   current slab's MMAs each thread quantizes, with quantize_pack4, the
 //   16-byte chunks of the next slab that its own copies brought in (so no
 //   barrier stands between the copy and the quantize) into a double buffer
 //   of int8 rows: the input quantize costs no launch and no trip through
 //   device memory, and the f32 loads stay as deep in flight as the weights.
+//   The bf16 form does the same with 8-byte chunks of four bf16 channels,
+//   upcast exactly before the quantize (the JAX package multiplies a bf16
+//   map by a float32 multiplier in float32).
 // * Where tiles alone give fewer than 132 blocks, the host planner
 //   (ops/int8_conv.plan_launch) splits the slabs across a thread-block
 //   cluster of 2-8 blocks; each block stages its int32 partial tile in shared
 //   memory, and every block sums its share of the tile's rows over the
 //   cluster through distributed shared memory and runs the epilogue on them.
 // * The epilogue reads the int32 tile from shared memory, 16 threads per
-//   pixel row (each thread's bias loaded at the start), and stores 16-byte
-//   f32 vectors along M.
-// * __launch_bounds__(256, 3) holds both entries to 80 registers, so three
-//   blocks share an SM where shared memory allows (the f32 entry needed 122).
+//   pixel row (each thread's bias loaded at the start), and stores four
+//   channels at once along M: 16 bytes of f32, 8 of bf16 or 4 of int8.
+// * __launch_bounds__(256, 3) holds every form to 80 registers, so three
+//   blocks share an SM where shared memory allows (the f32 form needed 122).
 //
 // Traps handled here: the epilogue and the quantize (int8_epilogue.cuh) use
 // __fmul_rn/__fadd_rn/__fdiv_rn so nvcc cannot contract q*alpha+bias into an
@@ -87,19 +97,25 @@ constexpr int kKC = 32;         // channels (int8 bytes) per K slab
 constexpr int kArow = kKC + 16; // A row stride in shared memory (3 units)
 constexpr int kTileLd = 72;     // int32 words per row of the epilogue tile
 constexpr int kFrow = kKC * 4;  // f32 row of a slab in shared memory
+constexpr int kHrow = kKC * 2;  // bf16 row of a slab in shared memory
 constexpr int kMaxStages = 4;   // ring stages: weights, halo (int8 or f32)
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxSplit = 8;
 constexpr int kMaxDevices = 64;
 
+// input forms (the kernel's template argument) and stores
+enum { kInI8 = 0, kInF32 = 1, kInBf16 = 2 };
+enum { kStoreF32 = 0, kStoreBf16 = 1, kStoreI8 = 2 };
+
 struct ConvArgs {
-  const void* x;            // f32 or int8 NHWC
+  const void* x;            // int8, f32 or bf16 NHWC
   const int8_t* w;          // [M][ks][ks][C]
   const float* bias;        // [M]
-  float* out;               // [B][OH][OW][M]
+  void* out;                // [B][OH][OW][M] in the store's type
   int B, H, W, C, M, OH, OW, ks, stride, pad;
-  float in_mult, alpha;
-  int shift, leaky;
+  float in_mult, alpha;     // alpha: the "gpu" epilogue's inv
+  int shift, leaky, gpu, store;
+  float out_mult;           // the int8 store's multiplier
   int tile_h, tile_w;       // 0, 0: flat pixel tiles (1x1/s1/p0)
   int halo_h, halo_w, nhr;  // halo rows staged per slab
   int tiles_y, tiles_x;     // spatial tiles per image
@@ -114,15 +130,58 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
   else i8mma::cp_async_wait<2>();
 }
 
-template <bool kF32>
+// Four epilogue values of channels m..m+3 stored at element `o` of the
+// output in the store's type: one 16-, 8- or 4-byte store where M % 4 == 0,
+// else one element at a time up to M.
+__device__ __forceinline__ void store4(const ConvArgs& a, size_t o, int m,
+                                       const float (&y)[4]) {
+  const bool vec = (a.M & 3) == 0;
+  if (a.store == kStoreF32) {
+    float* dst = static_cast<float*>(a.out) + o;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (m + j < a.M) dst[j] = y[j];
+    }
+  } else if (a.store == kStoreBf16) {
+    uint16_t* dst = static_cast<uint16_t*>(a.out) + o;
+    if (vec) {
+      *reinterpret_cast<uint2*>(dst) =
+          make_uint2(bf16_bits(y[0]) | bf16_bits(y[1]) << 16,
+                     bf16_bits(y[2]) | bf16_bits(y[3]) << 16);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (m + j < a.M) dst[j] = static_cast<uint16_t>(bf16_bits(y[j]));
+    }
+  } else {
+    int8_t* dst = static_cast<int8_t*>(a.out) + o;
+    if (vec) {
+      *reinterpret_cast<int32_t*>(dst) = quantize_pack4(
+          make_float4(y[0], y[1], y[2], y[3]), a.out_mult);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (m + j < a.M)
+          dst[j] = static_cast<int8_t>(quantize_i8(y[j], a.out_mult));
+    }
+  }
+}
+
+template <int kIn>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 int8_conv_kernel(const ConvArgs a) {
+  // the float forms stage their halo in a ring and quantize it into a
+  // double buffer of int8 rows
+  constexpr bool kFloat = kIn != kInI8;
   extern __shared__ __align__(16) unsigned char smem[];
   int* tab = reinterpret_cast<int*>(smem);          // halo row -> pixel or -1
   unsigned char* pipe = smem + a.tab_bytes;
   unsigned char* abuf = pipe;                       // int8 A rows
   unsigned char* wbuf = pipe + a.a_bytes;           // weight stages
-  unsigned char* fbuf = wbuf + a.w_bytes;           // f32 halo stages
+  unsigned char* fbuf = wbuf + a.w_bytes;           // float halo stages
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -183,6 +242,7 @@ int8_conv_kernel(const ConvArgs a) {
   const int w_r0 = tid - w_n0 * wtc;
   const int8_t* x8 = static_cast<const int8_t*>(a.x);
   const float* x32 = static_cast<const float*>(a.x);
+  const uint16_t* x16 = static_cast<const uint16_t*>(a.x);
 
   auto load_w = [&](int slab, int slot) {
     const uint32_t dst0 = i8mma::smem_addr(wbuf + slot * kBM * wstride);
@@ -229,18 +289,41 @@ int8_conv_kernel(const ConvArgs a) {
       i8mma::cp_async16(dst0 + e * 16, src, valid);
     }
   };
+  // bf16 halo of a slab, 8 bytes (four channels) per copy, chunk e
+  // likewise copied and quantized by thread e % kThreads
+  auto load_h = [&](int slab, int stage) {
+    const uint32_t dst0 = i8mma::smem_addr(fbuf + stage * a.nhr * kHrow);
+    for (int e = tid; e < a.nhr * (kKC / 4); e += kThreads) {
+      const int pix = tab[e >> 3];
+      const int c = slab * kKC + ((e & 7) << 2);
+      const bool valid = pix >= 0 && c < a.C;
+      const uint16_t* src =
+          valid ? x16 + static_cast<size_t>(pix) * a.C + c : x16;
+      i8mma::cp_async8(dst0 + e * 8, src, valid);
+    }
+  };
+  auto load_float = [&](int slab, int stage) {
+    if (kIn == kInF32) load_f(slab, stage);
+    else load_h(slab, stage);
+  };
   auto quantize_own = [&](int stage, int buf) {
-    const float* src =
-        reinterpret_cast<const float*>(fbuf + stage * a.nhr * kFrow);
     unsigned char* dst = abuf + buf * a.nhr * kArow;
-    for (int e = tid; e < a.nhr * (kKC / 4); e += kThreads)
+    for (int e = tid; e < a.nhr * (kKC / 4); e += kThreads) {
+      float4 v;
+      if (kIn == kInF32) {
+        v = *reinterpret_cast<const float4*>(fbuf + stage * a.nhr * kFrow +
+                                             e * 16);
+      } else {
+        v = bf16x4_to_float4(*reinterpret_cast<const uint2*>(
+            fbuf + stage * a.nhr * kHrow + e * 8));
+      }
       *reinterpret_cast<int32_t*>(dst + (e >> 3) * kArow + ((e & 7) << 2)) =
-          quantize_pack4(*reinterpret_cast<const float4*>(src + e * 4),
-                         a.in_mult);
+          quantize_pack4(v, a.in_mult);
+    }
   };
   auto load_slab = [&](int slab, int stage) {
     load_w(slab, stage);
-    if (kF32) load_f(slab, stage);
+    if (kFloat) load_float(slab, stage);
     else load_a8(slab, stage);
   };
 
@@ -278,12 +361,12 @@ int8_conv_kernel(const ConvArgs a) {
   __syncthreads();   // the halo table
   for (int d = 0; d < ahead; ++d) {
     if (d < n_slabs) {
-      if (kF32) load_f(s_lo + d, d);
+      if (kFloat) load_float(s_lo + d, d);
       else load_a8(s_lo + d, d);
     }
     i8mma::cp_async_commit();
   }
-  if (kF32 && n_slabs > 0) {
+  if (kFloat && n_slabs > 0) {
     cp_async_wait_upto(ahead - 1);   // this thread's copies of slab 0
     quantize_own(0, 0);
   }
@@ -292,8 +375,8 @@ int8_conv_kernel(const ConvArgs a) {
   const uint32_t b_lane =
       (wn * 16 + i8mma::b_lane_row(lane)) * wstride + i8mma::b_lane_offset(lane);
   for (int i = 0; i < n_slabs; ++i) {
-    // slab i's copies are done (the f32 entry waited before quantizing it)
-    if (!kF32) cp_async_wait_upto(ahead - 1);
+    // slab i's copies are done (a float form waited before quantizing it)
+    if (!kFloat) cp_async_wait_upto(ahead - 1);
     __syncthreads();   // slab i staged; slab i-1's buffers free
     const int nx = i + ahead;
     if (nx < n_slabs) load_slab(s_lo + nx, nx % stages);
@@ -301,7 +384,7 @@ int8_conv_kernel(const ConvArgs a) {
 
     const int slot = i % stages;
     const uint32_t a_base =
-        i8mma::smem_addr(abuf + (kF32 ? (i & 1) : slot) * a.nhr * kArow) +
+        i8mma::smem_addr(abuf + (kFloat ? (i & 1) : slot) * a.nhr * kArow) +
         a_lane;
     const uint32_t b_base =
         i8mma::smem_addr(wbuf + slot * kBM * wstride) + b_lane;
@@ -313,7 +396,7 @@ int8_conv_kernel(const ConvArgs a) {
       i8mma::warp_tile_k32<2, 2>(acc, aa, b_base + t * kKC, 16 * wstride);
       if (++kx == a.ks) { kx = 0; ++ky; }
     }
-    if (kF32 && i + 1 < n_slabs) {
+    if (kFloat && i + 1 < n_slabs) {
       cp_async_wait_upto(ahead - 1);   // this thread's copies of slab i+1
       quantize_own((i + 1) % stages, (i + 1) & 1);
     }
@@ -372,20 +455,12 @@ int8_conv_kernel(const ConvArgs a) {
       gp = (img * a.OH + oy) * a.OW + ox;
     }
     const int sv[4] = {sum[it].x, sum[it].y, sum[it].z, sum[it].w};
-    float* dst = a.out + static_cast<size_t>(gp) * a.M + m;
-    if ((a.M & 3) == 0) {
-      float4 y;
-      y.x = requant_epilogue(sv[0], a.shift, a.alpha, bq[0], a.leaky);
-      y.y = requant_epilogue(sv[1], a.shift, a.alpha, bq[1], a.leaky);
-      y.z = requant_epilogue(sv[2], a.shift, a.alpha, bq[2], a.leaky);
-      y.w = requant_epilogue(sv[3], a.shift, a.alpha, bq[3], a.leaky);
-      *reinterpret_cast<float4*>(dst) = y;
-    } else {
+    float y[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (m + j < a.M)
-          dst[j] = requant_epilogue(sv[j], a.shift, a.alpha, bq[j], a.leaky);
-    }
+    for (int j = 0; j < 4; ++j)
+      y[j] = a.gpu ? gpu_epilogue(sv[j], a.alpha, bq[j], a.leaky)
+                   : requant_epilogue(sv[j], a.shift, a.alpha, bq[j], a.leaky);
+    store4(a, static_cast<size_t>(gp) * a.M + m, m, y);
   }
   // no block may leave while a peer still reads its partial tile
   if (split > 1) cluster.sync();
@@ -397,10 +472,14 @@ cudaError_t configure(int device) {
   if (device >= 0 && device < kMaxDevices && g_configured[device].load())
     return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
-      int8_conv_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int8_conv_kernel<kInI8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(int8_conv_kernel<false>,
+    err = cudaFuncSetAttribute(int8_conv_kernel<kInF32>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(int8_conv_kernel<kInBf16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmem);
   if (err == cudaSuccess && device >= 0 && device < kMaxDevices)
@@ -411,20 +490,24 @@ cudaError_t configure(int device) {
 }  // namespace
 
 // Launches one convolution on `stream` of CUDA device `device`. Pointers are
-// device pointers to contiguous tensors: x [B,H,W,C] (float32 when x_f32,
-// 16-byte aligned; else int8, 4-byte aligned), w [M,ks,ks,C] int8 (4-byte
-// aligned), bias [M] f32, out [B,OH,OW,M] f32 (16-byte aligned). Requires
-// C % 4 == 0 and B*H*W, B*OH*OW < 2^31. The launch plan comes from
+// device pointers to contiguous tensors: x [B,H,W,C] (x_form 0: int8, 4-byte
+// aligned; 1: float32, 16-byte aligned; 2: bfloat16, 8-byte aligned),
+// w [M,ks,ks,C] int8 (4-byte aligned), bias [M] f32, out [B,OH,OW,M] (store
+// 0: float32, 16-byte aligned; 1: bfloat16, 8-byte aligned; 2: int8 at
+// out_mult, 4-byte aligned). gpu 0 runs the "cpu" requant epilogue with
+// alpha and shift, gpu 1 the "gpu" one with alpha = inv. Requires C % 4 == 0
+// and B*H*W, B*OH*OW < 2^31. The launch plan comes from
 // ops/int8_conv.plan_launch: tile_h x tile_w output tiles (0 x 0: flat
 // 64-pixel tiles, for 1x1/s1/p0 only), `split` blocks per cluster (1-8, at
 // most the number of 32-channel slabs), `stages` ring stages (2-4).
 // Returns the cudaError_t of the launch (0 on success); cudaErrorInvalidValue
 // for a plan whose tiles do not fit.
-extern "C" int int8_conv_nhwc(const void* x, int x_f32, float input_mult,
+extern "C" int int8_conv_nhwc(const void* x, int x_form, float input_mult,
                               const void* w, const void* bias, void* out,
                               int B, int H, int W, int C, int M, int OH,
                               int OW, int ks, int stride, int pad,
-                              float alpha, int shift, int leaky, int tile_h,
+                              float alpha, int shift, int leaky, int gpu,
+                              int store, float out_mult, int tile_h,
                               int tile_w, int split, int stages, int device,
                               void* stream) {
   const long long P = static_cast<long long>(B) * OH * OW;
@@ -433,12 +516,16 @@ extern "C" int int8_conv_nhwc(const void* x, int x_f32, float input_mult,
   a.x = x;
   a.w = static_cast<const int8_t*>(w);
   a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<float*>(out);
+  a.out = out;
   a.B = B; a.H = H; a.W = W; a.C = C; a.M = M; a.OH = OH; a.OW = OW;
   a.ks = ks; a.stride = stride; a.pad = pad;
   a.in_mult = input_mult; a.alpha = alpha; a.shift = shift; a.leaky = leaky;
+  a.gpu = gpu != 0; a.store = store; a.out_mult = out_mult;
   const bool flat = tile_h == 0 && tile_w == 0;
+  const bool x_float = x_form != kInI8;
   if (C % 4 || ks < 1 || stride < 1 || split < 1 || split > kMaxSplit ||
+      x_form < kInI8 || x_form > kInBf16 || store < kStoreF32 ||
+      store > kStoreI8 ||
       stages < 2 || stages > kMaxStages ||
       (flat && (ks != 1 || stride != 1 || pad != 0)) ||
       (!flat && (tile_h < 1 || tile_w < 1 || tile_h * tile_w > kBP)))
@@ -455,23 +542,26 @@ extern "C" int int8_conv_nhwc(const void* x, int x_f32, float input_mult,
   a.stages = stages;
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
-  a.vec16 = C % 16 == 0 && (x_f32 || xa % 16 == 0) && wa % 16 == 0;
+  a.vec16 = C % 16 == 0 && (x_float || xa % 16 == 0) && wa % 16 == 0;
   const long long tiles =
       flat ? (P + kBP - 1) / kBP
            : static_cast<long long>(B) * a.tiles_y * a.tiles_x;
   const int wstride = ks * ks * kKC + 16;
   a.tab_bytes = (a.nhr * 4 + 15) / 16 * 16;
-  a.a_bytes = (x_f32 ? 2 : stages) * a.nhr * kArow;
+  a.a_bytes = (x_float ? 2 : stages) * a.nhr * kArow;
   a.w_bytes = stages * kBM * wstride;
-  const long long pipe_bytes =
-      static_cast<long long>(a.a_bytes) + a.w_bytes +
-      (x_f32 ? static_cast<long long>(stages) * a.nhr * kFrow : 0);
+  const int f_row = x_form == kInF32 ? kFrow : x_form == kInBf16 ? kHrow : 0;
+  const long long pipe_bytes = static_cast<long long>(a.a_bytes) +
+                               a.w_bytes +
+                               static_cast<long long>(stages) * a.nhr * f_row;
   const long long tile_bytes = static_cast<long long>(kBP) * kTileLd * 4;
   const long long smem =
       a.tab_bytes + (pipe_bytes > tile_bytes ? pipe_bytes : tile_bytes);
+  const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
   if (smem > kMaxSmem || split > a.slabs ||
       tiles * split > 0x7fffffffLL || (M + kBM - 1) / kBM > 65535 ||
-      (x_f32 && xa % 16) || reinterpret_cast<uintptr_t>(out) % 16)
+      (x_form == kInF32 && xa % 16) || (x_form == kInBf16 && xa % 8) ||
+      oa % (store == kStoreF32 ? 16 : store == kStoreBf16 ? 8 : 4))
     return static_cast<int>(cudaErrorInvalidValue);
 
   cudaError_t err = cudaSetDevice(device);
@@ -491,8 +581,12 @@ extern "C" int int8_conv_nhwc(const void* x, int x_f32, float input_mult,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
-  err = x_f32 ? cudaLaunchKernelEx(&cfg, int8_conv_kernel<true>, a)
-              : cudaLaunchKernelEx(&cfg, int8_conv_kernel<false>, a);
+  if (x_form == kInF32)
+    err = cudaLaunchKernelEx(&cfg, int8_conv_kernel<kInF32>, a);
+  else if (x_form == kInBf16)
+    err = cudaLaunchKernelEx(&cfg, int8_conv_kernel<kInBf16>, a);
+  else
+    err = cudaLaunchKernelEx(&cfg, int8_conv_kernel<kInI8>, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,8 @@
-// The int8-"cpu" quantize and requant epilogue shared by the hand kernels
-// (reference: forward_convolutional_layer_q,
-// src/yolov2_forward_network_quantized.c:527-631).
+// The int8 quantize and the two epilogues shared by the hand kernels:
+// the reference's int8-"cpu" requant (forward_convolutional_layer_q,
+// src/yolov2_forward_network_quantized.c:527-631) and its cuDNN INT8x4
+// "gpu" flavor (forward_convolutional_layer_gpu_cudnn_quantized,
+// src/yolov2_forward_network_gpu.cu:143-315).
 //
 // Every float step is an explicitly rounded intrinsic, so nvcc cannot contract
 // q*alpha+bias into an FMA: one rounding instead of two moves y by up to
@@ -9,6 +11,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 
 // clamp(trunc(x * m), +-127): the C float->int cast truncates toward zero.
 __device__ __forceinline__ int quantize_i8(float x, float m) {
@@ -26,8 +29,22 @@ __device__ __forceinline__ int32_t quantize_pack4(float4 v, float m) {
   return static_cast<int32_t>(b0 | b1 << 8 | b2 << 16 | b3 << 24);
 }
 
-// q = clamp(trunc_div(acc, 2^shift), +-32767); y = q * alpha + bias with two
-// roundings; leaky is y > 0 ? y : y / 10 (IEEE division).
+// Four bf16 channels (8 bytes, channel 0 in the low half of .x) upcast to
+// float exactly (a bf16 is the high half of the float's bits).
+__device__ __forceinline__ float4 bf16x4_to_float4(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+// A float rounded to the nearest even bf16, as its 16 bits.
+__device__ __forceinline__ uint32_t bf16_bits(float y) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(y));
+}
+
+// "cpu": q = clamp(trunc_div(acc, 2^shift), +-32767); y = q * alpha + bias
+// with two roundings; leaky is y > 0 ? y : y / 10 (IEEE division).
 __device__ __forceinline__ float requant_epilogue(int acc, int shift,
                                                   float alpha, float bias,
                                                   bool leaky) {
@@ -37,5 +54,14 @@ __device__ __forceinline__ float requant_epilogue(int acc, int shift,
   q = min(max(q, -32767), 32767);
   float y = __fadd_rn(__fmul_rn(static_cast<float>(q), alpha), bias);
   if (leaky && !(y > 0.0f)) y = __fdiv_rn(y, 10.0f);
+  return y;
+}
+
+// "gpu": y = float(acc) * inv + bias with two roundings, inv =
+// 1 / (input_mult * weights_mult); no requant; leaky is y > 0 ? y : 0.1f * y.
+__device__ __forceinline__ float gpu_epilogue(int acc, float inv, float bias,
+                                              bool leaky) {
+  float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), inv), bias);
+  if (leaky && !(y > 0.0f)) y = __fmul_rn(0.1f, y);
   return y;
 }

@@ -34,6 +34,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0));
 }
 
+// 8 bytes global->shared (four bf16 channels).
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
 // 4 bytes global->shared (rows whose length is not a multiple of 16 bytes).
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool valid) {

@@ -78,17 +78,38 @@ def set_fp32_precision() -> None:
 
 
 def conv2d_fp32(x, weights, biases, stride: int, pad: int, activation: str,
-                bn=None):
+                bn=None, compute_dtype=torch.float32):
     """Dense conv + optional (unfused) BN + bias + activation.
-    ``weights``: ``[O, I, kh, kw]`` float32.
+    ``weights``: ``[O, I, kh, kw]`` (float32, or already in ``compute_dtype``).
 
     BN math (reference: src/yolov2_forward_network.c:222-239):
       y = (conv - rolling_mean) / (sqrt(rolling_variance) + 1e-6) * scales + bias
     with epsilon added OUTSIDE the sqrt. ``network.build_forward`` turns TF32 off
     (:func:`set_fp32_precision`) before any conv runs.
+
+    ``compute_dtype=bfloat16`` (``-bf16``) rounds the input and the weights
+    to bfloat16 and returns float32; BN, bias and the activation run in
+    float32, as in the JAX package (its bf16 conv accumulates in float32,
+    ``preferred_element_type``). On the CPU the bfloat16 operands are
+    convolved in float32: their products are exact in float32, so this is
+    XLA's result up to the order of the sums. On the card the conv is cuDNN's
+    bfloat16 convolution, which accumulates in float32 but returns its sum
+    rounded to bfloat16: one rounding more than XLA, before the bias.
+    ``chip_smoke.py`` prints the largest difference against the float32
+    convolution of the same bfloat16 operands.
+
+    The input is made dense NHWC first (a no-op for the kernels' outputs):
+    cuDNN picks its algorithm by the memory layout too, and a bfloat16
+    result rounds each algorithm's sum, so an NCHW-strided map (the plain
+    int8 twin's and the dense XNOR engine's outputs) would otherwise give
+    other values than the same map laid out NHWC.
     """
-    y = F.conv2d(x.permute(0, 3, 1, 2), weights, stride=stride, padding=pad)
-    y = y.permute(0, 2, 3, 1)
+    xc = x.contiguous().permute(0, 3, 1, 2).to(compute_dtype)
+    wc = weights.to(compute_dtype)
+    if compute_dtype == torch.bfloat16 and not x.is_cuda:
+        xc, wc = xc.to(torch.float32), wc.to(torch.float32)
+    y = F.conv2d(xc, wc, stride=stride, padding=pad)
+    y = y.permute(0, 2, 3, 1).to(torch.float32)
     if bn is not None:
         scales, rolling_mean, rolling_variance = bn
         denom = torch.sqrt(rolling_variance) + 1e-6
@@ -103,8 +124,12 @@ quantize_i8 = int8_conv.quantize_i8
 
 def conv2d_int8(x, weights_int8, biases, stride: int, pad: int,
                 activation: str, input_mult: float, alpha: float,
-                r_mult: int = 32, plain: bool = False):
-    """INT8 conv, ``semantics="cpu"`` (reference: forward_convolutional_layer_q,
+                r_mult: int = 32, plain: bool = False, *,
+                semantics: str = "cpu", x_int8=None, out_dtype=None,
+                out_mult: float | None = None):
+    """INT8 conv path, in either of the reference's two flavors.
+
+    ``semantics="cpu"`` (reference: forward_convolutional_layer_q,
     src/yolov2_forward_network_quantized.c:527-631):
 
       1. quantize input: int8 = clamp(trunc(x * input_mult), +-127)
@@ -113,28 +138,52 @@ def conv2d_int8(x, weights_int8, biases, stride: int, pad: int,
       4. y = q * alpha + bias, alpha = R_MULT / (input_mult * weights_mult)
       5. LEAKY is x>0 ? x : x/10 on this path (NOT 0.1*x)
 
-    Steps 1-5 are one launch of the int8 kernel's f32-input entry
-    (``ops/int8_conv``) for a CUDA tensor; ``plain=True`` runs its plain
-    PyTorch version instead (the reference the kernel is checked against).
-    ``weights_int8``: ``[M, kh, kw, C]``. The ``gpu`` flavor is not ported
-    yet.
+    ``semantics="gpu"`` (reference: forward_convolutional_layer_gpu_cudnn_
+    quantized, src/yolov2_forward_network_gpu.cu:143-315, the cuDNN INT8x4
+    path): the same steps 1-2, then y = acc * alpha + bias with
+    ``alpha`` = inv = 1 / (input_mult * weights_mult) (``params``' ``inv``),
+    no requant, and the standard 0.1*y leaky.
+
+    ``x`` may be float32 or bfloat16 (a bfloat16 map is upcast exactly
+    before the quantize, as JAX promotes it against the float32
+    multiplier). ``x_int8``: the producer's pre-quantized input (the int8
+    chain); ``x`` is then not read. ``out_dtype``: None (float32), bfloat16
+    (the turbo store) or int8 at ``out_mult`` (the int8 residual trunk's
+    quantize).
+
+    Each call is one launch of the int8 kernel (``ops/int8_conv``: its
+    float- or int8-input entry, the epilogue and the store fused) for a
+    CUDA tensor, where the activation is leaky or linear; ``plain=True``
+    runs its plain PyTorch version instead (the reference the kernel is
+    checked against). ``weights_int8``: ``[M, kh, kw, C]``.
     """
     epilogue = activation if activation in ("leaky", "linear") else "linear"
-    if plain:
-        y = int8_conv.conv2d_int8_f32_plain(x, weights_int8, biases,
-                                            input_mult, alpha, stride, pad,
-                                            epilogue, r_mult)
-    else:
+    # the kernel stores in out_dtype only where its epilogue is the whole
+    # activation; any other activation runs on the float32 result
+    fused = epilogue == activation
+    store = dict(semantics=semantics,
+                 out_dtype=out_dtype if fused and out_dtype else torch.float32,
+                 out_mult=out_mult if fused else None)
+    xin = x if x_int8 is None else x_int8
+    if not (plain or xin.is_contiguous()):
         # a conv output seen through its NHWC permute need not be
         # NHWC-dense; the kernel reads dense NHWC rows
-        if not x.is_contiguous():
-            if x.is_cuda:
-                int8_conv.PRE_LAUNCHES["input_copy"] += 1
-            x = x.contiguous()
-        y = int8_conv.conv2d_int8_f32(x, weights_int8, biases, input_mult,
-                                      alpha, stride, pad, epilogue, r_mult)
-    if epilogue != activation:
+        if xin.is_cuda:
+            int8_conv.PRE_LAUNCHES["input_copy"] += 1
+        xin = xin.contiguous()
+    if x_int8 is not None:
+        conv = int8_conv.conv2d_int8_plain if plain else int8_conv.conv2d_int8
+        y = conv(xin, weights_int8, biases, alpha, stride, pad, epilogue,
+                 r_mult, **store)
+    else:
+        conv = (int8_conv.conv2d_int8_f32_plain if plain
+                else int8_conv.conv2d_int8_f32)
+        y = conv(xin, weights_int8, biases, input_mult, alpha, stride, pad,
+                 epilogue, r_mult, **store)
+    if not fused:
         y = activate(y, activation)
+        if out_dtype is not None:
+            y = int8_conv.store_plain(y, out_dtype, out_mult)
     return y
 
 
@@ -147,7 +196,8 @@ def conv2d_xnor(x, sign_weights, mean_arr, biases, stride: int, pad: int,
     per-filter mean |w| factored out of the product.
 
     Input binarized to +-1 by (x > 0) (reference: binarize_cpu,
-    src/additionally.c:128-135). Borders: the reference's bit path, taken
+    src/additionally.c:128-135), float32 or bfloat16 alike; the output is
+    float32 either way. Borders: the reference's bit path, taken
     when stride==1 and pad==1, writes 0 bits for the padding, which decode
     to -1 (im2col_cpu_custom_bin, src/additionally.c:883-1002); any other
     stride or pad runs the binarized float conv, whose im2col pads with 0.0.
@@ -177,15 +227,24 @@ def maxpool(x, size: int, stride: int, pad: int, out_w: int, out_h: int):
     ``-pad//2`` (reference: forward_maxpool_layer_avx, src/additionally.c:1041-1133:
     ``w_offset = -pad/2``). Padding is asymmetric: ``pad//2`` at the start and
     whatever the output extent needs at the end; out-of-bounds positions
-    contribute -inf."""
+    contribute -inf.
+
+    An integer ``x`` (the int8 chain) pools with out-of-bounds positions at
+    ``iinfo.min``, which never beats a real (>= -127) value: the exact
+    commute with the float path. It pools in float32, which holds every
+    int8 value exactly (PyTorch's max_pool2d takes no int8)."""
     h, w = x.shape[1], x.shape[2]
     lo = pad // 2
     hi_h = max(0, (out_h - 1) * stride + size - lo - h)
     hi_w = max(0, (out_w - 1) * stride + size - lo - w)
+    integer = not x.is_floating_point()
+    fill = float(torch.iinfo(x.dtype).min) if integer else float("-inf")
     y = x.permute(0, 3, 1, 2)
-    y = F.pad(y, (lo, hi_w, lo, hi_h), value=float("-inf"))
+    if integer:
+        y = y.to(torch.float32)
+    y = F.pad(y, (lo, hi_w, lo, hi_h), value=fill)
     y = F.max_pool2d(y, size, stride)
-    return y.permute(0, 2, 3, 1)[:, :out_h, :out_w, :]
+    return y.permute(0, 2, 3, 1)[:, :out_h, :out_w, :].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -6,15 +6,24 @@ layer; the int8 convs launch the hand-written kernel of ``ops/int8_conv``.
 
 Ported modes:
 
-* ``fp32``: dense convs in full float32 (TF32 off);
+* ``fp32``: dense convs in full float32 (TF32 off), or in bfloat16 with
+  ``compute_dtype=torch.bfloat16`` (``-bf16``; ``layers.conv2d_fp32``);
 * ``int8`` with ``int8_policy="cpu"``: every conv except index 0 and the
   LINEAR-activation convs runs the int8 path (reference dispatch:
-  src/yolov2_forward_network_quantized.c:1036-1037). The input of each int8
-  conv is quantized where the conv reads it (consumer side); the JAX
-  package's producer-side chaining gives bit-identical values.
-  ``int8_impl="fused"`` runs each darknet53 residual block (1x1 conv, 3x3
-  conv, shortcut) as one launch of the kernel of ``ops/fused_res`` and the
-  other int8 convs on ``ops/int8_conv``: bit-identical to the unfused path.
+  src/yolov2_forward_network_quantized.c:1036-1037), with the requant
+  epilogue; with ``int8_policy="gpu"``: the convs with the cfg's
+  ``quantized`` eligibility flag (reference: parse_convolutional +
+  yolo-lookahead, src/additionally.c:3558,3996), with the reference's cuDNN
+  INT8x4 epilogue. ``int8_impl="fused"`` (``cpu`` policy only, as in the JAX
+  package) runs each darknet53 residual block (1x1 conv, 3x3 conv,
+  shortcut) as one launch of the kernel of ``ops/fused_res`` and the other
+  int8 convs on ``ops/int8_conv``: bit-identical to the unfused path.
+* ``turbo`` (a TPU-native extension of the JAX package, not a reference
+  semantics): ``True``/"bf16" materializes the activations between layers
+  as bfloat16 (every conv's math stays float32; the int8 kernel reads and
+  stores bfloat16 itself), "int8" (int8 mode only) the residual trunk as
+  int8 at the nearest downstream int8 conv's input multiplier
+  (``_trunk_targets``). Heads run in float32 in every mode.
 * XNOR convs (``xnor=1``, outside the int8 set) in either mode, on the engine
   ``xnor_impl`` names: ``int8`` the dense +-1 conv (``layers.conv2d_xnor``),
   ``pallas`` the popcount kernel and ``pallas_mxu`` the bit-packed int8
@@ -22,6 +31,16 @@ Ported modes:
   reference's bit path; every other XNOR conv takes the dense engine), and
   ``auto`` a per-layer pick between ``pallas_mxu`` and ``int8`` on the GEMM
   M = batch*oh*ow. All engines are bit-identical.
+
+The int8 chain (``int8_chain``, on by default as in the JAX ``Predictor``):
+the JAX package quantizes a layer's output for its unique downstream int8
+conv in the producer (``_int8_chain_targets``) and carries (int8 tensor,
+target conv) pairs through maxpool, route, reorg and scale-1 upsample. That
+quantize equals the one the int8 kernel makes in its loader, so the port
+carries such a pair without its tensor (the target conv quantizes its
+float input itself) and makes the tensor only where it is more than that:
+under ``turbo="int8"``, whose trunk quantization feeds the target conv the
+producer's q, which its dequantized view need not give back.
 
 Everything else the JAX package's ``build_forward`` offers raises
 ``NotImplementedError`` naming what is not yet ported; nothing falls back.
@@ -31,6 +50,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -46,8 +66,10 @@ from . import layers as L
 # "fused" runs the residual blocks on the fused kernel and the other int8
 # convs on the int8 conv kernel. "plain" runs every kernel's plain PyTorch
 # version instead (the int8 ones and the XNOR engine's), on any device: the
-# reference the kernel paths are checked against.
-INT8_IMPLS = ("xla", "pallas", "fused", "plain")
+# reference the kernel paths are checked against; "fused_plain" does so with
+# the fused engine's blocks (which under turbo="int8" compute another
+# function than the unfused path: a run's interior trunk stays float32).
+INT8_IMPLS = ("xla", "pallas", "fused", "plain", "fused_plain")
 XNOR_IMPLS = ("int8", "pallas", "pallas_mxu", "auto")
 
 
@@ -95,6 +117,112 @@ def _consumers(spec: ModelSpec) -> dict:
     return consumers
 
 
+def _int8_chain_targets(spec: ModelSpec, int8_set: set) -> dict:
+    """For each layer index, the index of the unique int8 conv reachable from its
+    output through quantization-commuting ops (maxpool/route/reorg/upsample-scale-1),
+    or None when absent/ambiguous. Quantization (monotone trunc+clamp) commutes
+    exactly with max/concat/permute/repeat, so a producer can emit pre-quantized
+    int8 activations for its downstream int8 conv; static analysis keeps only the
+    unique-consumer case (a shared output feeding two int8 convs could have two
+    different input multipliers)."""
+    consumers = _consumers(spec)
+    targets: dict[int, object] = {}
+
+    def target_of(i: int):
+        """int8-conv consumer index wanted from layer i's OUTPUT (memoized)."""
+        if i in targets:
+            return targets[i]
+        wanted = set()
+        for c in consumers.get(i, []):
+            lc = spec.layers[c]
+            if isinstance(lc, ConvSpec):
+                if c in int8_set:
+                    wanted.add(c)
+            elif isinstance(lc, (MaxpoolSpec, RouteSpec, ReorgSpec)):
+                t = target_of(c)
+                if t is not None:
+                    wanted.add(t)
+            elif isinstance(lc, UpsampleSpec) and lc.scale == 1.0:
+                t = target_of(c)
+                if t is not None:
+                    wanted.add(t)
+            # shortcut/heads need float only
+        targets[i] = wanted.pop() if len(wanted) == 1 else None
+        return targets[i]
+
+    for i in range(spec.n - 1, -1, -1):
+        target_of(i)
+    return targets
+
+
+def _trunk_targets(spec: ModelSpec, int8_set: set) -> dict:
+    """int8-residual-trunk scale analysis (``turbo="int8"``): for each
+    layer index, the NEAREST downstream int8 conv whose
+    ``input_quant_multipler`` scales this layer's materialized activation —
+    reachable through maxpool/route/reorg/upsample AND (unlike the bit-exact
+    chain analysis) shortcut layers, since the residual trunk is exactly the
+    tensors shortcuts keep alive. Multi-consumer ambiguity resolves to the
+    smallest target index (nearest in program order): the scale choice only
+    bounds the residual materialization error, it does not need the
+    uniqueness producer-side emission does. Reference precedent for an
+    int8-chained trunk: the old fully-int8 pipeline,
+    src/yolov2_forward_network_quantized.c:636-801."""
+    consumers = _consumers(spec)
+    targets: dict[int, object] = {}
+
+    def target_of(i: int):
+        if i in targets:
+            return targets[i]
+        targets[i] = None   # guard (consumers only point forward, but be safe)
+        wanted = set()
+        for c in consumers.get(i, []):
+            lc = spec.layers[c]
+            if isinstance(lc, ConvSpec):
+                if c in int8_set:
+                    wanted.add(c)
+            elif (isinstance(lc, (MaxpoolSpec, RouteSpec, ReorgSpec,
+                                  ShortcutSpec))
+                  or (isinstance(lc, UpsampleSpec) and lc.scale == 1.0)):
+                # non-unit upsample scale multiplies values AFTER this
+                # producer, so the consumer's calibrated multiplier does not
+                # apply to the pre-scale tensor — stop, keep float (same
+                # reasoning as the chain analysis above)
+                t = target_of(c)
+                if t is not None:
+                    wanted.add(t)
+        targets[i] = min(wanted) if wanted else None
+        return targets[i]
+
+    for i in range(spec.n - 1, -1, -1):
+        target_of(i)
+    return targets
+
+
+def resolve_residual_dtype(turbo):
+    """Map the ``-turbo`` family flag to the residual dtype:
+    False -> None, True/"bf16" -> torch.bfloat16, "int8" -> "int8"."""
+    if not turbo:
+        return None
+    if turbo is True or turbo == "bf16":
+        return torch.bfloat16
+    if turbo == "int8":
+        return "int8"
+    raise ValueError(f"unknown turbo mode {turbo!r} "
+                     "(expected False, True, 'bf16', or 'int8')")
+
+
+def _quantize_i8(x, mult: float):
+    """``clamp(trunc(x * mult), +-127)`` in float32 (a bfloat16 ``x`` upcast
+    first, as JAX promotes it against the float32 multiplier)."""
+    return L.quantize_i8(x.to(torch.float32), mult)
+
+
+def _recip(m: float) -> float:
+    """float32 ``1 / m`` (JAX's ``1.0 / m`` of a float32 scalar), as a
+    Python float holding that float32 value."""
+    return float(np.float32(1.0) / np.float32(m))
+
+
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to "
                                "yolo2_light_tpu_torch")
@@ -103,7 +231,8 @@ def _not_ported(what: str) -> NotImplementedError:
 def _check_ported(spec: ModelSpec, mode: str, int8_policy: str,
                   int8_impl: str, xnor_impl: str, compute_dtype,
                   turbo) -> set:
-    """Raise on anything this port does not run yet; returns the int8 set."""
+    """Raise on anything this port does not run yet, and on the JAX
+    package's mode gates; returns the int8 set."""
     if mode not in ("fp32", "int8"):
         raise ValueError(f"unknown mode {mode!r} (expected fp32 or int8)")
     if int8_impl not in INT8_IMPLS:
@@ -114,12 +243,15 @@ def _check_ported(spec: ModelSpec, mode: str, int8_policy: str,
                          "(expected int8, pallas, pallas_mxu, or auto)")
     if int8_policy not in ("cpu", "gpu", "cpu_old"):
         raise ValueError(f"unknown int8 policy {int8_policy!r}")
-    if mode == "int8" and int8_policy != "cpu":
-        raise _not_ported(f"-int8_policy {int8_policy}")
-    if compute_dtype != torch.float32:
-        raise _not_ported(f"compute dtype {compute_dtype} (-bf16)")
-    if turbo:
-        raise _not_ported("-turbo / -turbo_int8")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {compute_dtype} (expected float32 "
+                         "or bfloat16)")
+    if resolve_residual_dtype(turbo) == "int8" and mode != "int8":
+        raise ValueError(
+            "turbo='int8' (turbo_int8) requires int8 mode: the trunk scales "
+            "come from the conv input_quant_multipler values")
+    if mode == "int8" and int8_policy == "cpu_old":
+        raise _not_ported("-int8_policy cpu_old")
     int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else set()
     for l in spec.layers:
         if isinstance(l, SoftmaxSpec):
@@ -231,41 +363,118 @@ def _block_args(p1: dict, p2: dict) -> dict:
 def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                   int8_policy: str = "cpu", int8_impl: str = "xla",
                   xnor_impl: str = "int8", compute_dtype=torch.float32,
-                  turbo=False):
+                  turbo=False, int8_chain: bool = True):
     """Return ``forward(params, x) -> (heads, aux)``.
 
     ``x``: [B, H, W, C] float32, NHWC, values in [0,1]. ``params``: the
     per-layer list of ``params.params_to_torch``. ``heads`` is a tuple of
-    HeadOutput; ``aux["final"]`` is the last layer's output.
+    HeadOutput (float32 in every mode); ``aux["final"]`` is the last layer's
+    output. The modes and the int8 chain are in the module docstring.
     """
     int8_set = _check_ported(spec, mode, int8_policy, int8_impl, xnor_impl,
                              compute_dtype, turbo)
-    plain = int8_impl == "plain"
-    # the fused kernel implements the cpu requant only (the gpu policy is
-    # refused above, and would keep its own convs)
+    plain = int8_impl in ("plain", "fused_plain")
+    residual_dtype = resolve_residual_dtype(turbo)
+    int8_resid = residual_dtype == "int8"
+    # the bfloat16 store of turbo; the int8 trunk is materialized by the
+    # trunk quantize (resid_q), so it narrows no other output
+    narrow = torch.bfloat16 if residual_dtype is torch.bfloat16 else None
+    trunk = _trunk_targets(spec, int8_set) if int8_resid else {}
+    chain = (_int8_chain_targets(spec, int8_set)
+             if mode == "int8" and int8_chain else {})
+    # the fused kernel implements the cpu requant only: the gpu policy keeps
+    # its convs on the int8 conv kernel
     fused_runs = (_fused_stage_runs(spec, int8_set)
-                  if mode == "int8" and int8_impl == "fused"
+                  if mode == "int8" and int8_impl in ("fused", "fused_plain")
                   and int8_policy == "cpu" else {})
     fused_skip = {idx for run in fused_runs.values()
                   for blk in run for idx in blk} - set(fused_runs)
     # outputs a route or a shortcut reads; every other one is dropped once
     # the next layer has consumed it
-    kept = {j for j, readers in _consumers(spec).items()
+    readers = _consumers(spec)
+    kept = {j for j, rs in readers.items()
             if any(isinstance(spec.layers[c], (RouteSpec, ShortcutSpec))
-                   for c in readers)}
+                   for c in rs)}
+    route_srcs = {j for j, rs in readers.items()
+                  if any(isinstance(spec.layers[c], RouteSpec) for c in rs)}
     L.set_fp32_precision()
+
+    def pallas_conv(l: ConvSpec) -> bool:
+        """The JAX package's ``-int8_impl pallas`` runs these convs on
+        ``conv3x3_int8_tiled``, whose float32 output no turbo narrows."""
+        return (int8_impl == "pallas" and int8_policy == "cpu"
+                and l.size == 3 and l.stride == 1 and l.pad == 1
+                and l.activation in ("leaky", "linear"))
 
     def forward(params, x):
         outputs: dict[int, torch.Tensor] = {}
+        # idx -> (int8 tensor or None, target conv idx): the int8 chain's
+        # pairs of the layers a route reads; None stands for the target's
+        # quantize of the layer's float output
+        i8_outputs: dict[int, tuple] = {}
         heads: list[HeadOutput] = []
         cur = x
+        cur_i8 = None                        # (tensor or None, target) or None
+
+        def mult(t: int) -> float:
+            return params[t]["input_quant_multipler"]
+
+        def emit_i8(i):
+            """The JAX package's producer-side quantize of layer i's output
+            for its chain target, carried without its tensor: the target's
+            loader makes the same quantize."""
+            t = chain.get(i)
+            if t is None:
+                return None
+            i8_outputs[i] = (None, t)
+            return i8_outputs[i]
+
+        def dequant(q, t):
+            # int8 * a Python float: float32 q times the float32 1/m
+            return q * _recip(mult(t))
+
+        def resid_q(i, value):
+            """int8 residual-trunk materialization (turbo="int8"): value
+            quantized at the nearest downstream int8 conv's multiplier.
+            Returns (float32 view, (q, target) | None)."""
+            t = trunk.get(i)
+            if t is None:
+                return value, None
+            q = _quantize_i8(value, mult(t))
+            return dequant(q, t), (q, t)
+
+        def finish_conv(i, value, q=None):
+            """Common conv epilogue: int8-residual materialization (``q``:
+            the trunk quantize the int8 kernel stored itself) + the int8
+            chain. Returns (cur, cur_i8)."""
+            if not int8_resid:
+                return value, emit_i8(i)
+            if q is None:
+                view, pair = resid_q(i, value)
+            else:
+                pair = (q, trunk[i])
+                view = dequant(q, trunk[i])
+            if pair is not None and chain.get(i) == pair[1]:
+                i8_outputs[i] = pair   # q IS the consumer's quantization
+                return view, pair
+            return view, emit_i8(i)
+
         for l in spec.layers:
             i = l.index
             if i in fused_runs:
                 run = fused_runs[i]
                 blocks = [_block_args(params[i1], params[i2])
                           for i1, i2, _ in run]
-                cur = fused_res.run_blocks(cur.contiguous(), blocks)
+                # the fused kernel keeps a float32 trunk in and out
+                cur = fused_res.run_blocks(
+                    cur.to(torch.float32).contiguous(), blocks, plain=plain)
+                if narrow is not None:
+                    cur = cur.to(narrow)
+                cur_i8 = None
+                if int8_resid:
+                    cur, cur_i8 = resid_q(run[-1][2], cur)
+                    if cur_i8 is not None:
+                        i8_outputs[run[-1][2]] = cur_i8
                 # the run's interior outputs feed nothing outside it
                 outputs[run[-1][2]] = cur
                 continue
@@ -288,35 +497,106 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                             pad=l.pad, activation=l.activation,
                             engine=("mxu" if engine == "pallas_mxu"
                                     else "popcount"), plain=plain)
+                    # XNOR outputs stay float32 under turbo, as in JAX
+                    cur, cur_i8 = finish_conv(i, cur)
                 elif i in int8_set:
-                    cur = L.conv2d_int8(
+                    xi8 = (cur_i8[0] if cur_i8 is not None and cur_i8[1] == i
+                           else None)
+                    t = trunk.get(i)
+                    store = (dict(out_dtype=torch.int8, out_mult=mult(t))
+                             if t is not None else
+                             dict(out_dtype=None if pallas_conv(l)
+                                  else narrow))
+                    y = L.conv2d_int8(
                         cur, p["weights_int8"], p["biases"], l.stride, l.pad,
-                        l.activation, p["input_quant_multipler"], p["alpha"],
-                        plain=plain)
+                        l.activation, p["input_quant_multipler"],
+                        p["inv" if int8_policy == "gpu" else "alpha"],
+                        plain=plain, semantics=int8_policy, x_int8=xi8,
+                        **store)
+                    cur, cur_i8 = (finish_conv(i, None, q=y) if t is not None
+                                   else finish_conv(i, y))
                 else:
                     bn = None
                     if "scales" in p:
                         bn = (p["scales"], p["rolling_mean"],
                               p["rolling_variance"])
                     cur = L.conv2d_fp32(cur, p["weights"], p["biases"],
-                                        l.stride, l.pad, l.activation, bn=bn)
+                                        l.stride, l.pad, l.activation, bn=bn,
+                                        compute_dtype=compute_dtype)
+                    if narrow is not None:
+                        cur = cur.to(narrow)
+                    cur, cur_i8 = finish_conv(i, cur)
             elif isinstance(l, MaxpoolSpec):
+                # quantize commutes with max: pool the int8 chain directly
+                if cur_i8 is not None and chain.get(i) == cur_i8[1]:
+                    if cur_i8[0] is not None:
+                        cur_i8 = (L.maxpool(cur_i8[0], l.size, l.stride,
+                                            l.pad, l.out_w, l.out_h),
+                                  cur_i8[1])
+                    i8_outputs[i] = cur_i8
+                else:
+                    cur_i8 = None
                 cur = L.maxpool(cur, l.size, l.stride, l.pad, l.out_w, l.out_h)
             elif isinstance(l, RouteSpec):
+                t = chain.get(i)
+                srcs = [i8_outputs.get(j) for j in l.layers]
+                if l.out_c == 0:
+                    # degenerate flat concat (mismatched spatial dims):
+                    # float only
+                    srcs = [None]
                 cur = L.route([outputs[j] for j in l.layers])
+                if t is not None and all(
+                        s is not None and s[1] == t for s in srcs):
+                    if all(s[0] is None for s in srcs):
+                        cur_i8 = (None, t)
+                    else:
+                        cur_i8 = (torch.cat(
+                            [_quantize_i8(outputs[j], mult(t)) if s[0] is None
+                             else s[0] for s, j in zip(srcs, l.layers)],
+                            dim=-1), t)
+                    i8_outputs[i] = cur_i8
+                else:
+                    cur_i8 = None
             elif isinstance(l, ReorgSpec):
+                if cur_i8 is not None and chain.get(i) == cur_i8[1]:
+                    if cur_i8[0] is not None:
+                        cur_i8 = (L.reorg(cur_i8[0], l.stride, l.reverse),
+                                  cur_i8[1])
+                    i8_outputs[i] = cur_i8
+                else:
+                    cur_i8 = None
                 cur = L.reorg(cur, l.stride, l.reverse)
             elif isinstance(l, UpsampleSpec):
+                if (cur_i8 is not None and chain.get(i) == cur_i8[1]
+                        and l.scale == 1.0):
+                    if cur_i8[0] is not None:
+                        cur_i8 = (L.upsample(cur_i8[0], l.stride, 1.0),
+                                  cur_i8[1])
+                    i8_outputs[i] = cur_i8
+                else:
+                    cur_i8 = None
                 cur = L.upsample(cur, l.stride, l.scale)
             elif isinstance(l, ShortcutSpec):
+                cur_i8 = None
                 cur = L.shortcut(cur, outputs[l.from_index], l.activation)
+                if int8_resid:
+                    # turbo_int8: the shortcut output IS the residual trunk;
+                    # the (q, target) pair doubles as the downstream conv's
+                    # pre-quantized input
+                    cur, cur_i8 = resid_q(i, cur)
+                    if cur_i8 is not None:
+                        i8_outputs[i] = cur_i8
             elif isinstance(l, YoloSpec):
+                cur_i8 = None
+                cur = cur.to(torch.float32)     # head math stays float32
                 b, h, w, _ = cur.shape
                 cur = L.yolo_head(cur, l.n, l.classes)
                 heads.append(HeadOutput(
                     i, "yolo", cur.reshape(b, h, w, l.n, 5 + l.classes)))
             elif isinstance(l, RegionSpec):
-                y5 = L.region_head(cur, l.n, l.classes, l.coords, l.softmax)
+                cur_i8 = None
+                y5 = L.region_head(cur.to(torch.float32), l.n, l.classes,
+                                   l.coords, l.softmax)
                 b, h, w = y5.shape[:3]
                 cur = y5.reshape(b, h, w, -1)
                 heads.append(HeadOutput(i, "region", y5))
@@ -324,26 +604,30 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                 raise _not_ported(f"layer {type(l).__name__}")
             if i in kept:
                 outputs[i] = cur
+            if i not in route_srcs:
+                i8_outputs.pop(i, None)
         return tuple(heads), {"final": cur}
 
     return forward
 
 
 def device_params(spec: ModelSpec, params: list, mode: str, device, *,
-                  int8_policy: str = "cpu", xnor_impl: str = "int8") -> list:
+                  int8_policy: str = "cpu", xnor_impl: str = "int8",
+                  compute_dtype=torch.float32) -> list:
     """``params`` on ``device`` through ``params.params_to_torch``, each conv
     keeping only the weights of the path it runs: in int8 mode the int8
-    convs their int8 weights, an XNOR conv those of its engines."""
+    convs their int8 weights, an XNOR conv those of its engines; the float
+    convs' weights in ``compute_dtype``."""
     int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else ()
     drops = [_dropped_fields(l, int8_set, xnor_impl) for l in spec.layers]
-    return params_to_torch(params, device, drops)
+    return params_to_torch(params, device, drops, compute_dtype)
 
 
 def load_kernels(spec: ModelSpec, mode: str, *, int8_policy: str = "cpu",
                  int8_impl: str = "xla", xnor_impl: str = "int8") -> None:
     """Build and bind the hand kernels a forward of ``spec`` launches on the
     card, so that the first forward does not include their builds."""
-    if int8_impl == "plain":
+    if int8_impl in ("plain", "fused_plain"):
         return
     int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else ()
     if mode == "int8":
@@ -362,7 +646,7 @@ class Predictor(nn.Module):
     """One call, image(s) in, head maps out, on one explicit device.
 
     The converted params are the module's buffers (``l<index>_<name>``); the
-    int8 scalars (input multiplier, alpha) are plain floats. Each conv keeps
+    int8 scalars (input multiplier, alpha, inv) are plain floats. Each conv keeps
     only the weights of the path it runs: in int8 mode the int8 convs their
     int8 weights, an XNOR conv those of its engines. On a CUDA device the
     kernels are built here, so the first forward does not include the build.
@@ -371,7 +655,8 @@ class Predictor(nn.Module):
     def __init__(self, spec: ModelSpec, params: list, mode: str = "fp32", *,
                  device="cuda", int8_policy: str = "cpu",
                  int8_impl: str = "xla", xnor_impl: str = "int8",
-                 compute_dtype=torch.float32, turbo=False):
+                 compute_dtype=torch.float32, turbo=False,
+                 int8_chain: bool = True):
         super().__init__()
         self.spec = spec
         self.mode = mode
@@ -381,11 +666,13 @@ class Predictor(nn.Module):
                                "run the plain PyTorch path)")
         self._forward = build_forward(spec, mode, int8_policy=int8_policy,
                                       int8_impl=int8_impl, xnor_impl=xnor_impl,
-                                      compute_dtype=compute_dtype, turbo=turbo)
+                                      compute_dtype=compute_dtype, turbo=turbo,
+                                      int8_chain=int8_chain)
         self._layout: list = []   # per layer: None or (tensor names, scalars)
         for i, p in enumerate(device_params(spec, params, mode, self.device,
                                             int8_policy=int8_policy,
-                                            xnor_impl=xnor_impl)):
+                                            xnor_impl=xnor_impl,
+                                            compute_dtype=compute_dtype)):
             if p is None:
                 self._layout.append(None)
                 continue

@@ -173,10 +173,16 @@ def fused_res_block(x, w1, b1, m1: float, alpha1: float, w2, b2, m2: float,
     return res_block_plain(x, w1, b1, m1, alpha1, w2, b2, m2, alpha2)
 
 
-def run_blocks(x, blocks: list):
+def run_blocks(x, blocks: list, plain: bool = False):
     """Chain residual blocks given as dicts of ``fused_res_block``'s
     arguments (``w1 b1 m1 alpha1 w2 b2 m2 alpha2``). On the card the K
-    launches alternate between two buffers; ``x`` itself is never written."""
+    launches alternate between two buffers; ``x`` itself is never written.
+    ``plain=True`` runs :func:`res_block_plain` on any device (the
+    reference the kernel path is checked against)."""
+    if plain:
+        for blk in blocks:
+            x = res_block_plain(x, **blk)
+        return x
     bufs = [None, None]
     if x.is_cuda and len(blocks) > 1:
         bufs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)

@@ -3,22 +3,36 @@
 ``csrc/int8_conv.cu`` is the counterpart of the Pallas kernels
 ``yolo2_light_tpu/ops/pallas_int8.py`` (``conv3x3_int8_fused``, v1, and
 ``conv3x3_int8_tiled``, v2): an int8 implicit-GEMM convolution on the tensor
-cores, accumulated in int32, with the reference's int8-"cpu" input quantize
-and epilogue fused (reference: forward_convolutional_layer_q,
+cores, accumulated in int32, with the reference's input quantize and
+either of its int8 epilogues fused. ``semantics="cpu"`` (the Pallas kernels'
+function; reference: forward_convolutional_layer_q,
 src/yolov2_forward_network_quantized.c:527-631):
 
-    xq = clamp(trunc(x * input_mult), +-127)       (the f32-input entry)
+    xq = clamp(trunc(x * input_mult), +-127)       (the float-input entry)
     q = clamp(trunc_div(acc, R_MULT), +-32767)
     y = q * alpha + bias,   alpha = R_MULT / (input_mult * weights_mult)
     y = y > 0 ? y : y / 10          (leaky; linear skips it)
 
+``semantics="gpu"`` (``-int8_policy gpu``, the reference's cuDNN INT8x4
+path, forward_convolutional_layer_gpu_cudnn_quantized,
+src/yolov2_forward_network_gpu.cu:143-315): no requant,
+
+    y = acc * inv + bias,   inv = 1 / (input_mult * weights_mult)
+    y = y > 0 ? y : 0.1 * y         (leaky)
+
+Each step rounds on its own, in both epilogues. The store is float32,
+bfloat16 (``out_dtype``, round to nearest even: the turbo modes' narrowed
+activations) or int8 at ``out_mult`` (``clamp(trunc(y * out_mult), +-127)``,
+the int8 residual trunk's quantize).
+
 It takes every int8-eligible conv of a darknet net (size 1 or 3, stride 1
 or 2; sizes up to 5 where the tiles fit), not only the 3x3/s1/p1 case the
-Pallas kernels cover. Two entries launch the same kernel: the f32-input one
-(:func:`conv2d_int8_f32`, the network's path: one launch per int8 conv,
-quantize included) and the int8-input one (:func:`conv2d_int8`, the Pallas
-signatures' pre-quantized input). :func:`plan_launch` picks each launch's
-tiles, its copy-ring depth and its split of K across a thread-block cluster.
+Pallas kernels cover. Two entries launch the same kernel: the float-input
+one (:func:`conv2d_int8_f32`, float32 or bfloat16 input quantized in the
+kernel's loader: one launch per int8 conv) and the int8-input one
+(:func:`conv2d_int8`, a pre-quantized input: the Pallas signatures' and the
+int8 chain's). :func:`plan_launch` picks each launch's tiles, its copy-ring
+depth and its split of K across a thread-block cluster.
 
 Dispatch: :func:`conv2d_int8` and :func:`conv2d_int8_f32` run the kernel for
 a CUDA tensor and the plain version for a CPU tensor. The CUDA path launches
@@ -49,9 +63,18 @@ LAUNCH_COUNTS: collections.Counter = collections.Counter()
 # (quantize_i8 of a CUDA tensor) and "input_copy" (a non-contiguous input
 # made dense); the network's kernel path makes neither
 PRE_LAUNCHES: collections.Counter = collections.Counter()
+# the kernel's launches by form, "<input>/<semantics>/<store>", such as
+# "f32/cpu/f32" (the network's int8 path) or "bf16/cpu/bf16" (-turbo)
+FORM_LAUNCHES: collections.Counter = collections.Counter()
 
 _KERNEL = "int8_conv"
 _EPILOGUES = ("leaky", "linear")
+SEMANTICS = ("cpu", "gpu")
+# the kernel's input forms and stores (csrc/int8_conv.cu's enums)
+_X_FORMS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+_STORES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_DTYPE_NAMES = {torch.int8: "int8", torch.float32: "f32",
+                torch.bfloat16: "bf16"}
 
 # the kernel's fixed geometry (csrc/int8_conv.cu)
 SM_COUNT = 132           # H100 SXM
@@ -65,7 +88,8 @@ SM_SMEM = 233472         # shared memory of an SM (1 KiB of it per block
 MAX_BLOCKS_PER_SM = 3    # the kernel's register budget (kMinBlocks)
 STAGES = (4, 3, 2)       # ring depths the planner tries, deepest first
 _A_ROW = SLAB + 16       # bytes per staged int8 row
-_F_ROW = SLAB * 4        # bytes per staged f32 row
+# bytes per staged float row of each input form (the int8 form stages none)
+_FLOAT_ROW = {"f32": SLAB * 4, "bf16": SLAB * 2, "int8": 0}
 _TILE_LD = 72            # int32 words per row of the epilogue tile
 _SPATIAL_TILES = ((8, 8), (4, 8), (4, 4))
 
@@ -73,6 +97,7 @@ _SPATIAL_TILES = ((8, 8), (4, 8), (4, 4))
 def reset_launch_counts() -> None:
     LAUNCH_COUNTS.clear()
     PRE_LAUNCHES.clear()
+    FORM_LAUNCHES.clear()
 
 
 def quantize_i8(x, mult: float):
@@ -102,15 +127,26 @@ class Plan(NamedTuple):
     smem: int           # dynamic shared memory of one block, bytes
 
 
-def _smem_bytes(halo_rows: int, taps: int, f32_input: bool,
-                stages: int) -> int:
+def _x_form(x_form) -> str:
+    """An input form: "f32", "bf16" or "int8"; True and False name the f32
+    and the int8 form."""
+    if isinstance(x_form, bool):
+        return "f32" if x_form else "int8"
+    if x_form not in _FLOAT_ROW:
+        raise ValueError(f"unknown input form {x_form!r} (expected f32, bf16 "
+                         "or int8)")
+    return x_form
+
+
+def _smem_bytes(halo_rows: int, taps: int, x_form, stages: int) -> int:
     """The kernel's shared memory: halo table, int8 A rows (a ring, or a
-    double buffer for the f32 entry), weight stages and the f32 entry's
-    halo stages, or the epilogue tile if larger."""
+    double buffer for a float form), weight stages and a float form's halo
+    stages, or the epilogue tile if larger."""
+    x_form = _x_form(x_form)
     tab = -(-halo_rows * 4 // 16) * 16
-    a = (2 if f32_input else stages) * halo_rows * _A_ROW
+    a = (stages if x_form == "int8" else 2) * halo_rows * _A_ROW
     w = stages * TILE_CHANNELS * (taps * SLAB + 16)
-    f = stages * halo_rows * _F_ROW if f32_input else 0
+    f = stages * halo_rows * _FLOAT_ROW[x_form]
     return tab + max(a + w + f, TILE_PIXELS * _TILE_LD * 4)
 
 
@@ -120,24 +156,25 @@ def blocks_per_sm(smem: int) -> int:
     return min(MAX_BLOCKS_PER_SM, SM_SMEM // (smem + 1024))
 
 
-def _fit(rows: int, taps: int, f32_input: bool):
+def _fit(rows: int, taps: int, x_form):
     """The ring depth that lets the most blocks share an SM (the deeper
     of equals): (blocks per SM, stages, smem), or None where no depth
     fits."""
     fits = [(blocks_per_sm(smem), st, smem) for st in STAGES
-            if (smem := _smem_bytes(rows, taps, f32_input, st)) <= MAX_SMEM]
+            if (smem := _smem_bytes(rows, taps, x_form, st)) <= MAX_SMEM]
     return max(fits, default=None)
 
 
 def plan_launch(b: int, h: int, w: int, c: int, m: int, ks: int, stride: int,
-                pad: int, f32_input: bool = True) -> Plan:
+                pad: int, x_form="f32") -> Plan:
     """Tiles, ring depth and cluster split of one launch. The kernel is
     bound by latency, so what counts is how many blocks share an SM: the
     largest tile at which two blocks fit (else the largest that fits one),
     at the ring depth that fits the most; then, where the tiles give fewer
     blocks than the card has SMs, the fewest cluster blocks (at most 8, at
-    most the number of slabs) that make the grid cover them. Raises
-    ValueError where no tile fits (sizes above 5)."""
+    most the number of slabs) that make the grid cover them. ``x_form``:
+    the input form, "f32", "bf16" or "int8" (True / False: f32 / int8).
+    Raises ValueError where no tile fits (sizes above 5)."""
     oh = (h + 2 * pad - ks) // stride + 1
     ow = (w + 2 * pad - ks) // stride + 1
     flat = ks == 1 and stride == 1 and pad == 0
@@ -146,7 +183,7 @@ def plan_launch(b: int, h: int, w: int, c: int, m: int, ks: int, stride: int,
     for th, tw in shapes:
         rows = (TILE_PIXELS if flat
                 else ((th - 1) * stride + ks) * ((tw - 1) * stride + ks))
-        fit = _fit(rows, ks * ks, f32_input)
+        fit = _fit(rows, ks * ks, x_form)
         if fit is not None:
             fits.append((th, tw, rows) + fit)
     if not fits:
@@ -194,10 +231,22 @@ def _shift_of(r_mult: int) -> int:
     return r_mult.bit_length() - 1
 
 
-def _check_epilogue(activation: str) -> None:
+def _check_epilogue(activation: str, semantics: str = "cpu") -> None:
     if activation not in _EPILOGUES:
         raise ValueError(f"int8 conv epilogue must be one of {_EPILOGUES}, "
                          f"got {activation!r}")
+    if semantics not in SEMANTICS:
+        raise ValueError(f"int8 conv semantics must be one of {SEMANTICS}, "
+                         f"got {semantics!r}")
+
+
+def _check_store(out_dtype, out_mult) -> None:
+    if out_dtype not in _STORES:
+        raise TypeError(f"int8 conv store must be float32, bfloat16 or int8, "
+                        f"got {out_dtype}")
+    if (out_dtype == torch.int8) != (out_mult is not None):
+        raise ValueError("out_mult is the int8 store's multiplier: give it "
+                         "with out_dtype=torch.int8 and only then")
 
 
 # ---------------------------------------------------------------------------
@@ -239,20 +288,54 @@ def epilogue_plain(q: torch.Tensor, bias: torch.Tensor, alpha: float,
     return y
 
 
+def gpu_epilogue_plain(acc: torch.Tensor, bias: torch.Tensor, inv: float,
+                       activation: str) -> torch.Tensor:
+    """The "gpu" flavor: ``acc * inv + bias`` with two roundings, then the
+    0.1 * y leaky (the product with a float32 0.1, as JAX's weak-typed
+    ``0.1 * x`` rounds it)."""
+    y = acc.to(torch.float32) * inv + bias
+    if activation == "leaky":
+        tenth = torch.tensor(0.1, dtype=torch.float32, device=y.device)
+        y = torch.where(y > 0, y, y * tenth)
+    return y
+
+
+def store_plain(y: torch.Tensor, out_dtype=torch.float32,
+                out_mult: float | None = None) -> torch.Tensor:
+    """The kernel's store: float32 as is, bfloat16 rounded to nearest even,
+    int8 as ``clamp(trunc(y * out_mult), +-127)``."""
+    if out_dtype == torch.int8:
+        return torch.clamp(torch.trunc(y * out_mult), -127, 127).to(
+            torch.int8)
+    return y.to(out_dtype)
+
+
 def conv2d_int8_plain(x_int8, w, bias, alpha: float, stride: int, pad: int,
-                      activation: str = "leaky", r_mult: int = 32):
-    _check_epilogue(activation)
+                      activation: str = "leaky", r_mult: int = 32, *,
+                      semantics: str = "cpu", out_dtype=torch.float32,
+                      out_mult: float | None = None):
+    """``alpha``: the epilogue's scale, R_MULT / (input_mult * weights_mult)
+    under ``semantics="cpu"``, 1 / (input_mult * weights_mult) under
+    ``"gpu"``."""
+    _check_epilogue(activation, semantics)
+    _check_store(out_dtype, out_mult)
     acc = int8_conv_acc_plain(x_int8, w, stride, pad)
-    return epilogue_plain(requantize(acc, r_mult), bias, alpha, activation)
+    if semantics == "gpu":
+        y = gpu_epilogue_plain(acc, bias, alpha, activation)
+    else:
+        y = epilogue_plain(requantize(acc, r_mult), bias, alpha, activation)
+    return store_plain(y, out_dtype, out_mult)
 
 
 def conv2d_int8_f32_plain(x, w, bias, input_mult: float, alpha: float,
                           stride: int, pad: int, activation: str = "leaky",
-                          r_mult: int = 32):
-    """The f32-input entry's plain version: :func:`quantize_i8`, then
-    :func:`conv2d_int8_plain`."""
-    return conv2d_int8_plain(quantize_i8(x, input_mult), w, bias, alpha,
-                             stride, pad, activation, r_mult)
+                          r_mult: int = 32, **store):
+    """The float-input entry's plain version: :func:`quantize_i8` of ``x``
+    (a bfloat16 ``x`` upcast first, exactly), then
+    :func:`conv2d_int8_plain` (``store``: its keywords)."""
+    return conv2d_int8_plain(quantize_i8(x.to(torch.float32), input_mult), w,
+                             bias, alpha, stride, pad, activation, r_mult,
+                             **store)
 
 
 # ---------------------------------------------------------------------------
@@ -269,23 +352,27 @@ def load_kernel():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
-                   + [ctypes.c_float] + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     return fn
 
 
 def _launch(name: str, x, w, bias, input_mult, alpha: float, stride: int,
-            pad: int, activation: str, r_mult: int, plan: Plan | None):
+            pad: int, activation: str, r_mult: int, plan: Plan | None,
+            semantics: str, out_dtype, out_mult):
     """Check the operands of either entry and launch the kernel on the
     current stream of ``x``'s device."""
-    _check_epilogue(activation)
-    f32_input = input_mult is not None
+    _check_epilogue(activation, semantics)
+    _check_store(out_dtype, out_mult)
+    float_input = input_mult is not None
     if not (x.is_cuda and w.device == x.device and bias.device == x.device):
         raise ValueError(f"{name}: x, w and bias must lie on one CUDA device")
-    x_dtype = torch.float32 if f32_input else torch.int8
-    if x.dtype != x_dtype or w.dtype != torch.int8:
-        raise TypeError(f"{name}: x must be {x_dtype} and w int8, got "
-                        f"{x.dtype} and {w.dtype}")
+    x_dtypes = ((torch.float32, torch.bfloat16) if float_input
+                else (torch.int8,))
+    if x.dtype not in x_dtypes or w.dtype != torch.int8:
+        raise TypeError(f"{name}: x must be {' or '.join(map(str, x_dtypes))}"
+                        f" and w int8, got {x.dtype} and {w.dtype}")
     if bias.dtype != torch.float32:
         raise TypeError(f"{name}: bias must be float32, got {bias.dtype}")
     if x.dim() != 4 or w.dim() != 4:
@@ -302,25 +389,30 @@ def _launch(name: str, x, w, bias, input_mult, alpha: float, stride: int,
     if not (x.is_contiguous() and w.is_contiguous()
             and bias.is_contiguous()):
         raise ValueError(f"{name}: x, w and bias must be contiguous")
-    if x.data_ptr() % (16 if f32_input else 4) or w.data_ptr() % 4:
-        raise ValueError(f"{name}: x must be {16 if f32_input else 4}-byte "
-                         "aligned and w 4-byte aligned")
+    x_align = 4 * x.element_size() if float_input else 4
+    if x.data_ptr() % x_align or w.data_ptr() % 4:
+        raise ValueError(f"{name}: x must be {x_align}-byte aligned and w "
+                         "4-byte aligned")
     oh = (h + 2 * pad - ks) // stride + 1
     ow = (wd + 2 * pad - ks) // stride + 1
     if b * oh * ow >= 2 ** 31 or b * h * wd >= 2 ** 31:
         raise ValueError(f"{name}: B*H*W and B*OH*OW must stay below 2**31")
+    x_form = _DTYPE_NAMES[x.dtype]
     if plan is None:
-        plan = plan_launch(b, h, wd, c, m, ks, stride, pad, f32_input)
+        plan = plan_launch(b, h, wd, c, m, ks, stride, pad, x_form)
     shift = _shift_of(r_mult)
-    out = torch.empty((b, oh, ow, m), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, oh, ow, m), dtype=out_dtype, device=x.device)
     kernel = load_kernel()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     LAUNCH_COUNTS[_KERNEL] += 1
+    FORM_LAUNCHES[f"{x_form}/{semantics}/{_DTYPE_NAMES[out_dtype]}"] += 1
     rc = kernel(
-        x.data_ptr(), int(f32_input),
+        x.data_ptr(), _X_FORMS[x.dtype],
         1.0 if input_mult is None else float(input_mult), w.data_ptr(),
         bias.data_ptr(), out.data_ptr(), b, h, wd, c, m, oh, ow, ks, stride,
-        pad, alpha, shift, int(activation == "leaky"), plan.tile_h,
+        pad, alpha, shift, int(activation == "leaky"),
+        int(semantics == "gpu"), _STORES[out_dtype],
+        1.0 if out_mult is None else float(out_mult), plan.tile_h,
         plan.tile_w, plan.split, plan.stages, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: cudaError {rc}")
@@ -329,49 +421,59 @@ def _launch(name: str, x, w, bias, input_mult, alpha: float, stride: int,
 
 def conv2d_int8_cuda(x_int8, w, bias, alpha: float, stride: int, pad: int,
                      activation: str = "leaky", r_mult: int = 32, *,
-                     plan: Plan | None = None):
+                     plan: Plan | None = None, semantics: str = "cpu",
+                     out_dtype=torch.float32, out_mult: float | None = None):
     """Launch the kernel's int8-input entry (pre-quantized ``x_int8``) on
     the current stream of its device. ``plan``: :func:`plan_launch`'s by
-    default; a test may force another split."""
+    default; a test may force another split. ``alpha`` is the epilogue's
+    scale of ``semantics`` (see :func:`conv2d_int8_plain`)."""
     return _launch("conv2d_int8_cuda", x_int8, w, bias, None, alpha, stride,
-                   pad, activation, r_mult, plan)
+                   pad, activation, r_mult, plan, semantics, out_dtype,
+                   out_mult)
 
 
 def conv2d_int8_f32_cuda(x, w, bias, input_mult: float, alpha: float,
                          stride: int, pad: int, activation: str = "leaky",
-                         r_mult: int = 32, *, plan: Plan | None = None):
-    """Launch the kernel's f32-input entry, which quantizes ``x`` at
-    ``input_mult`` as it stages it: one launch for the whole int8 conv."""
+                         r_mult: int = 32, *, plan: Plan | None = None,
+                         semantics: str = "cpu", out_dtype=torch.float32,
+                         out_mult: float | None = None):
+    """Launch the kernel's float-input entry (``x`` float32 or bfloat16),
+    which quantizes ``x`` at ``input_mult`` as it stages it: one launch for
+    the whole int8 conv."""
     return _launch("conv2d_int8_f32_cuda", x, w, bias, input_mult, alpha,
-                   stride, pad, activation, r_mult, plan)
+                   stride, pad, activation, r_mult, plan, semantics,
+                   out_dtype, out_mult)
 
 
 def conv2d_int8(x_int8, w, bias, alpha: float, stride: int, pad: int,
-                activation: str = "leaky", r_mult: int = 32):
-    """int8 NHWC ``x_int8`` * ``[M,ks,ks,C]`` int8 ``w`` -> f32 NHWC with the
-    requant epilogue. The kernel for a CUDA tensor, the plain version for a
-    CPU tensor."""
+                activation: str = "leaky", r_mult: int = 32, **store):
+    """int8 NHWC ``x_int8`` * ``[M,ks,ks,C]`` int8 ``w`` -> NHWC with the
+    epilogue and store ``store`` names (``semantics``, ``out_dtype``,
+    ``out_mult``; by default the requant epilogue and a float32 store). The
+    kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if x_int8.is_cuda:
         return conv2d_int8_cuda(x_int8, w, bias, alpha, stride, pad,
-                                activation, r_mult)
+                                activation, r_mult, **store)
     if x_int8.device.type != "cpu":
         raise ValueError(f"conv2d_int8: unsupported device {x_int8.device}")
     return conv2d_int8_plain(x_int8, w, bias, alpha, stride, pad, activation,
-                             r_mult)
+                             r_mult, **store)
 
 
 def conv2d_int8_f32(x, w, bias, input_mult: float, alpha: float, stride: int,
-                    pad: int, activation: str = "leaky", r_mult: int = 32):
-    """f32 NHWC ``x`` quantized at ``input_mult``, then the int8 conv with
-    the requant epilogue: the kernel's f32-input entry for a CUDA tensor,
-    the plain version for a CPU tensor."""
+                    pad: int, activation: str = "leaky", r_mult: int = 32,
+                    **store):
+    """Float NHWC ``x`` (float32 or bfloat16) quantized at ``input_mult``,
+    then the int8 conv with the epilogue and store ``store`` names: the
+    kernel's float-input entry for a CUDA tensor, the plain version for a
+    CPU tensor."""
     if x.is_cuda:
         return conv2d_int8_f32_cuda(x, w, bias, input_mult, alpha, stride,
-                                    pad, activation, r_mult)
+                                    pad, activation, r_mult, **store)
     if x.device.type != "cpu":
         raise ValueError(f"conv2d_int8_f32: unsupported device {x.device}")
     return conv2d_int8_f32_plain(x, w, bias, input_mult, alpha, stride, pad,
-                                 activation, r_mult)
+                                 activation, r_mult, **store)
 
 
 def conv3x3_int8_fused(x_int8, weights_int8, biases, input_mult, weights_mult,

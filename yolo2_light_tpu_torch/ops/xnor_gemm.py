@@ -212,8 +212,9 @@ def _check_epilogue(activation: str) -> None:
 
 
 def pack_activations(x: torch.Tensor, c_real: int) -> torch.Tensor:
-    """``[B, H, W, C]`` float -> ``[B, H, W, C32]`` int32, bit set iff
-    x > 0; channel-pad bits 0. Each bit position appears once, so the sum
+    """``[B, H, W, C]`` float (float32, or bfloat16 under ``-turbo``: x > 0
+    on a bfloat16 value is x > 0 on its float32 upcast) -> ``[B, H, W, C32]``
+    int32, bit set iff x > 0; channel-pad bits 0. Each bit position appears once, so the sum
     is a bitwise or (bit 31 is the int32 sign)."""
     b, h, w, c = x.shape
     padded = words_for(c_real) * BITS
@@ -437,7 +438,7 @@ def conv2d_xnor_bits(x, wp, mean, bias, *, c_real: int, stride: int,
     ("popcount": K3, "mxu": K4). ``plain=True`` runs the engine's plain
     version on any device. Borders are 0 bits (-1), so the network calls it
     only where the reference takes its bit path (stride 1, pad 1).
-    ``x``: [B,H,W,C] f32 -> [B,OH,OW,M] f32."""
+    ``x``: [B,H,W,C] float32 or bfloat16 -> [B,OH,OW,M] float32."""
     fn = _ENGINES.get((engine, plain))
     if fn is None:
         raise ValueError(f"unknown XNOR engine {engine!r} (expected popcount "

@@ -30,16 +30,22 @@ _FLOAT_KEYS = ("biases", "scales", "rolling_mean", "rolling_variance",
                "mean_arr")
 
 
-def layer_to_torch(p: dict, device, drop=frozenset()) -> dict:
+def layer_to_torch(p: dict, device, drop=frozenset(),
+                   weights_dtype=torch.float32) -> dict:
     """One conv layer's params, without the output fields named in ``drop``:
 
-    * ``weights`` HWIO float32 -> ``[O, I, kh, kw]`` (PyTorch's conv layout);
+    * ``weights`` HWIO float32 -> ``[O, I, kh, kw]`` (PyTorch's conv layout)
+      in ``weights_dtype`` (bfloat16 for ``-bf16``'s float convs, cast once
+      here instead of at every forward);
     * ``biases``, unfused BN vectors and the XNOR ``mean_arr`` -> float32
       tensors;
     * with INT8 fields: ``weights_int8`` HWIO -> ``[M, kh, kw, C]`` (the
-      kernel's layout), ``input_quant_multipler`` and ``alpha`` =
-      float32(R_MULT) / (float32(in_mult) * float32(w_mult)) as Python floats
-      holding float32 values, rounded as the JAX path rounds them;
+      kernel's layout), ``input_quant_multipler``, ``alpha`` =
+      float32(R_MULT) / (float32(in_mult) * float32(w_mult)) (the "cpu"
+      epilogue's scale) and ``inv`` = float32(1) / (float32(in_mult) *
+      float32(w_mult)) (the "gpu" epilogue's, JAX's float32
+      ``1.0 / (input_mult * weights_mult)``) as Python floats holding
+      float32 values, rounded as the JAX path rounds them;
     * with XNOR fields: ``sign_weights`` HWIO +-1 -> float32
       ``[O, I, kh, kw]`` (the dense engine's), and ``packed_weights``, the
       bit kernels' ``[M, kh, kw, C32]`` int32 packed from ``sign_weights``
@@ -49,7 +55,8 @@ def layer_to_torch(p: dict, device, drop=frozenset()) -> dict:
     out = {}
     if "weights" in p and "weights" not in drop:
         w = torch.as_tensor(np.asarray(p["weights"], np.float32))
-        out["weights"] = w.permute(3, 2, 0, 1).contiguous().to(device)
+        out["weights"] = w.permute(3, 2, 0, 1).contiguous().to(
+            device, weights_dtype)
     for k in _FLOAT_KEYS:
         if k in p and k not in drop:
             out[k] = torch.as_tensor(np.asarray(p[k], np.float32)).to(device)
@@ -59,6 +66,8 @@ def layer_to_torch(p: dict, device, drop=frozenset()) -> dict:
             np.float32(p["input_quant_multipler"]))
         out["alpha"] = alpha_f32(p["input_quant_multipler"],
                                  p["weights_quant_multipler"], R_MULT)
+        out["inv"] = alpha_f32(p["input_quant_multipler"],
+                               p["weights_quant_multipler"], 1)
     if "sign_weights" in p:
         sign = np.asarray(p["sign_weights"], np.int8)
         if "sign_weights" not in drop:
@@ -70,11 +79,12 @@ def layer_to_torch(p: dict, device, drop=frozenset()) -> dict:
     return out
 
 
-def params_to_torch(params: list, device, drops=None) -> list:
+def params_to_torch(params: list, device, drops=None,
+                    weights_dtype=torch.float32) -> list:
     """Per-layer list (``None`` for weightless layers) -> list of tensor dicts
     on ``device``; ``drops[i]``, where given, names layer i's output fields
-    to leave out."""
+    to leave out; float conv weights in ``weights_dtype``."""
     device = torch.device(device)
     drops = drops or [frozenset()] * len(params)
-    return [None if p is None else layer_to_torch(p, device, d)
+    return [None if p is None else layer_to_torch(p, device, d, weights_dtype)
             for p, d in zip(params, drops)]

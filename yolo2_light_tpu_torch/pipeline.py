@@ -122,7 +122,11 @@ class DetectionPipeline:
     ``"cpu"``, which runs every kernel's plain version. ``cuda_graph=False``
     runs ``run`` eagerly on the card too (the graph's reference). ``params``:
     the per-layer host params of ``apps/detect.build_params``, or the
-    converted params of another pipeline on the same device.
+    converted params of another pipeline on the same device (converted for
+    the same ``compute_dtype``). ``compute_dtype``, ``turbo`` and
+    ``int8_chain`` are ``network.build_forward``'s precision modes; the
+    captured graph holds in each (the heads, and so the packed buffer, are
+    float32 in every mode).
     """
 
     def __init__(self, spec: ModelSpec, params: list, mode: str = "fp32", *,
@@ -131,15 +135,12 @@ class DetectionPipeline:
                  letter: bool = False, xnor_impl: str = "int8", mesh=None,
                  device_nms: bool = False, turbo=False, int8_impl: str = "xla",
                  pp_stages: int = 0, pp_microbatch: int = 1, pp_tp: int = 1,
-                 device="cuda", cuda_graph: bool = True):
+                 device="cuda", cuda_graph: bool = True,
+                 int8_chain: bool = True):
         if mesh is not None:
             raise _not_ported("a device mesh (-parallel/-tp/-sp)", "#12")
         if pp_stages > 1 or pp_tp > 1:
             raise _not_ported("pipeline parallelism (-pp/-pp_tp)", "#12")
-        if turbo:
-            raise _not_ported("-turbo / -turbo_int8", "#6")
-        if compute_dtype != torch.float32:
-            raise _not_ported(f"compute dtype {compute_dtype} (-bf16)", "#6")
         self.spec = spec
         self.thresh = thresh
         self.nms = nms
@@ -154,15 +155,21 @@ class DetectionPipeline:
         self._int8_policy = int8_policy
         self._xnor_impl = xnor_impl
         self._int8_impl = int8_impl
+        self._compute_dtype = compute_dtype
+        self._turbo = turbo
+        self._int8_chain = int8_chain
         self._cuda_graph = cuda_graph and self.device.type == "cuda"
         self._grow_lock = threading.Lock()
         self._run_lock = threading.Lock()
         self._fwd = build_forward(spec, mode, int8_policy=int8_policy,
-                                  xnor_impl=xnor_impl, int8_impl=int8_impl)
+                                  xnor_impl=xnor_impl, int8_impl=int8_impl,
+                                  compute_dtype=compute_dtype, turbo=turbo,
+                                  int8_chain=int8_chain)
         self.params = (params if _converted(params)
                        else device_params(spec, params, mode, self.device,
                                           int8_policy=int8_policy,
-                                          xnor_impl=xnor_impl))
+                                          xnor_impl=xnor_impl,
+                                          compute_dtype=compute_dtype))
         self.head_specs = [l for l in spec.layers
                            if isinstance(l, (YoloSpec, RegionSpec))]
         self.classes = self.head_specs[-1].classes
@@ -405,9 +412,11 @@ class DetectionPipeline:
             cached = DetectionPipeline(
                 self.spec, self.params, self._mode, thresh=self.thresh,
                 nms=self.nms, k=new_k, int8_policy=self._int8_policy,
-                letter=self.letter, xnor_impl=self._xnor_impl,
-                device_nms=self.device_nms, int8_impl=self._int8_impl,
-                device=self.device, cuda_graph=self._cuda_graph)
+                compute_dtype=self._compute_dtype, letter=self.letter,
+                xnor_impl=self._xnor_impl, device_nms=self.device_nms,
+                turbo=self._turbo, int8_impl=self._int8_impl,
+                device=self.device, cuda_graph=self._cuda_graph,
+                int8_chain=self._int8_chain)
             self._grown_cache = cached
         return cached
 
