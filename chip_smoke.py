@@ -104,6 +104,25 @@ Phases, each reported on its own lines:
    the largest difference of cuDNN's bfloat16 conv (the card's ``-bf16``)
    against the float32 conv of the same bfloat16 operands (the CPU's) at
    yolov3's float conv shapes.
+10. cpu_old and calibrate, on yolov2-voc-416 (``tests/data/yolov2-voc.cfg``,
+   random weights, seed 7, b=1, nothing cut): K1's "old" epilogue
+   (``-int8_policy cpu_old``, int8 input) against its plain twin, bit for
+   bit, in its float32, int8 and dual stores, leaky and linear, at
+   yolov2-voc's 12 int8 conv classes; the store the path launches at each
+   class timed beside its bound and ``torch._int_mm``. Then ``detector test
+   -quantized -int8_policy cpu_old`` through the CLI: one forward launches
+   K1 at every conv from 1 up to the linear head (21: 20 in
+   ``int8/old/int8``, 1 in ``int8/old/f32``), heads and detection lines of
+   the kernel path equal the plain path's; warm wall and device busy.
+   ``DetectionPipeline`` in cpu_old at b=1: graph replay == eager, K1's old
+   form launched in the capture, captured walls and device time. Last,
+   ``detector calibrate -calib_method device`` through the CLI over 8
+   synthetic PNGs: 23 finite positive multipliers written and parsed back
+   by the port's cfg; over the first 2 images the device method's saved
+   multipliers are within 0.02 of the host method's on the same card
+   activations, each image's multiplier of each conv lands on the host's
+   threshold bin or a neighbour, and each method's ms per image after its
+   set-up is printed.
 
 Every kernel time is printed beside the least time the card could take for
 the same work: the bytes the function must move (each input read once, each
@@ -118,11 +137,12 @@ Any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
 preceded by the card's name and power limit and, before that, a line with one
 JSON object describing each of the six TPU kernels' counterparts (after a
-``{"pipeline": ...}`` line with phase 8's numbers and the NMS walk's row, and
-a ``{"precision": ...}`` line with phase 9's): its launches on the main path,
-its time, the plain version's, the bound (sums over the shapes timed) and
-the library call's where there is one, and a row for each of K1's forms on
-the precision modes' path, with its launches there. Two Pallas functions
+``{"pipeline": ...}`` line with phase 8's numbers and the NMS walk's row, a
+``{"precision": ...}`` line with phase 9's and a ``{"cpu_old": ...}`` line
+with phase 10's): its launches on the main path, its time, the plain
+version's, the bound (sums over the shapes timed) and the library call's
+where there is one, and a row for each of K1's forms on the precision
+modes' and the cpu_old path, with its launches there. Two Pallas functions
 that compute one function share a Hopper kernel and its numbers.
 """
 
@@ -284,6 +304,35 @@ K1_OTHER_FORMS = ("bf16/cpu/f32", "f32/cpu/bf16", "bf16/gpu/bf16",
 GPU_CLASSES = {label for label, (_, _, _, _, _, ks, s, _) in SHAPES
                if (ks, s) == (3, 1)} | {"3x3/s2 416x416x32->208x208x64"}
 STORE_MULT = 12.5        # the int8 store's multiplier in the form checks
+# phase 10: -int8_policy cpu_old and detector calibrate on yolov2-voc-416
+VOC_CFG = os.path.join(DATA, "yolov2-voc.cfg")
+OLD_STORES = {"f32": torch.float32, "int8": torch.int8,
+              "f32+int8": int8_conv.OLD_BOTH}
+# (label, (B, H, W, C, M, ks, stride, pad), the store cpu_old takes there):
+# yolov2-voc-416's 12 int8 conv classes
+VOC_OLD_CLASSES = [
+    ("3x3/s1 208x208x32->64", (1, 208, 208, 32, 64, 3, 1, 1), "int8"),
+    ("3x3/s1 104x104x64->128", (1, 104, 104, 64, 128, 3, 1, 1), "int8"),
+    ("1x1/s1 104x104x128->64", (1, 104, 104, 128, 64, 1, 1, 0), "int8"),
+    ("3x3/s1 52x52x128->256", (1, 52, 52, 128, 256, 3, 1, 1), "int8"),
+    ("1x1/s1 52x52x256->128", (1, 52, 52, 256, 128, 1, 1, 0), "int8"),
+    ("3x3/s1 26x26x256->512", (1, 26, 26, 256, 512, 3, 1, 1), "int8"),
+    ("1x1/s1 26x26x512->256", (1, 26, 26, 512, 256, 1, 1, 0), "int8"),
+    ("3x3/s1 13x13x512->1024", (1, 13, 13, 512, 1024, 3, 1, 1), "int8"),
+    ("1x1/s1 13x13x1024->512", (1, 13, 13, 1024, 512, 1, 1, 0), "int8"),
+    ("3x3/s1 13x13x1024->1024", (1, 13, 13, 1024, 1024, 3, 1, 1), "int8"),
+    ("1x1/s1 26x26x512->64", (1, 26, 26, 512, 64, 1, 1, 0), "int8"),
+    ("3x3/s1 13x13x1280->1024", (1, 13, 13, 1280, 1024, 3, 1, 1), "f32"),
+]
+OLD_PATH_FORMS = {
+    "int8/old/int8": "cpu_old: int8 out to a conv, maxpool, route or reorg",
+    "int8/old/f32": "cpu_old: q/16 out to the linear head conv",
+}
+# K1's launches by form in one cpu_old forward of yolov2-voc-416: convs
+# 2-26 store int8, conv 29 (read by the linear head conv 30) float32
+OLD_EXPECT_FORMS = {"int8/old/int8": 20, "int8/old/f32": 1}
+OLD_THRESH = "0.01"      # random weights put few boxes above 0.25
+CALIB_IMAGES = 8
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 # name: (cfg, CLI flags, Predictor keywords, the launches of one forward,
 # whether no quantize or input copy may precede an int8 conv)
@@ -1601,6 +1650,325 @@ def phase_precision(tmp: str, weights: str, names_file: str,
             "bf16_conv": bf16_conv_diff()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: -int8_policy cpu_old and detector calibrate on yolov2-voc-416
+# ---------------------------------------------------------------------------
+
+
+def _old_operands(dev, seed: int, shape):
+    """One int8 conv class's int8 input and weights, with biases_quant and
+    an output_multipler at quantize_params' scales (q spans the leaky
+    branch, zero and the int8 clamp)."""
+    b, h, w, c, m, ks, _, _ = shape
+    rng = np.random.RandomState(seed)
+    x8 = torch.from_numpy(rng.randint(-127, 128, (b, h, w, c)).astype(
+        np.int8)).to(dev)
+    wt = torch.from_numpy(rng.randint(-127, 128, (m, ks, ks, c)).astype(
+        np.int8)).to(dev)
+    bq = torch.from_numpy((rng.randn(m) * 300).astype(np.float32)).to(dev)
+    mult = float(np.float32(rng.uniform(0.05, 0.4)) / ks)
+    return x8, wt, bq, mult
+
+
+def _old_conv(plain: bool, x8, wt, bq, mult: float, s: int, pad: int,
+              store: str, act: str = "leaky"):
+    fn = int8_conv.conv2d_int8_plain if plain else int8_conv.conv2d_int8_cuda
+    return fn(x8, wt, bq, mult, s, pad, act, semantics="old",
+              out_dtype=OLD_STORES[store])
+
+
+def phase_old_kernels() -> dict:
+    """K1's "old" epilogue against its plain twin, bit for bit, in its three
+    stores, leaky and linear, at yolov2-voc-416's 12 int8 conv classes; the
+    store the cpu_old path launches at a class timed beside its bound (int8
+    in; int8 or float32 out; biases_quant and the multiplier) and
+    ``torch._int_mm`` on the same gathered product."""
+    dev = torch.device("cuda")
+    rows = {form: [] for form in OLD_PATH_FORMS}
+    for i, (label, shape, path_store) in enumerate(VOC_OLD_CLASSES):
+        b, h, w, c, m, ks, s, pad = shape
+        x8, wt, bq, mult = _old_operands(dev, SEED + i, shape)
+        err = 0.0
+        for store in OLD_STORES:
+            for act in ("leaky", "linear"):
+                out = _old_conv(False, x8, wt, bq, mult, s, pad, store, act)
+                ref = _old_conv(True, x8, wt, bq, mult, s, pad, store, act)
+                torch.cuda.synchronize()
+                outs, refs = ((out, ref) if store == "f32+int8"
+                              else ((out,), (ref,)))
+                for o, r in zip(outs, refs):
+                    check(o.dtype == r.dtype and torch.equal(o, r),
+                          f"K1 int8/old/{store} != plain at {label} ({act})")
+                    err = max(err, float((o.float() - r.float()).abs().max()))
+        a = im2col_int8(x8, ks, s, pad)
+        wmat = wt.view(m, -1).t()
+        p = a.shape[0]
+        row = {"shape": label, "max_abs_err": err}
+        row["ms"] = event_ms(lambda: _old_conv(False, x8, wt, bq, mult, s,
+                                               pad, path_store))
+        row["plain_ms"] = event_ms(lambda: _old_conv(True, x8, wt, bq, mult,
+                                                     s, pad, path_store),
+                                   iters=10)
+        row["library_ms"] = event_ms(lambda: torch._int_mm(a, wmat))
+        row["bound_ms"], row["bound_by"] = bound(
+            x8.numel() + wt.numel() + 4 * m + 4
+            + _DTYPES[path_store].itemsize * p * m,
+            2.0 * p * m * ks * ks * c)
+        rows[f"int8/old/{path_store}"].append(row)
+        say("old", f"K1 int8/old at {label}: f32, int8 and f32+int8 stores "
+            f"bit-identical to plain, leaky and linear; path store "
+            f"{path_store}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f}, torch._int_mm {row['library_ms']:.4f} "
+            f"ms; bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of it")
+    for form, shapes in rows.items():
+        ms = sum(r["ms"] for r in shapes)
+        b_ms = sum(r["bound_ms"] for r in shapes)
+        say("old", f"K1 {form} ({OLD_PATH_FORMS[form]}): {len(shapes)} "
+            f"classes, kernel {ms:.4f} ms summed, plain "
+            f"{sum(r['plain_ms'] for r in shapes):.4f}, torch._int_mm "
+            f"{sum(r['library_ms'] for r in shapes):.4f} ms; bound "
+            f"{b_ms * 1e3:.2f} us, {100 * b_ms / ms:.1f}% of it")
+    return rows
+
+
+def check_voc_heads(heads, what: str) -> None:
+    check([h.index for h in heads] == [31], f"{what}: head layers")
+    check(tuple(heads[0].data.shape) == (1, 13, 13, 5, 5 + VOC_CLASSES),
+          f"{what}: head shape {tuple(heads[0].data.shape)}")
+    check(bool(torch.isfinite(heads[0].data).all()),
+          f"{what}: head has non-finite values")
+
+
+def _old_detect(tmp: str, weights: str, voc_file: str, voc: list) -> dict:
+    """``detector test -quantized -int8_policy cpu_old`` through the CLI:
+    launches of one forward, kernel path == plain path (heads and lines),
+    the warm forward's wall and device busy."""
+    int8_conv.reset_launch_counts()
+    rc, out, _ = run_cli(["detector", "test", voc_file, VOC_CFG, weights,
+                          IMAGE, "-quantized", "-int8_policy", "cpu_old",
+                          "-dont_show", "-thresh", OLD_THRESH, "-save",
+                          os.path.join(tmp, "pred_old")])
+    launches = {k: v for k, v in int8_conv.LAUNCH_COUNTS.items() if v}
+    forms = {k: v for k, v in int8_conv.FORM_LAUNCHES.items() if v}
+    pre = {k: v for k, v in int8_conv.PRE_LAUNCHES.items() if v}
+    check(rc == 0, f"detector test -int8_policy cpu_old exited {rc}")
+    text = detection_text(out)
+    spec, params, _ = detect.build_params(VOC_CFG, weights, quantized=True,
+                                          echo=False)
+    int8_set = network._int8_layer_set(spec, "cpu_old")
+    convs = [l.index for l in spec.conv_layers()]
+    check(sorted(int8_set) == [i for i in convs if 1 <= i < convs[-1]],
+          f"cpu_old int8 set {sorted(int8_set)}")
+    check(launches == {"int8_conv": len(int8_set)},
+          f"cpu_old: launches {launches} in one forward, expected "
+          f"{len(int8_set)} int8_conv")
+    check(forms == OLD_EXPECT_FORMS, f"cpu_old: K1 forms {forms}, expected "
+          f"{OLD_EXPECT_FORMS}")
+    check(len(text.splitlines()) > 0,
+          f"cpu_old: no detection line at thresh {OLD_THRESH}")
+    kernel = network.Predictor(spec, params, "int8", device="cuda",
+                               int8_policy="cpu_old")
+    plain = network.Predictor(spec, params, "int8", device="cuda",
+                              int8_policy="cpu_old", int8_impl="plain")
+    x = np.random.RandomState(SEED).rand(1, 416, 416, 3).astype(np.float32)
+    hk, hp = kernel(x), plain(x)
+    check_voc_heads(hk, "cpu_old kernel path")
+    check(torch.equal(hk[0].data, hp[0].data),
+          "cpu_old head: kernel path != plain path")
+    with contextlib.redirect_stdout(io.StringIO()):
+        dets, im, _ = detect.detect_image(plain, spec, IMAGE,
+                                          float(OLD_THRESH), 0.2, voc)
+    plain_text = post_boxes.format_detections(dets, voc, float(OLD_THRESH),
+                                              im.shape[1], im.shape[0])
+    check_same_lines(text, plain_text.rstrip("\n"),
+                     "cpu_old detection lines of the kernel and plain path")
+    wall = forward_ms(kernel, x)
+    xd = torch.from_numpy(x).cuda()
+    busy = busy_ms(lambda: kernel(xd), wall)
+    say("old", f"CLI -quantized -int8_policy cpu_old on yolov2-voc-416: "
+        f"launches in one forward {launches}, K1 forms {forms}, PyTorch "
+        f"quantize or copy launches {pre or 'none'} (the layer-0 requant "
+        f"is a quantize); {len(text.splitlines())} detection lines at "
+        f"thresh {OLD_THRESH}; heads and lines of the kernel and the plain "
+        f"path equal; warm b=1 forward {wall:.3f} ms (median, host clock, "
+        f"synchronised), device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.1f}% of the wall)")
+    return {"launches": launches, "forms": forms, "pre_launches": pre,
+            "detection_lines": len(text.splitlines()), "forward_ms": wall,
+            "busy_ms": busy, "spec": spec, "params": params}
+
+
+def _old_pipeline(spec, params) -> dict:
+    """DetectionPipeline in cpu_old at b=1: graph replay == eager, with K1's
+    old form launched inside the capture; walls and device time."""
+    args = dict(thresh=PIPE_THRESH, nms=PIPE_NMS, k=PIPE_K, device_nms=True,
+                device="cuda", int8_policy="cpu_old")
+    int8_conv.reset_launch_counts()
+    graphed = pipeline.DetectionPipeline(spec, params, "int8", **args)
+    eager = pipeline.DetectionPipeline(spec, graphed.params, "int8",
+                                       cuda_graph=False, **args)
+    frames = _frames(SEED + 2, 2)
+    x, other = frames[:1], frames[1:]
+    check(torch.equal(_bits(graphed.raw(x)), _bits(eager.raw(x))),
+          "cpu_old pipeline: graph replay != eager")
+    check(torch.equal(_bits(graphed.raw(other)), _bits(eager.raw(other))),
+          "cpu_old pipeline: replay on another frame != eager")
+    forms = {k: v for k, v in int8_conv.FORM_LAUNCHES.items() if v}
+    check(set(forms) == set(OLD_EXPECT_FORMS),
+          f"cpu_old pipeline: K1 forms {forms} at capture")
+    row = {"captured_ms": wall_ms(
+        lambda: pipeline._fetch_packed(graphed.raw(x)))}
+    row["eager_ms"] = wall_ms(lambda: pipeline._fetch_packed(eager.raw(x)),
+                              iters=10)
+    g = graphed._graphs[(tuple(x.shape), torch.uint8)]
+    row["busy_graph_ms"] = busy_ms(g.graph.replay, row["captured_ms"])
+    xd = torch.from_numpy(x).cuda()
+    row["busy_eager_ms"] = busy_ms(lambda: eager.run(xd), row["eager_ms"])
+    say("old", f"DetectionPipeline cpu_old b=1: graph replay bit-identical "
+        f"to eager (K1 forms at capture {forms}); wall per frame (uint8 "
+        f"{FRAME_W}x{FRAME_H} in, packed buffer out) captured "
+        f"{row['captured_ms']:.3f} ms, eager {row['eager_ms']:.3f} ms; "
+        f"device time {row['busy_graph_ms']:.3f} / "
+        f"{row['busy_eager_ms']:.3f} ms")
+    return row
+
+
+def _calib_dataset(tmp: str) -> str:
+    """CALIB_IMAGES random PNGs (as tests/test_calibrate_parity.py builds
+    its dataset, at 320x400, which the app resizes to 416x416), their valid
+    list and .data."""
+    from PIL import Image
+    root = os.path.join(tmp, "calibds")
+    os.makedirs(root)
+    rng = np.random.RandomState(SEED)
+    paths = []
+    for i in range(CALIB_IMAGES):
+        p = os.path.join(root, f"im{i}.png")
+        Image.fromarray((rng.rand(320, 400, 3) * 255).astype(np.uint8)).save(
+            p)
+        paths.append(p)
+    with open(os.path.join(root, "valid.txt"), "w") as f:
+        f.write("\n".join(paths) + "\n")
+    data = os.path.join(root, "voc.data")
+    with open(data, "w") as f:
+        f.write(f"classes={VOC_CLASSES}\nvalid={root}/valid.txt\n")
+    return data
+
+
+def _old_calibrate(tmp: str, weights: str) -> dict:
+    """``detector calibrate`` through the CLI (device method, 8 images); the
+    host and device methods on the same card activations over the first 2
+    images, within 0.02 of the host's multiplier; ms per image of each; the
+    written line parsed back by the port's cfg."""
+    from yolo2_light_tpu_torch.apps import calibrate
+    data = _calib_dataset(tmp)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(["detector", "calibrate", data, VOC_CFG,
+                                weights, "-input_calibration",
+                                str(CALIB_IMAGES), "-calib_method",
+                                "device"])
+        cli_s = time.perf_counter() - t0
+        check(rc == 0, f"detector calibrate exited {rc}")
+        with open(os.path.join(tmp, "input_calibration.txt")) as f:
+            line = f.read()
+    finally:
+        os.chdir(cwd)
+    check(out.endswith(line + " \n ---------------------------"),
+          "detector calibrate: the printed line is not the written one")
+    vals = line.split(" = ", 1)[1].split(", ")
+    mults = [float(v) for v in vals[:-1]]
+    check(len(mults) == 23 and vals[-1] == "16", f"calibration line {line}")
+    check(all(np.isfinite(m) and m > 0 for m in mults),
+          f"calibration multipliers not finite and positive: {mults}")
+    with open(VOC_CFG) as f:
+        text = f.read()
+    cal_cfg = os.path.join(tmp, "yolov2-voc-calibrated.cfg")
+    with open(cal_cfg, "w") as f:
+        f.write(text.replace("[net]\n", f"[net]\n{line}\n", 1))
+    with contextlib.redirect_stderr(io.StringIO()):
+        cspec = parse_network_cfg(cal_cfg, batch=1, quantized=True,
+                                  echo_table=False)
+    parsed = list(cspec.net.input_calibration)
+    check(parsed == mults + [16.0],
+          f"the port's cfg parses {parsed[:3]}... from the written line")
+
+    spec, params, _ = detect.build_params(VOC_CFG, weights, echo=False)
+    imgs = [im_io.resize_image(im_io.load_image(p, 3), 416, 416)
+            for p in sorted(glob.glob(os.path.join(tmp, "calibds",
+                                                   "*.png")))[:2]]
+    t_first = []
+
+    def timed_images():
+        """The images, the clock started when the app asks for the first
+        (after its forward is built and its weights are on the card)."""
+        for img in imgs:
+            if not t_first:
+                torch.cuda.synchronize()
+                t_first.append(time.perf_counter())
+            yield img
+
+    per_image = {}
+    got = {}
+    per_layer = {}
+    for method in ("device", "host"):
+        stdout = io.StringIO()
+        with contextlib.redirect_stderr(io.StringIO()):
+            with contextlib.redirect_stdout(io.StringIO()):
+                calibrate.calibrate_multipliers(spec, params, iter(imgs[:1]),
+                                                1, method)   # warm-up
+            t_first.clear()
+            with contextlib.redirect_stdout(stdout):
+                got[method] = calibrate.calibrate_multipliers(
+                    spec, params, timed_images(), len(imgs), method)
+            per_image[method] = ((time.perf_counter() - t_first[0]) * 1e3
+                                 / len(imgs))
+        per_layer[method] = [float(v) for v in re.findall(
+            r" multiplier = (\S+), l\.inputs", stdout.getvalue())]
+    worst = max(abs(d - h) / h for d, h in zip(got["device"], got["host"]))
+    check(worst <= 0.02, f"calibrate: device multipliers {got['device']} "
+          f"not within 0.02 of host {got['host']} (worst {worst:.4f})")
+    # each image's multiplier of each conv (its printed line): the device
+    # sweep lands on the host's threshold bin m, or on a neighbour, where
+    # multiplier = 127 / ((m + 0.5) / 16)
+    check(len(per_layer["device"]) == len(per_layer["host"]) == 23 * 2,
+          f"calibrate printed {len(per_layer['device'])} and "
+          f"{len(per_layer['host'])} multiplier lines, not 46")
+    bins = {m: [round(127 * 16 / v - 0.5) for v in per_layer[m]]
+            for m in per_layer}
+    bin_moves = [abs(d - h) for d, h in zip(bins["device"], bins["host"])]
+    check(max(bin_moves) <= 1, f"calibrate: device threshold bins "
+          f"{bins['device']} more than one bin from host {bins['host']}")
+    say("old", f"detector calibrate -calib_method device over "
+        f"{CALIB_IMAGES} images: 23 finite positive multipliers written "
+        f"({mults[0]:g} ... {mults[-1]:g}, CLI {cli_s:.1f} s with its set-up), "
+        f"parsed back by the port's cfg; over the first 2 images device and "
+        f"host agree within {100 * worst:.3f}% (bound 2%), "
+        f"{sum(m > 0 for m in bin_moves)} of 46 per-image multipliers one "
+        f"threshold bin off the host's (bound 1 bin); ms per image after "
+        f"set-up: device {per_image['device']:.1f}, "
+        f"host {per_image['host']:.1f}")
+    return {"multipliers": mults, "cli_s": cli_s, "ms_per_image": per_image,
+            "worst_rel_diff_2_images": worst,
+            "bins_moved_2_images": sum(m > 0 for m in bin_moves)}
+
+
+def phase_old(tmp: str) -> dict:
+    weights = os.path.join(tmp, "yolov2-voc.weights")
+    save_random_weights(VOC_CFG, weights, seed=SEED)
+    voc = [f"class_{i:02d}" for i in range(VOC_CLASSES)]
+    voc_file = os.path.join(tmp, "voc20-old.names")
+    with open(voc_file, "w") as f:
+        f.write("\n".join(voc) + "\n")
+    det = _old_detect(tmp, weights, voc_file, voc)
+    piped = _old_pipeline(det.pop("spec"), det.pop("params"))
+    return {"detect": det, "pipeline": piped,
+            "calibrate": _old_calibrate(tmp, weights)}
+
+
 def main() -> int:
     smi_line = phase_device()
     phase_build()
@@ -1624,6 +1992,8 @@ def main() -> int:
         piped = phase_pipeline(tmp)
         form_rows = phase_precision_kernels()
         precision = phase_precision(tmp, weights, names_file, names)
+        old_rows = phase_old_kernels()
+        old = phase_old(tmp)
     k1 = {
         "kernel": "int8_conv", "route": "cuda", "source": KERNEL_SOURCE,
         "launches": launches,
@@ -1698,8 +2068,24 @@ def main() -> int:
             **row_bound(shapes),
             "library_ms": sum(r["library_ms"] for r in shapes),
             "library": k1["library"], "shapes": shapes})
+    # K1's old forms on the cpu_old path (yolov2-voc-416): their launches in
+    # phase 10's detector test forward
+    for form, what in OLD_PATH_FORMS.items():
+        shapes = old_rows[form]
+        kernels.append({
+            "name": f"conv3x3_int8_tiled [{form}]", "kernel": "int8_conv",
+            "form": form, "what": what, "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "launches": old["detect"]["forms"][form],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": sum(r["ms"] for r in shapes),
+            "plain_ms": sum(r["plain_ms"] for r in shapes),
+            **row_bound(shapes),
+            "library_ms": sum(r["library_ms"] for r in shapes),
+            "library": k1["library"], "shapes": shapes})
     print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"precision": precision}), flush=True)
+    print(json.dumps({"cpu_old": old}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

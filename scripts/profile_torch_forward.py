@@ -8,14 +8,18 @@ fp32, and in the precision modes (``int8-gpu``: ``-int8_policy gpu``;
 ``int8-bf16``, ``bf16``), and tiny-yolo-obj_xnor-416
 (``tests/data/tiny-yolo-obj_xnor.cfg``) in each ``-xnor_kernel`` engine
 (``xnor-int8``, ``xnor-pallas``, ``xnor-pallas_mxu``, ``xnor-auto``) and
-under ``-turbo`` with ``pallas_mxu`` (``xnor-pallas_mxu-turbo``). Prints
+under ``-turbo`` with ``pallas_mxu`` (``xnor-pallas_mxu-turbo``), and
+yolov2-voc-416 (``tests/data/yolov2-voc.cfg``) in ``-int8_policy cpu_old``
+(``voc-int8-cpu_old``: the legacy all-int8 chain on K1's "old" epilogue),
+``-quantized`` (``voc-int8``) and fp32 (``voc-fp32``). Prints
 per mode: host wall time per forward (CUDA-synchronised,
 profiler off), device busy time per forward (sum of GPU kernel and copy time
 under ``torch.profiler``), their ratio, the device operations per forward,
 the device time of the largest kernels, and the port's hand-written kernels
 summed over their template instances. Needs one CUDA device.
 
-Usage: ``python scripts/profile_torch_forward.py [--seed 7] [--iters 20]``
+Usage: ``python scripts/profile_torch_forward.py [--seed 7] [--iters 20]
+[mode ...]`` (by default every mode).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from yolo2_light_tpu_torch.params import save_random_weights  # noqa: E402
 
 CFG = os.path.join(ROOT, "tests", "data", "yolov3.cfg")
 XNOR_CFG = os.path.join(ROOT, "tests", "data", "tiny-yolo-obj_xnor.cfg")
+VOC_CFG = os.path.join(ROOT, "tests", "data", "yolov2-voc.cfg")
 
 # name: (cfg, mode, Predictor keywords)
 MODES = {"int8": (CFG, "int8", {}),
@@ -58,6 +63,9 @@ MODES.update({f"xnor-{eng}": (XNOR_CFG, "fp32", {"xnor_impl": eng})
               for eng in ("int8", "pallas", "pallas_mxu", "auto")})
 MODES["xnor-pallas_mxu-turbo"] = (XNOR_CFG, "fp32", {"xnor_impl": "pallas_mxu",
                                                      "turbo": True})
+MODES.update({"voc-int8-cpu_old": (VOC_CFG, "int8", {"int8_policy": "cpu_old"}),
+              "voc-int8": (VOC_CFG, "int8", {}),
+              "voc-fp32": (VOC_CFG, "fp32", {})})
 # the kernels of yolo2_light_tpu_torch/csrc, as the profiler names them
 HAND_KERNELS = ("int8_conv_kernel", "fused_res_kernel", "xnor_popcount_kernel",
                 "xnor_mma_kernel")
@@ -116,7 +124,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("modes", nargs="*", help="modes to profile, of "
+                    f"{', '.join(MODES)} (default: all)")
     args = ap.parse_args(argv)
+    unknown = sorted(set(args.modes) - set(MODES))
+    if unknown:
+        ap.error(f"unknown modes {unknown}")
+    modes = args.modes or list(MODES)
     if not torch.cuda.is_available():
         print("profile_torch_forward: needs a CUDA device", file=sys.stderr)
         return 1
@@ -126,10 +140,10 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         weights = {}
-        for cfg in {m[0] for m in MODES.values()}:
+        for cfg in {MODES[m][0] for m in modes}:
             weights[cfg] = os.path.join(tmp, os.path.basename(cfg) + ".w")
             save_random_weights(cfg, weights[cfg], seed=args.seed)
-        for mode in MODES:
+        for mode in modes:
             profile_mode(weights[MODES[mode][0]], mode, args.seed, args.iters)
     return 0
 

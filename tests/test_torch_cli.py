@@ -148,7 +148,7 @@ def test_turbo_flag_guards_match_jax_cli(assets, capsys, flags):
     assert out_t == out_j == ""
 
 
-@pytest.mark.parametrize("sub", ["calibrate", "demo"])
+@pytest.mark.parametrize("sub", ["demo"])
 def test_other_apps_not_yet_ported(capsys, sub):
     rc, _, err = _run(torch_main, capsys,
                       ["detector", sub, "x.data", "x.cfg", "x.weights"])

@@ -728,10 +728,12 @@ PIPELINE_MODES = [("mini-yolo3", True, {}),
                   ("mini-res", True, {"int8_impl": "fused"}),
                   ("mini-yolo3", False, {}),
                   ("mini-xnor", False, {"xnor_impl": "pallas"}),
-                  ("mini-xnor", False, {"xnor_impl": "pallas_mxu"})]
-_MODE_IDS = ["int8", "int8-fused", "fp32", "xnor-pallas", "xnor-pallas_mxu"]
+                  ("mini-xnor", False, {"xnor_impl": "pallas_mxu"}),
+                  ("mini-calib", True, {"int8_policy": "cpu_old"})]
+_MODE_IDS = ["int8", "int8-fused", "fp32", "xnor-pallas", "xnor-pallas_mxu",
+             "int8-cpu_old"]
 _MODE_KERNELS = ["int8_conv", "fused_res_block", None, "xnor_gemm",
-                 "xnor_gemm_mxu"]
+                 "xnor_gemm_mxu", "int8_conv"]
 
 
 def _pipelines(dev, name, quantized, kw, **pkw):
@@ -967,3 +969,102 @@ def test_bf16_conv_does_not_depend_on_the_input_layout(dev):
     c = L.conv2d_fp32(dense, w, b, 1, 0, "linear",
                       compute_dtype=torch.bfloat16)
     assert torch.equal(a, c)
+
+
+# yolov2-voc-416's 12 int8 conv classes under -int8_policy cpu_old
+# (B, H, W, C, M, ks, stride, pad); the last one stores float32 on the main
+# path, the others int8
+YOLOV2_VOC_CLASSES = [
+    (1, 208, 208, 32, 64, 3, 1, 1), (1, 104, 104, 64, 128, 3, 1, 1),
+    (1, 104, 104, 128, 64, 1, 1, 0), (1, 52, 52, 128, 256, 3, 1, 1),
+    (1, 52, 52, 256, 128, 1, 1, 0), (1, 26, 26, 256, 512, 3, 1, 1),
+    (1, 26, 26, 512, 256, 1, 1, 0), (1, 13, 13, 512, 1024, 3, 1, 1),
+    (1, 13, 13, 1024, 512, 1, 1, 0), (1, 13, 13, 1024, 1024, 3, 1, 1),
+    (1, 26, 26, 512, 64, 1, 1, 0), (1, 13, 13, 1280, 1024, 3, 1, 1),
+]
+_OLD_STORES = {"f32": torch.float32, "int8": torch.int8,
+               "f32+int8": K.OLD_BOTH}
+
+
+@pytest.mark.parametrize("store", list(_OLD_STORES))
+@pytest.mark.parametrize("shape", YOLOV2_VOC_CLASSES + RAGGED,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_old_form_bit_identical_to_plain(dev, shape, store):
+    """K1's "old" epilogue (-int8_policy cpu_old) in each store against its
+    plain twin on the card and on the CPU, leaky and linear, at yolov2-voc's
+    12 int8 classes (K up to 11,520) and ragged shapes; biases_quant and
+    output_multipler at quantize_params' scales, so q spans the leaky
+    branch, the int8 clamp and zero."""
+    b, h, w, c, m, ks, stride, pad = shape
+    x, wt, _ = _operands(dev, h * c + m, b, h, w, c, m, ks)
+    rng = np.random.RandomState(m)
+    bq = torch.from_numpy((rng.randn(m) * 300).astype(np.float32)).to(dev)
+    mult = float(np.float32(rng.uniform(0.05, 0.4)) / ks)
+    kw = dict(semantics="old", out_dtype=_OLD_STORES[store])
+    for activation in ("leaky", "linear"):
+        K.reset_launch_counts()
+        out = K.conv2d_int8_cuda(x, wt, bq, mult, stride, pad, activation,
+                                 **kw)
+        assert K.FORM_LAUNCHES == {f"int8/old/{store}": 1}
+        ref = K.conv2d_int8_plain(x, wt, bq, mult, stride, pad, activation,
+                                  **kw)
+        cpu = K.conv2d_int8_plain(x.cpu(), wt.cpu(), bq.cpu(), mult, stride,
+                                  pad, activation, **kw)
+        torch.cuda.synchronize()
+        outs, refs, cpus = ((out, ref, cpu) if store == "f32+int8"
+                            else ((out,), (ref,), (cpu,)))
+        for o, r, cp in zip(outs, refs, cpus):
+            assert o.dtype == r.dtype and o.shape == r.shape
+            assert torch.equal(o, r), activation
+            assert torch.equal(o.cpu(), cp), activation
+        q8 = outs[-1] if store != "f32" else None
+        if q8 is not None and q8.numel() >= 4096:
+            assert bool((q8 == 127).any() or (q8 == -127).any())
+
+
+def test_k1_old_form_refuses_a_bf16_store(dev):
+    x, wt, bias = _operands(dev, 0, 1, 4, 4, 8, 8, 3)
+    with pytest.raises(TypeError, match="old epilogue stores"):
+        K.conv2d_int8_cuda(x, wt, bias, 0.1, 1, 1, semantics="old",
+                           out_dtype=torch.bfloat16)
+
+
+def _narrow_yolov2_voc(tmp_path, size=64, width_div=8):
+    import importlib.util
+    path = os.path.join(os.path.dirname(DATA), "..", "scripts",
+                        "gen_yolov2_voc_cfg.py")
+    spec = importlib.util.spec_from_file_location("gen_yolov2_voc_cfg", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    p = tmp_path / "yolov2-voc-narrow.cfg"
+    p.write_text(mod.render(size, width_div))
+    return str(p)
+
+
+@pytest.mark.parametrize("name", ["mini-calib", "narrow-yolov2-voc"])
+def test_cpu_old_kernel_path_equals_plain_path(dev, name, tmp_path):
+    """-int8_policy cpu_old on the card: one launch of K1's old form per
+    int8 conv, with the stores its readers take, heads equal to the plain
+    path's on the card, bit for bit."""
+    from yolo2_light_tpu_torch.models import network as TN
+    cfg = (os.path.join(DATA, "mini-calib.cfg") if name == "mini-calib"
+           else _narrow_yolov2_voc(tmp_path))
+    spec, params, _ = build_params(cfg, None, quantized=True, echo=False)
+    x = np.random.RandomState(2).rand(2, spec.net.h, spec.net.w,
+                                      3).astype(np.float32)
+    kernel = Predictor(spec, params, "int8", device=dev,
+                       int8_policy="cpu_old")
+    plain = Predictor(spec, params, "int8", device=dev,
+                      int8_policy="cpu_old", int8_impl="plain")
+    K.reset_launch_counts()
+    hk = kernel(x)
+    torch.cuda.synchronize()
+    int8_set = TN._int8_layer_set(spec, "cpu_old")
+    assert K.LAUNCH_COUNTS["int8_conv"] == len(int8_set)
+    want = {}
+    for store in TN._old_stores(spec, int8_set).values():
+        key = f"int8/old/{K._DTYPE_NAMES[store]}"
+        want[key] = want.get(key, 0) + 1
+    assert dict(K.FORM_LAUNCHES) == want
+    for a, b in zip(hk, plain(x)):
+        assert torch.equal(a.data, b.data), a.index

@@ -74,6 +74,44 @@ def test_every_cfg_parses_to_the_same_spec(path, quantized):
     _assert_same(dataclasses.asdict(t), dataclasses.asdict(j))
 
 
+def test_yolov2_voc_cfg_parses_as_jax_and_regenerates(tmp_path):
+    """tests/data/yolov2-voc.cfg (scripts/gen_yolov2_voc_cfg.py): the port's
+    parse equals the JAX parse layer for layer, in both modes; it is
+    darknet's yolov2-voc-416 (23 convs, 5 maxpools, the passthrough route /
+    reorg / route to 1280 channels at 13x13, a 20-class region head over 5
+    anchors); and the script writes the file byte for byte."""
+    import importlib.util
+    path = os.path.join(DATA, "yolov2-voc.cfg")
+    for quantized in (False, True):
+        j = JC.parse_network_cfg(path, batch=1, quantized=quantized)
+        t = TC.parse_network_cfg(path, batch=1, quantized=quantized)
+        for lt, lj in zip(t.layers, j.layers, strict=True):
+            assert type(lt).__name__ == type(lj).__name__
+            _assert_same(dataclasses.asdict(lt), dataclasses.asdict(lj),
+                         f"layer {lj.index}")
+        _assert_same(dataclasses.asdict(t.net), dataclasses.asdict(j.net))
+    kinds = [type(l).__name__ for l in t.layers]
+    assert (t.net.w, t.net.h, t.net.c) == (416, 416, 3) and len(kinds) == 32
+    assert kinds.count("ConvSpec") == 23 and kinds.count("MaxpoolSpec") == 5
+    assert t.layers[25].layers == (16,) and t.layers[28].layers == (27, 24)
+    assert (t.layers[28].out_c, t.layers[28].out_h) == (1280, 13)
+    head = t.layers[30]
+    assert (head.n, head.size, head.activation) == (125, 1, "linear")
+    region = t.layers[31]
+    assert (region.classes, region.n, region.softmax) == (20, 5, True)
+    assert all(l.activation == "leaky" and l.batch_normalize
+               for l in t.conv_layers()[:-1])
+    gen = os.path.join(os.path.dirname(DATA), "..", "scripts",
+                       "gen_yolov2_voc_cfg.py")
+    spec = importlib.util.spec_from_file_location("gen_yolov2_voc_cfg", gen)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = tmp_path / "yolov2-voc.cfg"
+    assert mod.main([str(out)]) == 0
+    with open(path) as f:
+        assert out.read_text() == f.read()
+
+
 def test_tree_map_and_datacfg_match(tmp_path):
     tree = tmp_path / "t.tree"
     tree.write_text("root\nanimal 0\nplant 0\ncat 1\ndog 1\noak 2\n")

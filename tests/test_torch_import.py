@@ -36,6 +36,8 @@ def test_port_modules_are_found():
               "yolo2_light_tpu_torch.apps.detect",
               "yolo2_light_tpu_torch.apps.cli",
               "yolo2_light_tpu_torch.apps.map",
+              "yolo2_light_tpu_torch.apps.calibrate",
+              "yolo2_light_tpu_torch.quant",
               "yolo2_light_tpu_torch.eval.map",
               "yolo2_light_tpu_torch.ops.nms_walk",
               "yolo2_light_tpu_torch.ops.resize",

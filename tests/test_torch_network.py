@@ -134,25 +134,41 @@ def test_int8_layer_set_and_consumers_match_jax():
         assert TN._consumers(tspec) == JN._consumers(spec)
 
 
+_OLD_YOLO = ("YoloSpec is not supported by the reference's old INT8 "
+             "pipeline")
+
+
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(mode="int8", int8_impl="fused", int8_policy="cpu_old"),
-     NotImplementedError, "int8_policy cpu_old"),
+     NotImplementedError, _OLD_YOLO),
     (dict(mode="int8", turbo="int4"), ValueError, "unknown turbo mode"),
     (dict(mode="int8", int8_policy="cpu_old"), NotImplementedError,
-     "int8_policy cpu_old"),
+     _OLD_YOLO),
     (dict(mode="fp32", turbo="fp8"), ValueError, "unknown turbo mode"),
     (dict(mode="fp32", turbo="int8"), ValueError, "requires int8 mode"),
     (dict(mode="fp32", compute_dtype=torch.float16), ValueError,
      "compute dtype"),
 ])
 def test_unported_modes_raise(kwargs, error, match):
-    """``cpu_old`` is not ported (ROADMAP Queue 1); the other cases are the
-    JAX package's mode gates (tests/test_turbo_int8.py::test_mode_gates):
-    an unknown turbo mode, turbo_int8 outside int8 mode, a compute dtype
-    other than float32 and bfloat16."""
-    spec = TC.parse_network_cfg(os.path.join(DATA, "mini-yolo3.cfg"), batch=1)
+    """``cpu_old`` on a yolov3-style net raises as JAX does: the reference's
+    old INT8 pipeline runs conv, maxpool, route, reorg and region layers
+    only, whatever ``int8_impl`` says (JAX ignores it there, and so does the
+    port); the port raises when the forward is built, JAX at the first such
+    layer of a forward, with the same message. The other cases are the JAX
+    package's mode gates (tests/test_turbo_int8.py::test_mode_gates): an
+    unknown turbo mode, turbo_int8 outside int8 mode, a compute dtype other
+    than float32 and bfloat16."""
+    cfg = os.path.join(DATA, "mini-yolo3.cfg")
+    spec = TC.parse_network_cfg(cfg, batch=1)
     with pytest.raises(error, match=match):
         TN.build_forward(spec, **kwargs)
+    if kwargs.get("int8_policy") == "cpu_old":
+        from yolo2_light_tpu.models import network as JN
+        jspec = parse_network_cfg(cfg, batch=1)
+        fwd = JN.build_forward(jspec, **kwargs)
+        x = np.zeros((1, jspec.net.h, jspec.net.w, 3), np.float32)
+        with pytest.raises(error, match=match):
+            fwd(JN.params_to_device(_params(jspec, "int8")), x)
 
 
 def test_unknown_engine_and_policy_are_value_errors():

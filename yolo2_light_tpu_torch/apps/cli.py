@@ -1,15 +1,19 @@
-"""Command-line interface with the reference's usage, ``detector test`` and
-``detector map`` (reference: main/run_detector, src/main.c:584-667):
+"""Command-line interface with the reference's usage, ``detector test``,
+``detector map`` and ``detector calibrate`` (reference: main/run_detector,
+src/main.c:584-667):
 
     python -m yolo2_light_tpu_torch detector test <names> <cfg> [weights] [image]
         [-thresh T] [-dont_show] [-quantized] [-int8_impl xla|pallas|fused]
         [-xnor_kernel int8|pallas|pallas_mxu|auto] [-letterbox] [-save PATH]
-        [-int8_policy cpu|gpu] [-bf16|-fp32] [-turbo|-turbo_int8]
+        [-int8_policy cpu|gpu|cpu_old] [-bf16|-fp32] [-turbo|-turbo_int8]
         [-device cuda|cpu]
     python -m yolo2_light_tpu_torch detector map <datacfg> <cfg> [weights]
         [-thresh T] [-iou_thresh F] [-quantized] [-int8_impl xla|pallas|fused]
-        [-batch N] [-k N] [-device_nms] [-int8_policy cpu|gpu] [-bf16|-fp32]
-        [-turbo|-turbo_int8] [-device cuda|cpu]
+        [-batch N] [-k N] [-device_nms] [-int8_policy cpu|gpu|cpu_old]
+        [-bf16|-fp32] [-turbo|-turbo_int8] [-device cuda|cpu]
+    python -m yolo2_light_tpu_torch detector calibrate <datacfg> <cfg>
+        [weights] [-input_calibration N] [-calib_method device|host]
+        [-device cuda|cpu]
 
 ``-int8_impl fused`` runs each darknet53 residual block as one launch of the
 fused kernel; ``xla`` and ``pallas`` run every int8 conv on the int8 conv
@@ -31,9 +35,20 @@ is the default float32); ``-turbo`` materializes the activations between
 layers as bfloat16 and ``-turbo_int8`` (with ``-quantized`` only) the
 residual trunk as int8, both TPU-native extensions of the JAX package, not
 reference semantics. ``-turbo`` and ``-turbo_int8`` together exit 1.
-``calibrate`` and ``demo``, and the JAX CLI's other flags (``-device_resize``
-and ``-uint8_ingest``/``-no_uint8_ingest`` are demo flags), are not yet
-ported: they exit non-zero and say so.
+``-int8_policy cpu_old`` (with ``-quantized``) runs the reference's legacy
+all-int8 chain (conv, maxpool, route, reorg and region layers only; the
+int8 convs on the int8 conv kernel's "old" epilogue); it ignores
+``-int8_impl``, ``-turbo`` and ``-bf16``, as the JAX package does.
+
+``calibrate`` writes ``input_calibration.txt`` from the KL entropy
+calibration of the fp32 forward's conv inputs over the first
+``-input_calibration N`` images of the ``valid=`` list (1000 by default):
+``-calib_method device`` (the default) sweeps on the device, ``host`` runs
+the reference's bit-exact host sweep (``apps/calibrate.py``).
+
+``demo`` and the JAX CLI's other flags (``-device_resize`` and
+``-uint8_ingest``/``-no_uint8_ingest`` are demo flags) are not yet ported:
+they exit non-zero and say so.
 """
 
 from __future__ import annotations
@@ -43,8 +58,7 @@ import sys
 _NOT_PORTED_FLAGS = ("-device_resize", "-uint8_ingest", "-no_uint8_ingest")
 _NOT_PORTED_VALUES = ("-pp", "-pp_tp", "-parallel", "-tp",
                       "-sp", "-params_cache", "-profile", "-i",
-                      "-c", "-s", "-prefix", "-out_filename",
-                      "-input_calibration", "-calib_method")
+                      "-c", "-s", "-prefix", "-out_filename")
 
 
 def _find_flag(args, name):
@@ -118,6 +132,8 @@ def _main(argv=None) -> int:
     int8_impl = _find_value(args, "-int8_impl", "xla")
     xnor_kernel = _find_value(args, "-xnor_kernel", "int8")
     device = _find_value(args, "-device", "cuda")
+    input_calibration = _find_value(args, "-input_calibration", 0, int)
+    calib_method = _find_value(args, "-calib_method", "device")
     if int8_impl not in ("xla", "pallas", "fused"):
         raise ValueError(f"unknown int8_impl {int8_impl!r} "
                          "(expected xla, pallas or fused)")
@@ -137,10 +153,10 @@ def _main(argv=None) -> int:
               "(detector test uses the reference host post-processing path)",
               file=sys.stderr)
         return 1
-    if sub in ("calibrate", "demo"):
+    if sub == "demo":
         raise NotImplementedError(
             f"detector {sub} is not yet ported to yolo2_light_tpu_torch")
-    if sub not in ("test", "map"):
+    if sub not in ("test", "map", "calibrate"):
         print(f"Not an option: {sub}", file=sys.stderr)
         return 1
     obj_names = args[1]
@@ -158,6 +174,23 @@ def _main(argv=None) -> int:
                   "plain PyTorch path", file=sys.stderr)
             return 1
 
+    if sub == "calibrate":
+        if bf16:
+            print("note: calibrate always runs fp32 (calibration statistics "
+                  "are precision-sensitive); -bf16 ignored", file=sys.stderr)
+        if calib_method == "device":
+            # the device sweep can land one threshold bin off the
+            # reference's serial accumulation (about 0.03% of a multiplier);
+            # the host method is the bit-exact one (quant.py)
+            print("note: -calib_method device (default) is fast but may "
+                  "differ from the reference by one threshold bin; use "
+                  "-calib_method host for bit-exact calibration",
+                  file=sys.stderr)
+        from .calibrate import validate_calibrate
+        validate_calibrate(obj_names, cfg, weights,
+                           input_calibration=input_calibration,
+                           method=calib_method, device=device)
+        return 0
     if sub == "map":
         from .map import validate_detector_map
         kw = {}

@@ -18,6 +18,13 @@
 //   y   = y > 0 ? y : 0.1f * y                          (leaky)
 //   store: f32; bf16 (round to nearest even); or int8 at out_mult,
 //   clamp(trunc(y * out_mult), +-127) (the int8 residual trunk's quantize)
+//   "old" epilogue (the reference's legacy all-int8 chain, -int8_policy
+//   cpu_old; alpha is the layer's output_multipler, bias its biases_quant):
+//   q   = clamp(trunc_div(acc, 2^shift), +-32767)
+//   q   = trunc(trunc(q * alpha) + bias[m])            (each step rounded)
+//   q   = q > 0 ? q : trunc(q / 10)                     (leaky)
+//   store: f32 q / 16, int8 clamp(q, +-127), or both in one pass (the f32
+//   one to out, the int8 one to out2): the consumer picks
 //
 // Layouts: x NHWC (float32 or bfloat16 for the float-input forms, int8 for
 // the int8-input form that the Pallas signatures and the int8 chain use),
@@ -105,17 +112,20 @@ constexpr int kMaxDevices = 64;
 
 // input forms (the kernel's template argument) and stores
 enum { kInI8 = 0, kInF32 = 1, kInBf16 = 2 };
-enum { kStoreF32 = 0, kStoreBf16 = 1, kStoreI8 = 2 };
+enum { kStoreF32 = 0, kStoreBf16 = 1, kStoreI8 = 2, kStoreF32I8 = 3 };
+enum { kCpu = 0, kGpu = 1, kOld = 2 };   // the epilogues
 
 struct ConvArgs {
   const void* x;            // int8, f32 or bf16 NHWC
   const int8_t* w;          // [M][ks][ks][C]
   const float* bias;        // [M]
   void* out;                // [B][OH][OW][M] in the store's type
+  int8_t* out2;             // kStoreF32I8's int8 output, [B][OH][OW][M]
   int B, H, W, C, M, OH, OW, ks, stride, pad;
-  float in_mult, alpha;     // alpha: the "gpu" epilogue's inv
-  int shift, leaky, gpu, store;
-  float out_mult;           // the int8 store's multiplier
+  float in_mult, alpha;     // alpha: the "gpu" epilogue's inv, the "old"
+                            // one's output_multipler
+  int shift, leaky, semantics, store;
+  float out_mult;           // the int8 store's multiplier (1 for "old")
   int tile_h, tile_w;       // 0, 0: flat pixel tiles (1x1/s1/p0)
   int halo_h, halo_w, nhr;  // halo rows staged per slab
   int tiles_y, tiles_x;     // spatial tiles per image
@@ -130,14 +140,16 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
   else i8mma::cp_async_wait<2>();
 }
 
-// Four epilogue values of channels m..m+3 stored at element `o` of the
-// output in the store's type: one 16-, 8- or 4-byte store where M % 4 == 0,
-// else one element at a time up to M.
-__device__ __forceinline__ void store4(const ConvArgs& a, size_t o, int m,
+// Four epilogue values of channels m..m+3 stored at element `o` of `out`
+// in the type of `store` (kStoreF32, kStoreBf16 or kStoreI8 at out_mult):
+// one 16-, 8- or 4-byte store where M % 4 == 0, else one element at a time
+// up to M.
+__device__ __forceinline__ void store4(const ConvArgs& a, int store,
+                                       void* out, size_t o, int m,
                                        const float (&y)[4]) {
   const bool vec = (a.M & 3) == 0;
-  if (a.store == kStoreF32) {
-    float* dst = static_cast<float*>(a.out) + o;
+  if (store == kStoreF32) {
+    float* dst = static_cast<float*>(out) + o;
     if (vec) {
       *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
     } else {
@@ -145,8 +157,8 @@ __device__ __forceinline__ void store4(const ConvArgs& a, size_t o, int m,
       for (int j = 0; j < 4; ++j)
         if (m + j < a.M) dst[j] = y[j];
     }
-  } else if (a.store == kStoreBf16) {
-    uint16_t* dst = static_cast<uint16_t*>(a.out) + o;
+  } else if (store == kStoreBf16) {
+    uint16_t* dst = static_cast<uint16_t*>(out) + o;
     if (vec) {
       *reinterpret_cast<uint2*>(dst) =
           make_uint2(bf16_bits(y[0]) | bf16_bits(y[1]) << 16,
@@ -157,7 +169,7 @@ __device__ __forceinline__ void store4(const ConvArgs& a, size_t o, int m,
         if (m + j < a.M) dst[j] = static_cast<uint16_t>(bf16_bits(y[j]));
     }
   } else {
-    int8_t* dst = static_cast<int8_t*>(a.out) + o;
+    int8_t* dst = static_cast<int8_t*>(out) + o;
     if (vec) {
       *reinterpret_cast<int32_t*>(dst) = quantize_pack4(
           make_float4(y[0], y[1], y[2], y[3]), a.out_mult);
@@ -455,12 +467,28 @@ int8_conv_kernel(const ConvArgs a) {
       gp = (img * a.OH + oy) * a.OW + ox;
     }
     const int sv[4] = {sum[it].x, sum[it].y, sum[it].z, sum[it].w};
+    const size_t o = static_cast<size_t>(gp) * a.M + m;
     float y[4];
+    if (a.semantics == kOld) {
+      // q: the int8 store takes it at multiplier 1, the f32 store q / 16
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        y[j] = old_epilogue(sv[j], a.shift, a.alpha, bq[j], a.leaky);
+      if (a.store == kStoreI8 || a.store == kStoreF32I8)
+        store4(a, kStoreI8, a.store == kStoreI8 ? a.out : a.out2, o, m, y);
+      if (a.store != kStoreI8) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) y[j] = __fmul_rn(y[j], 0.0625f);
+        store4(a, kStoreF32, a.out, o, m, y);
+      }
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      y[j] = a.gpu ? gpu_epilogue(sv[j], a.alpha, bq[j], a.leaky)
-                   : requant_epilogue(sv[j], a.shift, a.alpha, bq[j], a.leaky);
-    store4(a, static_cast<size_t>(gp) * a.M + m, m, y);
+      y[j] = a.semantics == kGpu
+                 ? gpu_epilogue(sv[j], a.alpha, bq[j], a.leaky)
+                 : requant_epilogue(sv[j], a.shift, a.alpha, bq[j], a.leaky);
+    store4(a, a.store, a.out, o, m, y);
   }
   // no block may leave while a peer still reads its partial tile
   if (split > 1) cluster.sync();
@@ -494,9 +522,13 @@ cudaError_t configure(int device) {
 // aligned; 1: float32, 16-byte aligned; 2: bfloat16, 8-byte aligned),
 // w [M,ks,ks,C] int8 (4-byte aligned), bias [M] f32, out [B,OH,OW,M] (store
 // 0: float32, 16-byte aligned; 1: bfloat16, 8-byte aligned; 2: int8 at
-// out_mult, 4-byte aligned). gpu 0 runs the "cpu" requant epilogue with
-// alpha and shift, gpu 1 the "gpu" one with alpha = inv. Requires C % 4 == 0
-// and B*H*W, B*OH*OW < 2^31. The launch plan comes from
+// out_mult, 4-byte aligned; 3, "old" only: float32 to out, 16-byte aligned,
+// and int8 to out2 [B,OH,OW,M], 4-byte aligned). semantics 0 runs the "cpu"
+// requant epilogue with alpha and shift, 1 the "gpu" one with alpha = inv,
+// 2 the "old" one with alpha = output_multipler and bias = biases_quant,
+// which stores q / 16 as float32 and clamp(q, +-127) as int8 (stores 0, 2
+// and 3; out_mult is not read). Requires C % 4 == 0 and B*H*W, B*OH*OW <
+// 2^31. The launch plan comes from
 // ops/int8_conv.plan_launch: tile_h x tile_w output tiles (0 x 0: flat
 // 64-pixel tiles, for 1x1/s1/p0 only), `split` blocks per cluster (1-8, at
 // most the number of 32-channel slabs), `stages` ring stages (2-4).
@@ -504,12 +536,12 @@ cudaError_t configure(int device) {
 // for a plan whose tiles do not fit.
 extern "C" int int8_conv_nhwc(const void* x, int x_form, float input_mult,
                               const void* w, const void* bias, void* out,
-                              int B, int H, int W, int C, int M, int OH,
-                              int OW, int ks, int stride, int pad,
-                              float alpha, int shift, int leaky, int gpu,
-                              int store, float out_mult, int tile_h,
-                              int tile_w, int split, int stages, int device,
-                              void* stream) {
+                              void* out2, int B, int H, int W, int C, int M,
+                              int OH, int OW, int ks, int stride, int pad,
+                              float alpha, int shift, int leaky,
+                              int semantics, int store, float out_mult,
+                              int tile_h, int tile_w, int split, int stages,
+                              int device, void* stream) {
   const long long P = static_cast<long long>(B) * OH * OW;
   if (P == 0 || M == 0) return 0;
   ConvArgs a = {};
@@ -517,15 +549,19 @@ extern "C" int int8_conv_nhwc(const void* x, int x_form, float input_mult,
   a.w = static_cast<const int8_t*>(w);
   a.bias = static_cast<const float*>(bias);
   a.out = out;
+  a.out2 = static_cast<int8_t*>(out2);
   a.B = B; a.H = H; a.W = W; a.C = C; a.M = M; a.OH = OH; a.OW = OW;
   a.ks = ks; a.stride = stride; a.pad = pad;
   a.in_mult = input_mult; a.alpha = alpha; a.shift = shift; a.leaky = leaky;
-  a.gpu = gpu != 0; a.store = store; a.out_mult = out_mult;
+  a.semantics = semantics; a.store = store;
+  a.out_mult = semantics == kOld ? 1.0f : out_mult;
   const bool flat = tile_h == 0 && tile_w == 0;
   const bool x_float = x_form != kInI8;
   if (C % 4 || ks < 1 || stride < 1 || split < 1 || split > kMaxSplit ||
       x_form < kInI8 || x_form > kInBf16 || store < kStoreF32 ||
-      store > kStoreI8 ||
+      store > kStoreF32I8 || semantics < kCpu || semantics > kOld ||
+      (semantics == kOld && store == kStoreBf16) ||
+      (store == kStoreF32I8 && (semantics != kOld || out2 == nullptr)) ||
       stages < 2 || stages > kMaxStages ||
       (flat && (ks != 1 || stride != 1 || pad != 0)) ||
       (!flat && (tile_h < 1 || tile_w < 1 || tile_h * tile_w > kBP)))
@@ -561,7 +597,9 @@ extern "C" int int8_conv_nhwc(const void* x, int x_form, float input_mult,
   if (smem > kMaxSmem || split > a.slabs ||
       tiles * split > 0x7fffffffLL || (M + kBM - 1) / kBM > 65535 ||
       (x_form == kInF32 && xa % 16) || (x_form == kInBf16 && xa % 8) ||
-      oa % (store == kStoreF32 ? 16 : store == kStoreBf16 ? 8 : 4))
+      oa % (store == kStoreF32 || store == kStoreF32I8 ? 16
+            : store == kStoreBf16 ? 8 : 4) ||
+      reinterpret_cast<uintptr_t>(out2) % 4)
     return static_cast<int>(cudaErrorInvalidValue);
 
   cudaError_t err = cudaSetDevice(device);

@@ -187,6 +187,39 @@ def conv2d_int8(x, weights_int8, biases, stride: int, pad: int,
     return y
 
 
+def conv2d_int8_old(x_int8, weights_int8, biases_quant, output_multipler,
+                    stride: int, pad: int, activation: str, r_mult: int = 32,
+                    plain: bool = False, *, store=int8_conv.OLD_BOTH):
+    """Legacy fully-INT8 conv (reference: forward_convolutional_layer_q_old,
+    src/yolov2_forward_network_quantized.c:636-801, unreachable from its
+    CLI), int8 in, int8 and/or float out:
+
+      q1 = clamp(trunc_div(acc_int32, R_MULT), +-32767)
+      q2 = trunc(q1 * output_multipler)
+      q3 = trunc(q2 + biases_quant)
+      q4 = leaky: q3 > 0 ? q3 : trunc(q3 / 10)
+      returns (float_out = q4 / 16, int8_out = clamp(q4, +-127))
+
+    ``store`` names the outputs to make: ``int8_conv.OLD_BOTH`` (both, the
+    JAX function's pair), ``torch.float32`` or ``torch.int8``; an output
+    left out is None in the returned pair. Each call is one launch of the
+    int8 kernel's "old" epilogue (``ops/int8_conv``, both stores in one
+    pass) for a CUDA tensor; ``plain=True`` runs its plain PyTorch version
+    instead. ``weights_int8``: ``[M, kh, kw, C]``."""
+    if activation not in ("leaky", "linear"):
+        raise NotImplementedError(activation)
+    if not (plain or x_int8.is_contiguous()):
+        if x_int8.is_cuda:
+            int8_conv.PRE_LAUNCHES["input_copy"] += 1
+        x_int8 = x_int8.contiguous()
+    conv = int8_conv.conv2d_int8_plain if plain else int8_conv.conv2d_int8
+    y = conv(x_int8, weights_int8, biases_quant, output_multipler, stride,
+             pad, activation, r_mult, semantics="old", out_dtype=store)
+    if store == int8_conv.OLD_BOTH:
+        return y
+    return (y, None) if store == torch.float32 else (None, y)
+
+
 def conv2d_xnor(x, sign_weights, mean_arr, biases, stride: int, pad: int,
                 activation: str):
     """XNOR (BIT1) conv as a dense +-1 convolution, the ``-xnor_kernel int8``
@@ -222,6 +255,23 @@ def conv2d_xnor(x, sign_weights, mean_arr, biases, stride: int, pad: int,
 # ---------------------------------------------------------------------------
 
 
+def _maxpool_from(x, size: int, stride: int, lo: int, out_w: int,
+                  out_h: int, fill: float):
+    """Max over ``size`` x ``size`` windows of NHWC ``x`` whose origin is
+    ``-lo``, out-of-bounds positions at ``fill``. An integer ``x`` pools in
+    float32, which holds every int8 value exactly (PyTorch's max_pool2d
+    takes no int8); a channels-last input gives a dense NHWC output."""
+    h, w = x.shape[1], x.shape[2]
+    hi_h = max(0, (out_h - 1) * stride + size - lo - h)
+    hi_w = max(0, (out_w - 1) * stride + size - lo - w)
+    y = x.permute(0, 3, 1, 2)
+    if not x.is_floating_point():
+        y = y.to(torch.float32)
+    y = F.pad(y, (lo, hi_w, lo, hi_h), value=fill)
+    y = F.max_pool2d(y, size, stride)
+    return y.permute(0, 2, 3, 1)[:, :out_h, :out_w, :].to(x.dtype)
+
+
 def maxpool(x, size: int, stride: int, pad: int, out_w: int, out_h: int):
     """Darknet maxpool: out = (in + pad - size)//stride + 1, window origin at
     ``-pad//2`` (reference: forward_maxpool_layer_avx, src/additionally.c:1041-1133:
@@ -231,20 +281,19 @@ def maxpool(x, size: int, stride: int, pad: int, out_w: int, out_h: int):
 
     An integer ``x`` (the int8 chain) pools with out-of-bounds positions at
     ``iinfo.min``, which never beats a real (>= -127) value: the exact
-    commute with the float path. It pools in float32, which holds every
-    int8 value exactly (PyTorch's max_pool2d takes no int8)."""
-    h, w = x.shape[1], x.shape[2]
-    lo = pad // 2
-    hi_h = max(0, (out_h - 1) * stride + size - lo - h)
-    hi_w = max(0, (out_w - 1) * stride + size - lo - w)
+    commute with the float path."""
     integer = not x.is_floating_point()
     fill = float(torch.iinfo(x.dtype).min) if integer else float("-inf")
-    y = x.permute(0, 3, 1, 2)
-    if integer:
-        y = y.to(torch.float32)
-    y = F.pad(y, (lo, hi_w, lo, hi_h), value=fill)
-    y = F.max_pool2d(y, size, stride)
-    return y.permute(0, 2, 3, 1)[:, :out_h, :out_w, :].to(x.dtype)
+    return _maxpool_from(x, size, stride, pad // 2, out_w, out_h, fill)
+
+
+def maxpool_int8_old(x_int8, size: int, stride: int, pad: int,
+                     out_w: int, out_h: int):
+    """Legacy int8 maxpool (reference: forward_maxpool_layer_q,
+    src/yolov2_forward_network_quantized.c:806-849): window origin at
+    ``-pad`` (NOT -pad/2 like the fp32 path, ROADMAP F4), out-of-bounds
+    values are MIN_INT8 (-128)."""
+    return _maxpool_from(x_int8, size, stride, pad, out_w, out_h, -128.0)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,14 @@ Ported modes:
   reference's bit path; every other XNOR conv takes the dense engine), and
   ``auto`` a per-layer pick between ``pallas_mxu`` and ``int8`` on the GEMM
   M = batch*oh*ow. All engines are bit-identical.
+* ``int8`` with ``int8_policy="cpu_old"``: the reference's legacy
+  all-int8 chain (``build_forward_int8_old``): int8 activations between the
+  layers, each int8 conv one launch of the int8 kernel's "old" epilogue,
+  storing the float and/or int8 output its consumers read.
+
+``capture_conv_inputs`` returns the input of every conv in
+``aux["conv_inputs"]`` (``detector calibrate``'s statistics), with the
+fused engine off, as in the JAX package.
 
 The int8 chain (``int8_chain``, on by default as in the JAX ``Predictor``):
 the JAX package quantizes a layer's output for its unique downstream int8
@@ -84,12 +92,13 @@ class HeadOutput(NamedTuple):
 
 
 def _int8_layer_set(spec: ModelSpec, policy: str) -> set:
-    """Indices of the convs that run the int8 path under ``policy``."""
+    """Indices of the convs that run the int8 path under ``policy``
+    ("cpu_old" runs the same convs as "cpu" in its legacy chain)."""
     out = set()
     for l in spec.layers:
         if not isinstance(l, ConvSpec):
             continue
-        if policy == "cpu":
+        if policy in ("cpu", "cpu_old"):
             if l.index >= 1 and l.activation != "linear":
                 out.add(l.index)
         elif policy == "gpu":
@@ -250,9 +259,17 @@ def _check_ported(spec: ModelSpec, mode: str, int8_policy: str,
         raise ValueError(
             "turbo='int8' (turbo_int8) requires int8 mode: the trunk scales "
             "come from the conv input_quant_multipler values")
-    if mode == "int8" and int8_policy == "cpu_old":
-        raise _not_ported("-int8_policy cpu_old")
     int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else set()
+    if mode == "int8" and int8_policy == "cpu_old":
+        # the old chain runs no XNOR, fused or turbo path and reads no
+        # softmax tree, as in the JAX package; other layer types raise there
+        for l in spec.layers:
+            if not isinstance(l, _OLD_LAYERS):
+                raise NotImplementedError(
+                    f"{type(l).__name__} is not supported by the reference's "
+                    "old INT8 pipeline (src/yolov2_forward_network_quantized."
+                    "c:1121-1133 comments it out)")
+        return int8_set
     for l in spec.layers:
         if isinstance(l, SoftmaxSpec):
             raise _not_ported(f"[softmax] layer {l.index}")
@@ -335,21 +352,29 @@ def _xnor_engine(l: ConvSpec, xnor_impl: str, batch: int) -> str:
     return xnor_impl if _bit_path(l) else "int8"
 
 
-def _dropped_fields(l, int8_set: set, xnor_impl: str) -> frozenset:
+def _dropped_fields(l, int8_set: set, xnor_impl: str,
+                    old: bool = False) -> frozenset:
     """Converted params a layer's path does not read: an int8 conv keeps its
     int8 weights (and ignores xnor=1), a float conv its float weights, an
-    XNOR conv the weights of the engines ``xnor_impl`` may give it."""
+    XNOR conv the weights of the engines ``xnor_impl`` may give it. Only the
+    ``cpu_old`` chain (``old``) reads ``biases_quant``, in its int8 convs,
+    which read no float biases; it reads no XNOR field."""
     xnor_fields = {"sign_weights", "packed_weights", "mean_arr"}
+    if old:
+        if l.index in int8_set:
+            return frozenset({"weights", "biases"} | xnor_fields)
+        return frozenset({"weights_int8", "biases_quant"} | xnor_fields)
     if l.index in int8_set:
-        return frozenset({"weights"} | xnor_fields)
+        return frozenset({"weights", "biases_quant"} | xnor_fields)
     if not (isinstance(l, ConvSpec) and l.xnor):
-        return frozenset({"weights_int8"})
+        return frozenset({"weights_int8", "biases_quant"})
     keep = {"mean_arr"}
     if xnor_impl in ("int8", "auto") or not _bit_path(l):
         keep.add("sign_weights")
     if xnor_impl != "int8" and _bit_path(l):
         keep.add("packed_weights")
-    return frozenset({"weights", "weights_int8"} | (xnor_fields - keep))
+    return frozenset({"weights", "weights_int8", "biases_quant"}
+                     | (xnor_fields - keep))
 
 
 def _block_args(p1: dict, p2: dict) -> dict:
@@ -363,17 +388,22 @@ def _block_args(p1: dict, p2: dict) -> dict:
 def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                   int8_policy: str = "cpu", int8_impl: str = "xla",
                   xnor_impl: str = "int8", compute_dtype=torch.float32,
-                  turbo=False, int8_chain: bool = True):
+                  turbo=False, int8_chain: bool = True,
+                  capture_conv_inputs: bool = False):
     """Return ``forward(params, x) -> (heads, aux)``.
 
     ``x``: [B, H, W, C] float32, NHWC, values in [0,1]. ``params``: the
     per-layer list of ``params.params_to_torch``. ``heads`` is a tuple of
     HeadOutput (float32 in every mode); ``aux["final"]`` is the last layer's
-    output. The modes and the int8 chain are in the module docstring.
+    output, and with ``capture_conv_inputs`` ``aux["conv_inputs"]`` the
+    input of every conv in order. The modes and the int8 chain are in the
+    module docstring.
     """
     int8_set = _check_ported(spec, mode, int8_policy, int8_impl, xnor_impl,
                              compute_dtype, turbo)
     plain = int8_impl in ("plain", "fused_plain")
+    if mode == "int8" and int8_policy == "cpu_old":
+        return build_forward_int8_old(spec, plain=plain)
     residual_dtype = resolve_residual_dtype(turbo)
     int8_resid = residual_dtype == "int8"
     # the bfloat16 store of turbo; the int8 trunk is materialized by the
@@ -386,7 +416,8 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
     # its convs on the int8 conv kernel
     fused_runs = (_fused_stage_runs(spec, int8_set)
                   if mode == "int8" and int8_impl in ("fused", "fused_plain")
-                  and int8_policy == "cpu" else {})
+                  and int8_policy == "cpu" and not capture_conv_inputs
+                  else {})
     fused_skip = {idx for run in fused_runs.values()
                   for blk in run for idx in blk} - set(fused_runs)
     # outputs a route or a shortcut reads; every other one is dropped once
@@ -413,6 +444,7 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
         # quantize of the layer's float output
         i8_outputs: dict[int, tuple] = {}
         heads: list[HeadOutput] = []
+        conv_inputs: list[torch.Tensor] = []
         cur = x
         cur_i8 = None                        # (tensor or None, target) or None
 
@@ -482,6 +514,8 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                 continue
             if isinstance(l, ConvSpec):
                 p = params[i]
+                if capture_conv_inputs:
+                    conv_inputs.append(cur)
                 # an int8-eligible conv runs the int8 path even with xnor=1,
                 # as the reference's quantized forwards have no xnor branch
                 if l.xnor and i not in int8_set:
@@ -606,7 +640,134 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                 outputs[i] = cur
             if i not in route_srcs:
                 i8_outputs.pop(i, None)
-        return tuple(heads), {"final": cur}
+        aux = {"final": cur}
+        if capture_conv_inputs:
+            aux["conv_inputs"] = conv_inputs
+        return tuple(heads), aux
+
+    return forward
+
+
+# the layer types the reference's old INT8 pipeline executes
+_OLD_LAYERS = (ConvSpec, MaxpoolSpec, RouteSpec, ReorgSpec, RegionSpec)
+# the hardcoded requantization of layer 0's float output
+# (src/yolov2_forward_network_quantized.c:1147)
+_OLD_LAYER0_MULT = 3.88677
+
+
+def _old_stores(spec: ModelSpec, int8_set: set) -> dict:
+    """For each int8 conv of the old chain, the store its readers need:
+    ``int8_conv.OLD_BOTH``, torch.float32 or torch.int8. The float output
+    feeds a following float conv (a LINEAR one) or region head and the
+    forward's final output; the int8 output feeds a following int8 conv,
+    maxpool or reorg, any route that names the layer, and what reads a
+    region's int8 output, which is its predecessor's. A conv nothing reads
+    stores int8."""
+    reads_f, reads_i8 = {spec.n - 1}, set()
+    for l in reversed(spec.layers):
+        i = l.index
+        if isinstance(l, RouteSpec):
+            reads_i8.update(l.layers)
+        if i == 0:
+            continue
+        if isinstance(l, RegionSpec):
+            reads_f.add(i - 1)
+            if i in reads_i8:
+                reads_i8.add(i - 1)
+        elif isinstance(l, ConvSpec) and i not in int8_set:
+            reads_f.add(i - 1)
+        elif not isinstance(l, RouteSpec):
+            reads_i8.add(i - 1)
+    out = {}
+    for i in int8_set:
+        f, q = i in reads_f, i in reads_i8
+        out[i] = (int8_conv.OLD_BOTH if f and q
+                  else torch.float32 if f else torch.int8)
+    return out
+
+
+def build_forward_int8_old(spec: ModelSpec, plain: bool = False):
+    """Legacy fully-INT8 pipeline (reference: yolov2_forward_network_q_old +
+    network_predict_quantized_old,
+    src/yolov2_forward_network_quantized.c:1092-1211, present in the
+    reference but unreachable from its CLI), the JAX package's
+    ``build_forward_int8_old``.
+
+    int8 activations chain between layers: maxpool (window origin ``-pad``,
+    ``layers.maxpool_int8_old``), route and reorg run on int8. Convs with
+    LINEAR activation and layer 0 run float32 (on the float output of their
+    predecessor, q / 16 after an int8 conv, zeros after a maxpool, route or
+    reorg); layer 0's output is requantized with the reference's hardcoded
+    3.88677; a float conv after layer 0 leaves a zero int8 output. Every
+    other conv is one launch of the int8 kernel's "old" epilogue
+    (``plain``: its plain twin), which stores what its readers take
+    (``_old_stores``): both outputs in one launch where both are read.
+    Only conv, maxpool, route, reorg and region layers run, as in the
+    reference (``_check_ported`` raises for the others).
+    """
+    int8_set = _int8_layer_set(spec, "cpu_old")
+    stores = _old_stores(spec, int8_set)
+    route_srcs = {j for l in spec.layers if isinstance(l, RouteSpec)
+                  for j in l.layers}
+    L.set_fp32_precision()
+
+    def zeros(shape, dtype, like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+
+    def forward(params, x):
+        # cur_f / cur_i8 hold a layer's float and int8 outputs (one shape);
+        # None stands for zeros (a float conv's int8 output, a maxpool's,
+        # route's or reorg's float output) or an output nothing reads
+        int8_outs: dict[int, torch.Tensor] = {}
+        heads: list[HeadOutput] = []
+        cur_f, cur_i8, shape = x, None, tuple(x.shape)
+
+        def f_in():
+            return cur_f if cur_f is not None else zeros(shape,
+                                                         torch.float32, x)
+
+        def i8_in():
+            return cur_i8 if cur_i8 is not None else zeros(shape,
+                                                           torch.int8, x)
+
+        for l in spec.layers:
+            i = l.index
+            if isinstance(l, ConvSpec):
+                p = params[i]
+                if i in int8_set:
+                    cur_f, cur_i8 = L.conv2d_int8_old(
+                        i8_in(), p["weights_int8"], p["biases_quant"],
+                        p["output_multipler"], l.stride, l.pad,
+                        l.activation, plain=plain, store=stores[i])
+                else:
+                    bn = None
+                    if "scales" in p:
+                        bn = (p["scales"], p["rolling_mean"],
+                              p["rolling_variance"])
+                    cur_f = L.conv2d_fp32(f_in(), p["weights"], p["biases"],
+                                          l.stride, l.pad, l.activation,
+                                          bn=bn)
+                    cur_i8 = (L.quantize_i8(cur_f, _OLD_LAYER0_MULT)
+                              if i == 0 else None)
+                shape = (shape[0], l.out_h, l.out_w, l.n)
+            elif isinstance(l, MaxpoolSpec):
+                cur_i8 = L.maxpool_int8_old(i8_in(), l.size, l.stride, l.pad,
+                                            l.out_w, l.out_h)
+                cur_f, shape = None, tuple(cur_i8.shape)
+            elif isinstance(l, RouteSpec):
+                cur_i8 = torch.cat([int8_outs[j] for j in l.layers], dim=-1)
+                cur_f, shape = None, tuple(cur_i8.shape)
+            elif isinstance(l, ReorgSpec):
+                cur_i8 = L.reorg(i8_in(), l.stride, l.reverse)
+                cur_f, shape = None, tuple(cur_i8.shape)
+            else:   # RegionSpec; the int8 output passes through
+                y5 = L.region_head(f_in(), l.n, l.classes, l.coords,
+                                   l.softmax)
+                cur_f = y5.reshape(shape)
+                heads.append(HeadOutput(i, "region", y5))
+            if i in route_srcs:
+                int8_outs[i] = i8_in()
+        return tuple(heads), {"final": f_in()}
 
     return forward
 
@@ -617,10 +778,14 @@ def device_params(spec: ModelSpec, params: list, mode: str, device, *,
     """``params`` on ``device`` through ``params.params_to_torch``, each conv
     keeping only the weights of the path it runs: in int8 mode the int8
     convs their int8 weights, an XNOR conv those of its engines; the float
-    convs' weights in ``compute_dtype``."""
+    convs' weights in ``compute_dtype`` (float32 under ``cpu_old``)."""
     int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else ()
-    drops = [_dropped_fields(l, int8_set, xnor_impl) for l in spec.layers]
-    return params_to_torch(params, device, drops, compute_dtype)
+    old = mode == "int8" and int8_policy == "cpu_old"
+    drops = [_dropped_fields(l, int8_set, xnor_impl, old)
+             for l in spec.layers]
+    # the old chain's float convs run in float32 whatever compute_dtype says
+    return params_to_torch(params, device, drops,
+                           torch.float32 if old else compute_dtype)
 
 
 def load_kernels(spec: ModelSpec, mode: str, *, int8_policy: str = "cpu",
@@ -632,6 +797,8 @@ def load_kernels(spec: ModelSpec, mode: str, *, int8_policy: str = "cpu",
     int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else ()
     if mode == "int8":
         int8_conv.load_kernel()
+        if int8_policy == "cpu_old":   # the old chain runs K1 alone
+            return
         if int8_impl == "fused":
             fused_res.load_kernel()
     if any(isinstance(l, ConvSpec) and l.xnor and _bit_path(l)

@@ -20,10 +20,21 @@ src/yolov2_forward_network_gpu.cu:143-315): no requant,
     y = acc * inv + bias,   inv = 1 / (input_mult * weights_mult)
     y = y > 0 ? y : 0.1 * y         (leaky)
 
-Each step rounds on its own, in both epilogues. The store is float32,
+``semantics="old"`` (``-int8_policy cpu_old``, the reference's legacy
+all-int8 chain, forward_convolutional_layer_q_old,
+src/yolov2_forward_network_quantized.c:636-801; ``alpha`` is the layer's
+``output_multipler``, ``bias`` its ``biases_quant``):
+
+    q = clamp(trunc_div(acc, R_MULT), +-32767)
+    q = trunc(trunc(q * output_multipler) + biases_quant)
+    q = q > 0 ? q : trunc(q / 10)   (leaky; linear skips it)
+
+Each step rounds on its own, in every epilogue. The store is float32,
 bfloat16 (``out_dtype``, round to nearest even: the turbo modes' narrowed
 activations) or int8 at ``out_mult`` (``clamp(trunc(y * out_mult), +-127)``,
-the int8 residual trunk's quantize).
+the int8 residual trunk's quantize). The "old" epilogue stores ``q / 16``
+as float32, ``clamp(q, +-127)`` as int8, or both in one launch
+(``out_dtype=OLD_BOTH``): the consumer decides which it reads.
 
 It takes every int8-eligible conv of a darknet net (size 1 or 3, stride 1
 or 2; sizes up to 5 where the tiles fit), not only the 3x3/s1/p1 case the
@@ -69,12 +80,14 @@ FORM_LAUNCHES: collections.Counter = collections.Counter()
 
 _KERNEL = "int8_conv"
 _EPILOGUES = ("leaky", "linear")
-SEMANTICS = ("cpu", "gpu")
+SEMANTICS = ("cpu", "gpu", "old")
+# the "old" epilogue's two stores in one launch: (float32 q / 16, int8 q)
+OLD_BOTH = (torch.float32, torch.int8)
 # the kernel's input forms and stores (csrc/int8_conv.cu's enums)
 _X_FORMS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
-_STORES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_STORES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, OLD_BOTH: 3}
 _DTYPE_NAMES = {torch.int8: "int8", torch.float32: "f32",
-                torch.bfloat16: "bf16"}
+                torch.bfloat16: "bf16", OLD_BOTH: "f32+int8"}
 
 # the kernel's fixed geometry (csrc/int8_conv.cu)
 SM_COUNT = 132           # H100 SXM
@@ -240,8 +253,16 @@ def _check_epilogue(activation: str, semantics: str = "cpu") -> None:
                          f"got {semantics!r}")
 
 
-def _check_store(out_dtype, out_mult) -> None:
-    if out_dtype not in _STORES:
+def _check_store(out_dtype, out_mult, semantics: str = "cpu") -> None:
+    if semantics == "old":
+        if out_dtype not in (torch.float32, torch.int8, OLD_BOTH):
+            raise TypeError("the old epilogue stores float32, int8 or both "
+                            f"(OLD_BOTH), got {out_dtype}")
+        if out_mult is not None:
+            raise ValueError("the old epilogue's int8 store is clamp(q): it "
+                             "takes no out_mult")
+        return
+    if out_dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise TypeError(f"int8 conv store must be float32, bfloat16 or int8, "
                         f"got {out_dtype}")
     if (out_dtype == torch.int8) != (out_mult is not None):
@@ -300,6 +321,32 @@ def gpu_epilogue_plain(acc: torch.Tensor, bias: torch.Tensor, inv: float,
     return y
 
 
+def old_epilogue_plain(acc: torch.Tensor, bias: torch.Tensor, mult: float,
+                       activation: str, r_mult: int = 32) -> torch.Tensor:
+    """The "old" flavor: requant, then ``trunc(q * mult)``, ``trunc(q +
+    bias)`` and the ``trunc(q / 10)`` leaky, each rounded on its own
+    (``mult``: the layer's output_multipler, ``bias`` its biases_quant);
+    returns q, integers held in float32."""
+    q = requantize(acc, r_mult).to(torch.float32)
+    q = torch.trunc(q * mult)
+    q = torch.trunc(q + bias)
+    if activation == "leaky":
+        ten = torch.tensor(10.0, dtype=torch.float32, device=q.device)
+        q = torch.where(q > 0, q, torch.trunc(q / ten))
+    return q
+
+
+def old_store_plain(q: torch.Tensor, out_dtype=torch.float32):
+    """The "old" epilogue's stores of q: float32 ``q / 16``, int8
+    ``clamp(q, +-127)``, or both (``OLD_BOTH``) as a tuple."""
+    f = q / 16.0 if out_dtype != torch.int8 else None
+    i8 = (torch.clamp(q, -127, 127).to(torch.int8)
+          if out_dtype != torch.float32 else None)
+    if out_dtype == OLD_BOTH:
+        return f, i8
+    return f if out_dtype == torch.float32 else i8
+
+
 def store_plain(y: torch.Tensor, out_dtype=torch.float32,
                 out_mult: float | None = None) -> torch.Tensor:
     """The kernel's store: float32 as is, bfloat16 rounded to nearest even,
@@ -316,10 +363,16 @@ def conv2d_int8_plain(x_int8, w, bias, alpha: float, stride: int, pad: int,
                       out_mult: float | None = None):
     """``alpha``: the epilogue's scale, R_MULT / (input_mult * weights_mult)
     under ``semantics="cpu"``, 1 / (input_mult * weights_mult) under
-    ``"gpu"``."""
+    ``"gpu"``, the layer's output_multipler under ``"old"`` (whose ``bias``
+    is its biases_quant and whose ``out_dtype`` may be ``OLD_BOTH``, a
+    (float32, int8) pair of outputs)."""
     _check_epilogue(activation, semantics)
-    _check_store(out_dtype, out_mult)
+    _check_store(out_dtype, out_mult, semantics)
     acc = int8_conv_acc_plain(x_int8, w, stride, pad)
+    if semantics == "old":
+        return old_store_plain(
+            old_epilogue_plain(acc, bias, alpha, activation, r_mult),
+            out_dtype)
     if semantics == "gpu":
         y = gpu_epilogue_plain(acc, bias, alpha, activation)
     else:
@@ -351,7 +404,7 @@ def load_kernel():
     fn = _build.load(_KERNEL).int8_conv_nhwc
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                    + [ctypes.c_float] + [ctypes.c_int] * 4
                    + [ctypes.c_float] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
@@ -364,7 +417,7 @@ def _launch(name: str, x, w, bias, input_mult, alpha: float, stride: int,
     """Check the operands of either entry and launch the kernel on the
     current stream of ``x``'s device."""
     _check_epilogue(activation, semantics)
-    _check_store(out_dtype, out_mult)
+    _check_store(out_dtype, out_mult, semantics)
     float_input = input_mult is not None
     if not (x.is_cuda and w.device == x.device and bias.device == x.device):
         raise ValueError(f"{name}: x, w and bias must lie on one CUDA device")
@@ -401,7 +454,11 @@ def _launch(name: str, x, w, bias, input_mult, alpha: float, stride: int,
     if plan is None:
         plan = plan_launch(b, h, wd, c, m, ks, stride, pad, x_form)
     shift = _shift_of(r_mult)
-    out = torch.empty((b, oh, ow, m), dtype=out_dtype, device=x.device)
+    both = out_dtype == OLD_BOTH
+    out = torch.empty((b, oh, ow, m), dtype=torch.float32 if both
+                      else out_dtype, device=x.device)
+    out2 = (torch.empty((b, oh, ow, m), dtype=torch.int8, device=x.device)
+            if both else None)
     kernel = load_kernel()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     LAUNCH_COUNTS[_KERNEL] += 1
@@ -409,14 +466,15 @@ def _launch(name: str, x, w, bias, input_mult, alpha: float, stride: int,
     rc = kernel(
         x.data_ptr(), _X_FORMS[x.dtype],
         1.0 if input_mult is None else float(input_mult), w.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, h, wd, c, m, oh, ow, ks, stride,
-        pad, alpha, shift, int(activation == "leaky"),
-        int(semantics == "gpu"), _STORES[out_dtype],
+        bias.data_ptr(), out.data_ptr(), None if out2 is None
+        else out2.data_ptr(), b, h, wd, c, m, oh, ow, ks, stride, pad, alpha,
+        shift, int(activation == "leaky"), SEMANTICS.index(semantics),
+        _STORES[out_dtype],
         1.0 if out_mult is None else float(out_mult), plan.tile_h,
         plan.tile_w, plan.split, plan.stages, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: cudaError {rc}")
-    return out
+    return (out, out2) if both else out
 
 
 def conv2d_int8_cuda(x_int8, w, bias, alpha: float, stride: int, pad: int,

@@ -27,7 +27,7 @@ def save_random_weights(cfgfile: str, path: str, seed: int = 0) -> None:
     save_weights(spec, random_params(spec, seed=seed), path)
 
 _FLOAT_KEYS = ("biases", "scales", "rolling_mean", "rolling_variance",
-               "mean_arr")
+               "mean_arr", "biases_quant")
 
 
 def layer_to_torch(p: dict, device, drop=frozenset(),
@@ -37,15 +37,17 @@ def layer_to_torch(p: dict, device, drop=frozenset(),
     * ``weights`` HWIO float32 -> ``[O, I, kh, kw]`` (PyTorch's conv layout)
       in ``weights_dtype`` (bfloat16 for ``-bf16``'s float convs, cast once
       here instead of at every forward);
-    * ``biases``, unfused BN vectors and the XNOR ``mean_arr`` -> float32
-      tensors;
+    * ``biases``, unfused BN vectors, the XNOR ``mean_arr`` and the
+      ``cpu_old`` epilogue's ``biases_quant`` -> float32 tensors;
     * with INT8 fields: ``weights_int8`` HWIO -> ``[M, kh, kw, C]`` (the
       kernel's layout), ``input_quant_multipler``, ``alpha`` =
       float32(R_MULT) / (float32(in_mult) * float32(w_mult)) (the "cpu"
       epilogue's scale) and ``inv`` = float32(1) / (float32(in_mult) *
       float32(w_mult)) (the "gpu" epilogue's, JAX's float32
       ``1.0 / (input_mult * weights_mult)``) as Python floats holding
-      float32 values, rounded as the JAX path rounds them;
+      float32 values, rounded as the JAX path rounds them, and, where the
+      params carry it, ``output_multipler`` (the "old" epilogue's scale) as
+      a Python float holding its float32 value;
     * with XNOR fields: ``sign_weights`` HWIO +-1 -> float32
       ``[O, I, kh, kw]`` (the dense engine's), and ``packed_weights``, the
       bit kernels' ``[M, kh, kw, C32]`` int32 packed from ``sign_weights``
@@ -68,6 +70,8 @@ def layer_to_torch(p: dict, device, drop=frozenset(),
                                  p["weights_quant_multipler"], R_MULT)
         out["inv"] = alpha_f32(p["input_quant_multipler"],
                                p["weights_quant_multipler"], 1)
+        if "output_multipler" in p:
+            out["output_multipler"] = float(np.float32(p["output_multipler"]))
     if "sign_weights" in p:
         sign = np.asarray(p["sign_weights"], np.int8)
         if "sign_weights" not in drop:

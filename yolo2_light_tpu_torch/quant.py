@@ -1,5 +1,7 @@
 # Mirrors yolo2_light_tpu/quant.py up to entropy_calibration (its NumPy
-# part): a copy, so that the port imports nothing of the JAX package.
+# part): a copy, so that the port imports nothing of the JAX package. Its
+# device half (activation_histogram, entropy_calibration_multipliers) is
+# written anew in PyTorch below.
 """INT8 post-training quantization: multiplier heuristics + weight quantization +
 TensorRT-style KL entropy calibration.
 
@@ -12,6 +14,7 @@ W_MAX_VAL = I_MAX_VAL = 127, R_MAX_VAL = 32767, R_MULT = 32.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .cfg import ConvSpec, ModelSpec
 
@@ -185,3 +188,107 @@ def entropy_calibration(arr: np.ndarray, bin_width: float = 1.0 / 16,
         print(f" mult = {float(m32):g}, threshold = {float(t32):g}, "
               f"min_m = {float(min_m):g}, m_index = {float(m_index):g} ")
     return float(127.0 / threshold)
+
+
+# ---------------------------------------------------------------------------
+# On-device calibration (the JAX package's fast path, in PyTorch)
+# ---------------------------------------------------------------------------
+#
+# The reference calibrates on the CPU per image per conv layer with an
+# O(max_bin^2) threshold sweep (src/yolov2_forward_network_quantized.c:
+# 1292-1398). The device method builds each conv input's |x| histogram on the
+# device and sweeps the KL thresholds there too, so only one float per conv
+# comes back to the host. Same math in float32: ties and rounding can pick a
+# neighbouring threshold bin (the multiplier moves by about 0.03%); the host
+# method (entropy_calibration above) stays the bit-exact one.
+
+
+# Elements of one chunk's [L, chunk, max_bin] planes in the KL sweep: on a
+# CUDA device, and on any other.
+SWEEP_CHUNK_ELEMENTS_CUDA = 2 ** 25
+SWEEP_CHUNK_ELEMENTS = 2 ** 22
+
+
+def activation_histogram(x: torch.Tensor, bin_width: float = 1.0 / 16,
+                         max_bin: int = 4096) -> torch.Tensor:
+    """|x| histogram with ``max_bin`` bins of ``bin_width`` on ``x``'s
+    device: bin = floor(float32(|x| / bin_width) + 0.5), saturated into the
+    last bin (the reference's lround, src/yolov2_forward_network_quantized.c:
+    1309-1317). Returns [max_bin] float32 counts. The counts are integers
+    (``torch.bincount``), exact in any order; they equal the JAX package's
+    float scatter-add bit for bit while no bin passes 2**24."""
+    v = torch.abs(x.reshape(-1).to(torch.float32)) * float(1.0 / bin_width)
+    bins = torch.clamp(torch.floor(v + 0.5), max=max_bin - 1).to(torch.int64)
+    return torch.bincount(bins, minlength=max_bin).to(torch.float32)
+
+
+def entropy_calibration_multipliers(hists: torch.Tensor,
+                                    bin_width: float = 1.0 / 16
+                                    ) -> torch.Tensor:
+    """KL threshold sweep over a stack of histograms [L, max_bin] ->
+    multipliers [L] float32, on the histograms' device: the JAX package's
+    ``entropy_calibration_multipliers`` (the math of
+    :func:`entropy_calibration` in float32), in PyTorch ops.
+
+    The candidate thresholds i in [128, max_bin) run in chunks, all layers
+    at once, each chunk's [L, chunk, max_bin] planes at most
+    ``SWEEP_CHUNK_ELEMENTS_CUDA`` elements on a CUDA device and
+    ``SWEEP_CHUNK_ELEMENTS`` elsewhere: the [3968, 4096] plane of every
+    layer is never held at once.
+    Each quantized bin qbin(i, j) = min(lround_f32(j / (i/128)), 127) is a
+    contiguous run of j, so its per-j sums come from a reverse cummin over
+    the run ends and a forward cummax over the run starts of the cumsums,
+    frozen at the candidate (no gathers, no scatters), as in JAX."""
+    hists = hists.to(torch.float32)
+    n_layers, max_bin = hists.shape
+    dev = hists.device
+    max_elements = (SWEEP_CHUNK_ELEMENTS_CUDA if dev.type == "cuda"
+                    else SWEEP_CHUNK_ELEMENTS)
+    chunk = max(1, max_elements // (n_layers * max_bin))
+    j = torch.arange(max_bin, device=dev)
+    jf = j.to(torch.float32)
+    flt_min = 1.1754944e-38
+    big = 3.4e38
+    csH = torch.cumsum(hists, dim=1)                       # [L, J]
+    nzf = (hists != 0).to(torch.float32)
+    csNZ = torch.cumsum(nzf, dim=1)
+    total = csH[:, -1:, None]                              # [L, 1, 1]
+    kls = []
+    for c0 in range(128, max_bin, chunk):
+        cands = torch.arange(c0, min(c0 + chunk, max_bin), device=dev)
+        qw = cands.to(torch.float32)[:, None] / 128.0      # [C, 1]
+        qbin = torch.clamp(torch.floor(jf[None, :] / qw + 0.5),
+                           max=127).to(torch.int32)        # [C, J]
+        ones = torch.ones((len(cands), 1), dtype=torch.bool, device=dev)
+        is_start = torch.cat([ones, qbin[:, 1:] != qbin[:, :-1]], dim=1)
+        is_end = torch.cat([is_start[:, 1:], ones], dim=1)
+        in_range = j[None, :] < cands[:, None]             # [C, J]
+        cs_at_i = csH[:, cands - 1][:, :, None]            # [L, C, 1]
+        csn_at_i = csNZ[:, cands - 1][:, :, None]
+
+        def seg_sum(cs, left_excl, frozen):
+            hi = torch.flip(torch.cummin(torch.flip(torch.where(
+                is_end, cs[:, None, :], big), [2]), dim=2).values, [2])
+            lo = torch.cummax(torch.where(is_start, left_excl[:, None, :],
+                                          -big), dim=2).values
+            return torch.minimum(hi, frozen) - torch.minimum(lo, frozen)
+
+        quant_q = seg_sum(csH, csH - hists, cs_at_i)
+        quant_cnt = seg_sum(csNZ, csNZ - nzf, csn_at_i)
+        P = torch.where(in_range, hists[:, None, :], 0.0)  # [L, C, J]
+        Q = torch.where(P != 0, quant_q / torch.clamp(quant_cnt, min=1.0),
+                        0.0)
+        last = j[None, :] == cands[:, None] - 1
+        P = torch.where(last, P + (total - cs_at_i), P)
+        sum_p = P.sum(dim=2, keepdim=True)
+        sum_q = Q.sum(dim=2, keepdim=True)
+        Pn, Qn = P / sum_p, Q / sum_q
+        kl = torch.where(in_range, Pn * torch.log((Pn + flt_min)
+                                                 / (Qn + flt_min)),
+                         0.0).sum(dim=2)                   # [L, C]
+        kls.append(torch.where((sum_p[..., 0] == 0) | (sum_q[..., 0] == 0),
+                               float("inf"), kl))
+    m_index = torch.argmin(torch.cat(kls, dim=1), dim=1) + 128
+    threshold = (m_index.to(torch.float32) + 0.5) * float(
+        np.float32(bin_width))
+    return 127.0 / threshold
