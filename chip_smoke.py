@@ -8,7 +8,7 @@ Phases, each reported on its own lines:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as nvidia-smi reports them.
-2. build: compiles the five kernels of ``yolo2_light_tpu_torch/csrc``, one
+2. build: compiles the six kernels of ``yolo2_light_tpu_torch/csrc``, one
    nvcc per source, all started together (each build and the phase timed).
 3. kernels: the int8 conv kernel in both input forms (f32 input quantized
    in its loader, the network's path; pre-quantized int8 input, the Pallas
@@ -70,11 +70,11 @@ Phases, each reported on its own lines:
    equal the per-frame calls. The detections of 8 frames at the net's size
    (b=8) must print the lines ``detect_image`` (eager forward, host decode
    and NMS) prints for the same frames as PNGs, as multisets; a line may
-   differ only by one print count in a box field, in at most 1% of the lines;
-   under ``-bf16`` both at b=1, since cuDNN's bf16 conv, rounded to bf16,
-   picks its algorithm by the batch too
+   differ only by one print count in a box field, in at most 1% of the lines
    (F7: CUDA's expf against the host's; the print's sort by left edge may
-   then swap two boxes with near-equal left edges). Random weights (seed 7) with
+   then swap two boxes with near-equal left edges); under ``-bf16`` each
+   frame of the b=8 batch must also print the lines it prints alone (K6's
+   batch invariance). Random weights (seed 7) with
    ``sparse_head_biases`` (a copy of bench.py's) at a head objectness bias
    the script calibrates per mode so that about 300 candidates of a frame
    pass detector map's thresh 0.005. Prints each mode's wall per batch, captured
@@ -96,14 +96,15 @@ Phases, each reported on its own lines:
    ``-quantized -turbo`` (71, with no quantize launch or input copy in
    front: K1 reads and stores bf16), ``-quantized -turbo_int8`` (71),
    ``-quantized -turbo_int8 -int8_impl fused`` (23 ``fused_res_block`` and 25
-   ``int8_conv``), ``-quantized -bf16`` (71) and ``-bf16`` (none), and on
-   tiny-yolo-obj_xnor-416 with ``-turbo -xnor_kernel pallas_mxu`` (7 K4):
-   head maps and detection lines of the kernel path equal those of the
-   plain path on the card (``fused_plain`` for the fused engine, whose runs
-   keep a float32 interior under ``-turbo_int8``); warm b=1 forwards. Last,
-   the largest difference of cuDNN's bfloat16 conv (the card's ``-bf16``)
-   against the float32 conv of the same bfloat16 operands (the CPU's) at
-   yolov3's float conv shapes.
+   ``int8_conv``), ``-quantized -bf16`` (71, and 4 of K6) and ``-bf16`` (75
+   of K6), and on tiny-yolo-obj_xnor-416 with ``-turbo -xnor_kernel
+   pallas_mxu`` (7 K4): head maps and detection lines of the kernel path
+   equal those of the plain path on the card (``fused_plain`` for the fused
+   engine, whose runs keep a float32 interior under ``-turbo_int8``; under
+   ``-bf16`` the plain path runs K6's plain twin, whose float32 sums differ
+   in order: heads and lines held at limits set from a sound run's readings,
+   ``check_bf16_heads`` and ``check_bf16_lines``; under ``-quantized -bf16``
+   both sides run K6, so K1 is held bit for bit); warm b=1 forwards.
 10. cpu_old and calibrate, on yolov2-voc-416 (``tests/data/yolov2-voc.cfg``,
    random weights, seed 7, b=1, nothing cut): K1's "old" epilogue
    (``-int8_policy cpu_old``, int8 input) against its plain twin, bit for
@@ -123,6 +124,34 @@ Phases, each reported on its own lines:
    activations, each image's multiplier of each conv lands on the host's
    threshold bin or a neighbour, and each method's ms per image after its
    set-up is printed.
+11. bf16, demo, tree, profile. K6 (``csrc/bf16_conv.cu``, -bf16's float
+   convs: bfloat16 operands, float32 sums) against its plain twin (the
+   float32 conv of the same bfloat16 operands, TF32 off, cuDNN
+   deterministic) at each of yolov3-416's 23 conv shapes at b=1 and b=8:
+   every output within K * 2**-23 * sum |x * w| (K = ks*ks*C, the
+   float32-accumulate bound of two orders of the same sum), and image 0 of
+   the b=8 result bit-identical to the b=1 result; timed at b=1 beside its
+   bound, the plain twin, cuDNN's bfloat16 conv (``library_ms``) and cuDNN's
+   float32 conv of the bfloat16 operands. ``detector test -bf16`` through
+   the CLI on yolov3-416: 75 K6 launches a forward (``-quantized -bf16``: 4
+   beside K1's 71), each of the forward's convs within the bound on the
+   input the forward gives it, the heads near the plain path's
+   (``check_bf16_heads``), and at b=8 every image's heads bit-identical and
+   its lines equal to its b=1 ones. ``detector demo`` through the CLI on a
+   24-frame 640x480 raw video written from numpy (yolov3-416, head biases made
+   sparse as in phase 8, about 30 candidates a frame above the CLI's
+   default thresh 0.25) in the default bf16 mode, ``-fp32`` and
+   ``-quantized``, with no OpenCV imported: every frame, each frame's object
+   lines those of the same pipeline on the same frames (``check_near_lines``);
+   then the demo's frames per second over a 256-frame video, with their
+   spread over the run's quarters. The mini YOLO9000 tree net of
+   tests/test_tree.py through ``detector test -quantized`` and the pipeline:
+   kernel path equal to the plain path, pipeline equal to ``detect_image``.
+   ``detector test -bf16 -profile DIR`` leaves a trace with K6's launches,
+   ``-i 0`` prints the same lines, and ``utils/profiling.profile_layers``
+   times the -bf16 forward layer by layer with CUDA events, the forward
+   queued behind a device sleep so that they time its kernels and not the
+   host's dispatch.
 
 Every kernel time is printed beside the least time the card could take for
 the same work: the bytes the function must move (each input read once, each
@@ -136,7 +165,8 @@ multiply-adds at the int8 peak, the count of the earlier XNOR figures.
 Any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
 preceded by the card's name and power limit and, before that, a line with one
-JSON object describing each of the six TPU kernels' counterparts (after a
+JSON object describing each of the six TPU kernels' counterparts and K6 (after
+a ``{"slice11": ...}`` line with phase 11's numbers, a
 ``{"pipeline": ...}`` line with phase 8's numbers and the NMS walk's row, a
 ``{"precision": ...}`` line with phase 9's and a ``{"cpu_old": ...}`` line
 with phase 10's): its launches on the main path, its time, the plain
@@ -170,11 +200,13 @@ from yolo2_light_tpu_torch.cfg import (ConvSpec, RegionSpec, YoloSpec,
                                        parse_network_cfg)
 from yolo2_light_tpu_torch.io import image as im_io
 from yolo2_light_tpu_torch.models import layers, network
-from yolo2_light_tpu_torch.ops import (_build, fused_res, int8_conv,
-                                       nms_walk, xnor_gemm)
+from yolo2_light_tpu_torch.io.rawvideo import write_rawvideo
+from yolo2_light_tpu_torch.ops import (_build, bf16_conv, fused_res,
+                                       int8_conv, nms_walk, xnor_gemm)
 from yolo2_light_tpu_torch.params import save_random_weights
 from yolo2_light_tpu_torch.post import boxes as post_boxes
 from yolo2_light_tpu_torch.post import device_nms
+from yolo2_light_tpu_torch.utils import profiling
 from yolo2_light_tpu_torch.weights import random_params, save_weights
 from yolo2_light_tpu_torch.xnor import pack_sign_weights
 
@@ -185,8 +217,10 @@ SMALL_CFG = os.path.join(DATA, "mini-yolo3.cfg")
 IMAGE = os.path.join(DATA, "dog160.png")
 SEED = 7
 SLEEP_CYCLES = 50_000_000   # about 25 ms of device time to queue behind
-# NVIDIA H100 SXM peaks (data sheet, dense): int8 tensor cores, HBM3
+# NVIDIA H100 SXM peaks (data sheet, dense): int8 and bf16 tensor cores,
+# HBM3
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # the binary tensor cores (mma .b1 m16n8k256): an m16n8k256 .b1 MMA retires
 # at the m16n8k32 .s8 MMA's rate with 8x its multiply-adds
@@ -260,6 +294,7 @@ KERNEL_LOADERS = {
     "xnor_gemm": lambda: xnor_gemm.load_kernel("xnor_gemm"),
     "xnor_gemm_mxu": lambda: xnor_gemm.load_kernel("xnor_gemm_mxu"),
     "nms_walk": nms_walk.load_kernel,
+    "bf16_conv": bf16_conv.load_kernel,
 }
 # phase 8: the serving pipeline
 NMS_SOURCE = "yolo2_light_tpu_torch/csrc/nms_walk.cu"
@@ -287,7 +322,8 @@ PIPE_MODES = {
     "yolov3 int8 turbo_int8": (CFG, True, {"turbo": "int8"}, "int8_conv"),
     "yolov3 int8 bf16": (CFG, True, {"compute_dtype": torch.bfloat16},
                          "int8_conv"),
-    "yolov3 bf16": (CFG, False, {"compute_dtype": torch.bfloat16}, None),
+    "yolov3 bf16": (CFG, False, {"compute_dtype": torch.bfloat16},
+                    "bf16_conv"),
 }
 # phase 9: K1's forms, "<input>/<semantics>/<store>" as
 # int8_conv.FORM_LAUNCHES names them, and what runs each on the main path
@@ -333,6 +369,72 @@ OLD_PATH_FORMS = {
 OLD_EXPECT_FORMS = {"int8/old/int8": 20, "int8/old/f32": 1}
 OLD_THRESH = "0.01"      # random weights put few boxes above 0.25
 CALIB_IMAGES = 8
+# phase 11: K6 (-bf16's float convs), detector demo, the softmax tree
+BF16_SOURCE = "yolo2_light_tpu_torch/csrc/bf16_conv.cu"
+# XLA's bf16 conv of the JAX package (lax.conv_general_dilated with
+# preferred_element_type=float32 in conv2d_fp32; no pallas_call)
+BF16_REPLACES = "yolo2_light_tpu/models/layers.py:103"
+DEMO_FRAMES = 24         # the video whose lines are held to the pipeline's
+DEMO_FPS_FRAMES = 256    # the longer video the frames per second come from
+DEMO_WARM = 8            # frames before the demo's FPS figure is steady
+DEMO_THRESH = 0.25       # the CLI's default -thresh
+DEMO_LIVE = 30           # candidates of a frame above it
+# tests/test_tree.py's mini YOLO9000 net: a 7-class tree of 3 groups
+TREE_TEXT = """animal -1
+vehicle -1
+cat 0
+dog 0
+car 1
+truck 1
+bus 1
+"""
+TREE_NAMES = ["animal", "vehicle", "cat", "dog", "car", "truck", "bus"]
+TREE_CFG = """[net]
+batch=1
+subdivisions=1
+width=64
+height=64
+channels=3
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=60
+activation=linear
+
+[region]
+anchors = 1.08,1.19,  3.42,4.41,  6.63,11.38,  9.42,5.11,  16.62,10.52
+classes=7
+coords=4
+num=5
+softmax=1
+tree={tree_path}
+"""
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 # name: (cfg, CLI flags, Predictor keywords, the launches of one forward,
 # whether no quantize or input copy may precede an int8 conv)
@@ -352,9 +454,9 @@ PRECISION_RUNS = {
         False),
     "yolov3 -quantized -bf16": (CFG, ["-quantized", "-bf16"],
                                 {"compute_dtype": torch.bfloat16},
-                                {"int8_conv": 71}, True),
-    "yolov3 -bf16": (CFG, ["-bf16"], {"compute_dtype": torch.bfloat16}, {},
-                     True),
+                                {"int8_conv": 71, "bf16_conv": 4}, True),
+    "yolov3 -bf16": (CFG, ["-bf16"], {"compute_dtype": torch.bfloat16},
+                     {"bf16_conv": 75}, True),
     "tiny-yolo-obj_xnor -turbo -xnor_kernel pallas_mxu": (
         XNOR_CFG, ["-turbo", "-xnor_kernel", "pallas_mxu"],
         {"turbo": True, "xnor_impl": "pallas_mxu"}, {"xnor_gemm_mxu": 7},
@@ -440,6 +542,67 @@ def check_heads(heads, what: str) -> None:
               f"{what}: head {h.index} shape {tuple(h.data.shape)}")
         check(bool(torch.isfinite(h.data).all()),
               f"{what}: head {h.index} has non-finite values")
+
+
+# -bf16 at full width (yolov3-416, random weights, seed 7): the kernel
+# path's heads and lines against the plain path's, whose float convs run
+# K6's plain twin. Both sum the same exact bfloat16 products in another
+# order; a sum within an ULP of a bfloat16 boundary of the next conv's input
+# rounds the other way, and that step (2**-8 of the value) travels
+# downstream and grows over yolov3's 75 convs, so no elementwise bound holds
+# for every entry (phase 11 holds each conv to its float32-accumulate
+# bound). Both convs are deterministic, so every run on a card reads the
+# same. Limits, set from the readings of a sound run (PERF.md, section 6):
+BF16_HEADS_WITHIN = 0.999   # least share of a head within HEADS_TOL
+BF16_HEADS_MAX = 1.0        # largest difference of any entry
+BF16_LINES_UNLIKE = 0.15    # most share of lines not among the plain path's
+
+
+def check_bf16_heads(pairs, what: str) -> dict:
+    """The kernel path's head maps against the plain path's under -bf16:
+    every head's mean difference below ``bf16_conv.HEADS_MEAN`` (the CPU
+    tests' bf16 bound), at least BF16_HEADS_WITHIN of its entries within
+    rtol and atol ``bf16_conv.HEADS_TOL``, and no entry further than
+    BF16_HEADS_MAX. Returns the readings over all heads: the least share
+    within, the largest mean and the largest difference."""
+    gaps = []
+    for got, want, index in pairs:
+        g = bf16_conv.heads_gap(got, want)
+        check(g.within >= BF16_HEADS_WITHIN
+              and g.mean < bf16_conv.HEADS_MEAN and g.max <= BF16_HEADS_MAX,
+              f"{what} head {index}: beyond the bf16 limits "
+              f"({100 * g.within:.4f}% of the entries within rtol/atol "
+              f"{bf16_conv.HEADS_TOL}, mean {g.mean:.3g}, max {g.max:.3g})")
+        gaps.append(g)
+    return {"within_min": min(g.within for g in gaps),
+            "mean_max": max(g.mean for g in gaps),
+            "max": max(g.max for g in gaps)}
+
+
+def check_bf16_lines(lines: list, plain_lines: list, what: str) -> int:
+    """The kernel path's detection lines under -bf16 against the plain
+    path's: at most BF16_LINES_UNLIKE of them not among the plain path's.
+    Returns that count."""
+    unlike = len(lines) - sum((collections.Counter(lines)
+                               & collections.Counter(plain_lines)).values())
+    check(bool(lines) and unlike <= BF16_LINES_UNLIKE * len(lines),
+          f"{what}: {unlike} of {len(lines)} detection lines not among the "
+          f"plain path's {len(plain_lines)}, more than "
+          f"{100 * BF16_LINES_UNLIKE:.0f}%")
+    return unlike
+
+
+@contextlib.contextmanager
+def k6_on_the_plain_path():
+    """Inside the block the plain path's -bf16 float convs run K6 itself
+    (its twin swapped out), so that the other kernels of a mode are held bit
+    for bit against their plain twins with K6 on both sides."""
+    twin = bf16_conv.conv2d_bf16_plain
+    bf16_conv.conv2d_bf16_plain = bf16_conv.conv2d_bf16
+    try:
+        yield
+    finally:
+        bf16_conv.conv2d_bf16_plain = twin
 
 
 def phase_device() -> str:
@@ -1039,10 +1202,13 @@ def _obj_entry(l) -> int:
     return 4 if isinstance(l, YoloSpec) else l.coords
 
 
-def calibrate_obj_bias(cfg: str, frame, quantized: bool, kw: dict) -> float:
-    """The objectness bias that leaves about ``TARGET_LIVE`` candidates of
-    ``frame`` above detector map's thresh in one mode (an int8 trunk feeds
-    its heads other features than the fp32 one): one forward with the bias
+def calibrate_obj_bias(cfg: str, frame, quantized: bool, kw: dict,
+                       thresh: float = PIPE_THRESH,
+                       target: int = TARGET_LIVE) -> float:
+    """The objectness bias that leaves about ``target`` candidates of
+    ``frame`` above ``thresh`` (detector map's by default) in one mode (an
+    int8 trunk feeds its heads other features than the fp32 one): one
+    forward with the bias
     at 0 gives each candidate's objectness logit and best class score, then
     a bisection on the bias counts the candidates the decode would keep."""
     spec, params, mode = detect.build_params(cfg, None, quantized=quantized,
@@ -1064,13 +1230,13 @@ def calibrate_obj_bias(cfg: str, frame, quantized: bool, kw: dict) -> float:
 
     def live(bias):
         obj = 1 / (1 + np.exp(-(z + bias)))
-        return int(((obj * best > PIPE_THRESH)
-                    & (~yolo | (obj > PIPE_THRESH))).sum())
+        return int(((obj * best > thresh)
+                    & (~yolo | (obj > thresh))).sum())
 
     lo, hi = -60.0, 60.0
     for _ in range(60):
         mid = (lo + hi) / 2
-        lo, hi = (mid, hi) if live(mid) < TARGET_LIVE else (lo, mid)
+        lo, hi = (mid, hi) if live(mid) < target else (lo, mid)
     return float(np.float32(hi))
 
 
@@ -1269,16 +1435,17 @@ def _pipeline_mode(name: str, cfg: str, quantized: bool, kw: dict,
     pred = network.Predictor(spec, params, mode, device="cuda", **kw)
     got = graphed(net_frames)
     if kw.get("compute_dtype") == torch.bfloat16:
-        # cuDNN picks each bfloat16 conv's algorithm by its shape, batch
-        # included, and rounds that algorithm's float32 sum to bfloat16:
-        # -bf16's detections depend on the batch, so they are compared at
-        # detect_image's b=1, and the frames whose b=8 lines differ counted
+        # -bf16's float convs sum in float32 in an order fixed by the
+        # layer's shape (K6, csrc/bf16_conv.cu): each frame of the b=8 batch
+        # prints the lines it prints alone
         one = [graphed(net_frames[i:i + 1])[0] for i in range(len(frames))]
         row["frames_b8_unlike_b1"] = sum(
             _lines(a, names, spec.net.w, spec.net.h)
             != _lines(b, names, spec.net.w, spec.net.h)
             for a, b in zip(got, one))
-        got = one
+        check(row["frames_b8_unlike_b1"] == 0,
+              f"{name}: the lines of {row['frames_b8_unlike_b1']} frames "
+              "differ between b=8 and b=1")
     n_lines = n_near = n_moved = 0
     for i, im in enumerate(net_frames):
         path = os.path.join(tmp, f"net_frame{i}.png")
@@ -1299,8 +1466,7 @@ def _pipeline_mode(name: str, cfg: str, quantized: bool, kw: dict,
     while final._promoted is not None:
         final = final._promoted
     row["k_reached"] = final.k
-    batch = ("b=1; at b=8 the lines of "
-             f"{row['frames_b8_unlike_b1']} of 8 frames differ"
+    batch = ("b=8, each frame's lines equal to its own b=1 lines"
              if "frames_b8_unlike_b1" in row else "b=8")
     say("pipeline", f"{name}: detections of 8 net-size frames ({batch}) "
         f"equal detect_image's ({n_lines} lines at thresh {PIPE_THRESH}; {n_near} "
@@ -1540,40 +1706,6 @@ def phase_precision_kernels() -> dict:
     return rows
 
 
-def bf16_conv_diff() -> dict:
-    """cuDNN's bfloat16 conv (the -bf16 path on the card: its sum rounded to
-    bfloat16) against the float32 conv of the same bfloat16 operands (the
-    path on the CPU, XLA's result up to summation order), at each distinct
-    float conv shape of yolov3-416 under -bf16."""
-    dev = torch.device("cuda")
-    spec = parse_network_cfg(CFG, batch=1, echo_table=False)
-    shapes = sorted({(l.h, l.w, l.c, l.n, l.size, l.stride, l.pad)
-                     for l in spec.conv_layers()})
-    worst_abs = worst_rel = 0.0
-    for i, (h, w, c, n, ks, s, pad) in enumerate(shapes):
-        rng = np.random.RandomState(SEED + i)
-        x = torch.from_numpy(rng.rand(1, h, w, c).astype(np.float32)).to(dev)
-        wt = torch.from_numpy((rng.randn(n, c, ks, ks) / np.sqrt(c * ks * ks)
-                               ).astype(np.float32)).to(dev)
-        bias = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
-        y = layers.conv2d_fp32(x, wt.to(torch.bfloat16), bias, s, pad,
-                               "linear", compute_dtype=torch.bfloat16)
-        up = torch.nn.functional.conv2d(
-            x.to(torch.bfloat16).float().permute(0, 3, 1, 2),
-            wt.to(torch.bfloat16).float(), stride=s, padding=pad).permute(
-                0, 2, 3, 1) + bias
-        d = float((y - up).abs().max())
-        worst_abs = max(worst_abs, d)
-        worst_rel = max(worst_rel, d / float(up.abs().max()))
-    say("precision", f"-bf16 on the card: cuDNN's bfloat16 conv against the "
-        f"float32 conv of the same bfloat16 operands at yolov3's "
-        f"{len(shapes)} float conv shapes: largest difference {worst_abs:.3g}"
-        f" ({worst_rel:.3g} of the largest output), the bfloat16 rounding of "
-        "the sum")
-    return {"shapes": len(shapes), "max_abs_diff": worst_abs,
-            "max_rel_diff": worst_rel}
-
-
 def phase_precision(tmp: str, weights: str, names_file: str,
                     names: list) -> dict:
     """``detector test`` through the CLI in each precision mode: the
@@ -1616,38 +1748,67 @@ def phase_precision(tmp: str, weights: str, names_file: str,
                                   **dict(kw, int8_impl=plain_impl))
         x = np.random.RandomState(SEED).rand(1, 416, 416, 3).astype(
             np.float32)
-        hk, hp = kernel(x), plain(x)
+        # -bf16 alone: the plain path runs K6's twin (another order of the
+        # float32 sums), held at the bf16 limits. -quantized -bf16: K6 on
+        # both sides, so K1 is held bit for bit (phase 11 holds K6's convs)
+        bf16 = kw.get("compute_dtype") == torch.bfloat16
+        near = bf16 and not quantized
+        same_k6 = (k6_on_the_plain_path if bf16 and quantized
+                   else contextlib.nullcontext)
+        hk = kernel(x)
+        with same_k6():
+            hp = plain(x)
         (check_heads if yolo else check_region_heads)(hk, name)
         for a, b in zip(hk, hp):
-            check(a.data.dtype == torch.float32
-                  and torch.equal(a.data, b.data),
-                  f"{name} head {a.index}: kernel path != plain path")
+            check(a.data.dtype == torch.float32,
+                  f"{name} head {a.index}: not float32")
+            if not near:
+                check(torch.equal(a.data, b.data),
+                      f"{name} head {a.index}: kernel path != plain path")
+        gap = (check_bf16_heads([(a.data, b.data, a.index)
+                                 for a, b in zip(hk, hp)], name)
+               if near else None)
         with contextlib.redirect_stdout(io.StringIO()), \
-                contextlib.redirect_stderr(io.StringIO()):
+                contextlib.redirect_stderr(io.StringIO()), same_k6():
             plain_text = detect.run(
                 nlist, cfg, wfile, IMAGE, thresh=float(thresh),
                 quantized=quantized,
                 save_path=os.path.join(tmp, "pred_precision_plain"),
                 device="cuda", **dict(kw, int8_impl=plain_impl))
-        check_same_lines(text, plain_text.rstrip("\n"),
-                         f"{name}: detection lines of the kernel and the "
-                         "plain path")
+        if near:
+            unlike = check_bf16_lines(text.splitlines(),
+                                      plain_text.splitlines(), name)
+            gap["lines_unlike"] = unlike
+            say("precision", f"{name}: heads against the plain path (K6's "
+                f"twin): at least {100 * gap['within_min']:.4f}% of each "
+                f"head within rtol/atol {bf16_conv.HEADS_TOL}, mean at most "
+                f"{gap['mean_max']:.3g}, max {gap['max']:.3g}; "
+                f"{unlike} of {len(text.splitlines())} detection lines not "
+                f"among the plain path's {len(plain_text.splitlines())} "
+                f"(limits {100 * BF16_HEADS_WITHIN:.1f}%, "
+                f"{bf16_conv.HEADS_MEAN}, {BF16_HEADS_MAX}, "
+                f"{100 * BF16_LINES_UNLIKE:.0f}%)")
+        else:
+            check_same_lines(text, plain_text.rstrip("\n"),
+                             f"{name}: detection lines of the kernel and "
+                             "the plain path")
         ms = forward_ms(kernel, x)
         runs[name] = {"launches": launches, "pre_launches": pre,
                       "forms": run_forms,
                       "detection_lines": len(text.splitlines()),
-                      "forward_ms": ms}
+                      "forward_ms": ms, "bf16_gap": gap}
         say("precision", f"CLI {' '.join(flags)} on {os.path.basename(cfg)}"
             f": launches in one forward {launches}, K1 forms "
             f"{runs[name]['forms']}, in front of the int8 convs "
             f"{pre or 'none'}; {len(text.splitlines())} detection lines; "
-            f"heads and lines of the kernel and the plain path equal; warm "
+            f"heads and lines of the kernel and the plain path "
+            f"{'near (bf16 limits)' if near else 'equal'}"
+            f"{' (K6 on both sides)' if bf16 and quantized else ''}; warm "
             f"b=1 forward {ms:.3f} ms (median, host clock, synchronised)")
         del kernel, plain
     for form in K1_PATH_FORMS:
         check(forms[form] > 0, f"K1 {form} was not launched by phase 9")
-    return {"runs": runs, "form_launches": dict(forms),
-            "bf16_conv": bf16_conv_diff()}
+    return {"runs": runs, "form_launches": dict(forms)}
 
 
 # ---------------------------------------------------------------------------
@@ -1969,6 +2130,468 @@ def phase_old(tmp: str) -> dict:
             "calibrate": _old_calibrate(tmp, weights)}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 11: -bf16 on K6, detector demo, the softmax tree, -profile and -i
+# ---------------------------------------------------------------------------
+
+
+def _bf16_shapes() -> list:
+    """yolov3-416's distinct conv shapes (H, W, C, M, ks, stride, pad), in
+    the order of the net: every conv runs K6 under -bf16."""
+    spec = parse_network_cfg(CFG, batch=1, echo_table=False)
+    return list(dict.fromkeys((l.h, l.w, l.c, l.n, l.size, l.stride, l.pad)
+                              for l in spec.conv_layers()))
+
+
+def check_bf16_sums(out, ref, x, wt, stride: int, pad: int,
+                    what: str) -> tuple:
+    """K6's ``out`` within ``bf16_conv.sum_bound`` of the plain twin's
+    ``ref``: (largest difference, largest share of the bound)."""
+    d = (out.double() - ref.double()).abs()
+    lim = bf16_conv.sum_bound(x, wt, stride, pad)
+    check(bool((d <= lim).all()),
+          f"{what}: K6 off its plain twin beyond the float32-accumulate bound "
+          f"(max {float(d.max()):.3g})")
+    share = float((d / lim.clamp_min(1e-30)).max())
+    return float(d.max()), share
+
+
+def phase_bf16_kernels() -> list:
+    """K6 against its plain twin at each of yolov3-416's 23 conv shapes, at
+    b=1 and b=8: within the float32-accumulate bound, and image 0 of the b=8
+    result bit-identical to the b=1 result. At b=1 (the main path's shapes)
+    K6 is timed beside its bound (bytes: the float32 input read once, the
+    bfloat16 weights, the float32 output written once; operations: the
+    multiply-adds at the bf16 tensor-core peak), its plain twin, cuDNN's
+    bfloat16 conv (the library call, never on the port's path; its sum is
+    rounded to bfloat16) and cuDNN's float32 conv of the bfloat16-rounded
+    operands."""
+    dev = torch.device("cuda")
+    layers.set_fp32_precision()
+    rows = []
+    for i, (h, w, c, m, ks, s, pad) in enumerate(_bf16_shapes()):
+        label = f"{ks}x{ks}/s{s} {h}x{w}x{c}->{m}"
+        rng = np.random.RandomState(SEED + i)
+        x8 = torch.from_numpy(rng.randn(8, h, w, c).astype(np.float32)).to(dev)
+        wt = torch.from_numpy((rng.randn(m, ks, ks, c) / np.sqrt(ks * ks * c))
+                              .astype(np.float32)).to(dev).to(torch.bfloat16)
+        x1 = x8[:1].contiguous()
+        plan = bf16_conv.plan_launch(1, h, w, c, m, ks, s, pad)
+        outs, err, share = {}, 0.0, 0.0
+        for b, x in ((1, x1), (8, x8)):
+            out = bf16_conv.conv2d_bf16_cuda(x, wt, s, pad)
+            ref = bf16_conv.conv2d_bf16_plain(x, wt, s, pad)
+            torch.cuda.synchronize()
+            e, sh = check_bf16_sums(out, ref, x, wt, s, pad,
+                                    f"{label} b={b}")
+            err, share = max(err, e), max(share, sh)
+            outs[b] = out
+        check(torch.equal(outs[8][:1], outs[1]),
+              f"K6 {label}: image 0 of b=8 != b=1")
+        del outs, x8
+        xb = x1.permute(0, 3, 1, 2).to(torch.bfloat16)
+        wb = wt.permute(0, 3, 1, 2)
+        xf, wf = xb.float(), wb.float()
+        row = {"shape": label, "tile": [plan.tile_h, plan.tile_w],
+               "stages": plan.stages, "blocks": plan.blocks,
+               "max_abs_err": err, "bound_share_max": share}
+        row["ms"] = event_ms(lambda: bf16_conv.conv2d_bf16_cuda(
+            x1, wt, s, pad))
+        row["plain_ms"] = event_ms(lambda: bf16_conv.conv2d_bf16_plain(
+            x1, wt, s, pad), iters=20)
+        row["library_ms"] = event_ms(lambda: torch.nn.functional.conv2d(
+            xb, wb, stride=s, padding=pad))
+        row["f32_conv_ms"] = event_ms(lambda: torch.nn.functional.conv2d(
+            xf, wf, stride=s, padding=pad))
+        oh, ow = (h + 2 * pad - ks) // s + 1, (w + 2 * pad - ks) // s + 1
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * x1.numel() + 2 * wt.numel() + 4 * oh * ow * m,
+            2.0 * oh * ow * m * ks * ks * c, PEAK_BF16_FLOPS)
+        say("bf16", f"K6 {label}: within the float32-accumulate bound of the "
+            f"plain twin at b=1 and b=8 (max |d| {err:.3g}, "
+            f"{100 * share:.2f}% of the bound at most), b=8 image 0 "
+            f"bit-identical to b=1; tile "
+            f"{plan.tile_h}x{plan.tile_w}, {plan.stages} stages, "
+            f"{plan.blocks} blocks; K6 {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f}, cuDNN bf16 {row['library_ms']:.4f}, "
+            f"cuDNN f32 of the bf16 operands {row['f32_conv_ms']:.4f} ms; "
+            f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of it")
+        rows.append(row)
+    return rows
+
+
+def _detection_lines_of(heads, i: int, pred, spec, w: int, h: int,
+                        names) -> list:
+    """``detect_image``'s printed lines of image ``i`` of a batch's heads."""
+    outs = [hd.data[i].cpu().numpy() for hd in heads]
+    dets = post_boxes.get_network_boxes(outs, pred.head_specs(), w, h,
+                                        spec.net.w, spec.net.h,
+                                        float(THRESH), relative=True)
+    post_boxes.do_nms_sort(dets, pred.head_specs()[-1].classes, 0.4)
+    return post_boxes.format_detections(dets, names, float(THRESH), w,
+                                        h).splitlines()
+
+
+def phase_bf16(tmp: str, weights: str, names_file: str, names: list) -> dict:
+    """``detector test -bf16`` (and ``-quantized -bf16``) on yolov3-416
+    through the CLI, the main path of K6: its launches in one forward (75;
+    4 beside K1's 71), each of the forward's 75 convs within the
+    float32-accumulate bound of the plain twin on the input the forward
+    gives it, the heads near the plain path's (``check_bf16_heads``), and b=8:
+    every image's heads bit-identical to its b=1 heads and its lines equal
+    to its b=1 lines."""
+    out = {}
+    for flags, expect in ((["-bf16"], {"bf16_conv": 75}),
+                          (["-quantized", "-bf16"],
+                           {"int8_conv": 71, "bf16_conv": 4})):
+        int8_conv.reset_launch_counts()
+        rc, stdout, _ = run_cli(["detector", "test", names_file, CFG, weights,
+                                 IMAGE, "-dont_show", "-thresh", THRESH,
+                                 "-save", os.path.join(tmp, "pred_bf16")]
+                                + flags)
+        launches = {k: v for k, v in int8_conv.LAUNCH_COUNTS.items() if v}
+        check(rc == 0, f"detector test {' '.join(flags)} exited {rc}")
+        check(launches == expect, f"detector test {' '.join(flags)}: "
+              f"launches {launches} in one forward, expected {expect}")
+        lines = detection_text(stdout)
+        if flags == ["-bf16"]:
+            text = lines
+        out[" ".join(flags)] = {"launches": launches,
+                                "detection_lines": len(lines.splitlines())}
+        say("bf16", f"CLI {' '.join(flags)}: launches in one forward "
+            f"{launches}; {len(lines.splitlines())} detection lines")
+
+    spec, params, mode = detect.build_params(CFG, weights, echo=False)
+    bf = dict(compute_dtype=torch.bfloat16)
+    kernel = network.Predictor(spec, params, mode, device="cuda", **bf)
+    plain = network.Predictor(spec, params, mode, device="cuda",
+                              int8_impl="plain", **bf)
+    # the forward's own conv inputs, each conv held to its bound
+    fwd = network.build_forward(spec, mode, capture_conv_inputs=True, **bf)
+    im = im_io.load_image(IMAGE, 3)
+    x1 = im_io.resize_image(im, spec.net.w, spec.net.h)[None]
+    lp = kernel.layer_params()
+    with torch.inference_mode():
+        _, aux = fwd(lp, torch.from_numpy(x1).cuda())
+        convs = spec.conv_layers()
+        check(len(aux["conv_inputs"]) == len(convs) == 75,
+              "the -bf16 forward did not capture 75 conv inputs")
+        worst = worst_share = 0.0
+        for l, xin in zip(convs, aux["conv_inputs"]):
+            wk = bf16_conv.kernel_weights(lp[l.index]["weights"])
+            e, sh = check_bf16_sums(
+                bf16_conv.conv2d_bf16_cuda(xin, wk, l.stride, l.pad),
+                bf16_conv.conv2d_bf16_plain(xin, wk, l.stride, l.pad),
+                xin, wk, l.stride, l.pad, f"-bf16 forward conv {l.index}")
+            worst, worst_share = max(worst, e), max(worst_share, sh)
+    del aux
+    hk, hp = kernel(x1), plain(x1)
+    check_heads(hk, "-bf16 kernel path")
+    gap = check_bf16_heads([(a.data, b.data, a.index)
+                            for a, b in zip(hk, hp)], "-bf16")
+    head_err = gap["max"]
+    say("bf16", f"-bf16 forward: each of its 75 convs within the "
+        f"float32-accumulate bound of the plain twin on the input the "
+        f"forward gives it (max |d| {worst:.3g}, {100 * worst_share:.2f}% of "
+        f"the bound at most); heads against the plain path's: at least "
+        f"{100 * gap['within_min']:.4f}% of each within rtol/atol "
+        f"{bf16_conv.HEADS_TOL}, mean at most {gap['mean_max']:.3g}, max "
+        f"{head_err:.3g}")
+
+    # b=8: the dog and 7 random frames; each image's heads and lines at b=8
+    # against the same image alone
+    rng = np.random.RandomState(SEED)
+    x8 = np.concatenate([x1] + [rng.rand(1, spec.net.h, spec.net.w, 3)
+                                .astype(np.float32) for _ in range(7)])
+    h8 = kernel(x8)
+    n_lines = 0
+    for i in range(8):
+        h1 = hk if i == 0 else kernel(x8[i:i + 1])
+        for a, b in zip(h8, h1):
+            check(torch.equal(a.data[i:i + 1], b.data),
+                  f"-bf16 head {a.index} of image {i}: b=8 != b=1")
+        w, h = (im.shape[1], im.shape[0]) if i == 0 else (spec.net.w,
+                                                          spec.net.h)
+        l8 = _detection_lines_of(h8, i, kernel, spec, w, h, names)
+        l1 = _detection_lines_of(h1, 0, kernel, spec, w, h, names)
+        check(l8 == l1, f"-bf16 image {i}: b=8 lines != b=1 lines")
+        if i == 0:
+            check_same_lines("\n".join(l1), text,
+                             "-bf16: lines of the b=1 forward and the CLI")
+        n_lines += len(l1)
+    ms = forward_ms(kernel, x1)
+    say("bf16", f"-bf16 at b=8: every image's heads bit-identical to its b=1 "
+        f"heads and its {n_lines} lines in all equal to its b=1 lines (F14 "
+        f"repaired); warm b=1 forward {ms:.3f} ms (median, host clock, "
+        "synchronised)")
+    out.update(forward_convs_max_abs_err=worst,
+               forward_convs_bound_share=worst_share,
+               head_max_abs_err_vs_plain=head_err, heads_vs_plain=gap,
+               b8_lines=n_lines,
+               forward_ms=ms)
+    return out
+
+
+def _demo_frames_file(tmp: str) -> tuple:
+    """A CVSTUBV1 raw video of DEMO_FRAMES 640x480 BGR frames from numpy
+    (seed 10); returns (path, RGB frames)."""
+    bgr = _frames(SEED + 3, DEMO_FRAMES)
+    path = os.path.join(tmp, "demo.cvs")
+    write_rawvideo(path, list(bgr), fps=25)
+    return path, np.ascontiguousarray(bgr[..., ::-1])
+
+
+def _demo_fps_file(tmp: str) -> str:
+    """A CVSTUBV1 raw video of DEMO_FPS_FRAMES 640x480 BGR frames of uniform
+    uint8 noise from numpy (seed 11); returns its path."""
+    rng = np.random.RandomState(SEED + 4)
+    frames = [rng.randint(0, 256, (FRAME_H, FRAME_W, 3), dtype=np.uint8)
+              for _ in range(DEMO_FPS_FRAMES)]
+    path = os.path.join(tmp, "demo_fps.cvs")
+    write_rawvideo(path, frames, fps=25)
+    return path
+
+
+def _demo_fps(stdout: str) -> tuple:
+    """Frames per second of a demo run from its own per-frame figures (each
+    1 / the time since the previous frame): the frames after DEMO_WARM over
+    the sum of their intervals, and the same over each quarter of them (the
+    spread within the run; frames arrive in batches, so single figures
+    swing)."""
+    fps = [float(v) for v in re.findall(r"FPS:([0-9.]+)", stdout)][DEMO_WARM:]
+    dt = [1.0 / max(f, 1e-3) for f in fps]
+    q = len(dt) // 4
+    return len(dt) / sum(dt), [q / sum(dt[i * q:(i + 1) * q])
+                               for i in range(4)]
+
+
+def _demo_blocks(stdout: str) -> list:
+    """The object lines the demo printed for each frame."""
+    blocks = stdout.split("\033[2J\033[1;1H\n")[1:]
+    out = []
+    for b in blocks:
+        body = b.split("Objects:\n\n", 1)[1]
+        out.append([l for l in body.splitlines()
+                    if l and "CONVOLUTIONAL" not in l])
+    return out
+
+
+def phase_demo(tmp: str) -> dict:
+    """``detector demo`` through the CLI on yolov3-416 (random weights, seed
+    7, head biases made sparse as in phase 8, per mode, so that about
+    DEMO_LIVE candidates of a frame pass the CLI's default thresh 0.25),
+    with -dont_show, in the default bf16 mode (K6), in -fp32 and in
+    -quantized. Over a 24-frame 640x480 raw video: no OpenCV imported,
+    every frame processed, each frame's object lines those of the same
+    pipeline on the same frames (as phase 8 compares them, F7). Over a
+    256-frame one: the demo's frames per second (``_demo_fps``), printed
+    with their spread over the run's quarters."""
+    spec = parse_network_cfg(CFG, batch=1, echo_table=False)
+    names = [f"class_{i:02d}" for i in range(N_CLASSES)]
+    names_file = os.path.join(tmp, "demo.names")
+    with open(names_file, "w") as f:
+        f.write("\n".join(names) + "\n")
+    video, rgb = _demo_frames_file(tmp)
+    long_video = _demo_fps_file(tmp)
+    check("cv2" not in sys.modules, "OpenCV was imported before the demo")
+    rows = {}
+    for mode, flags in (("bf16", []), ("fp32", ["-fp32"]),
+                        ("int8", ["-quantized"])):
+        cd = torch.float32 if mode == "fp32" else torch.bfloat16
+        bias = calibrate_obj_bias(CFG, rgb[0], mode == "int8",
+                                  {"compute_dtype": cd}, thresh=DEMO_THRESH,
+                                  target=DEMO_LIVE)
+        params = sparse_head_biases(spec, random_params(spec, seed=SEED),
+                                    bias)
+        weights = os.path.join(tmp, f"yolov3-demo-{mode}.weights")
+        save_weights(spec, params, weights)
+        int8_conv.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, stdout, err = run_cli(["detector", "demo", names_file, CFG,
+                                   weights, video, "-dont_show"] + flags)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in int8_conv.LAUNCH_COUNTS.items() if v}
+        check(rc == 0, f"detector demo {' '.join(flags)} exited {rc}")
+        check("cv2" not in sys.modules,
+              f"detector demo {' '.join(flags)} imported OpenCV")
+        want_kernels = {"bf16": {"bf16_conv"}, "fp32": set(),
+                        "int8": {"bf16_conv", "int8_conv"}}[mode]
+        check(want_kernels <= set(launches),
+              f"demo {mode}: launches {launches}, expected {want_kernels}")
+        blocks = _demo_blocks(stdout)
+        check(len(blocks) == DEMO_FRAMES,
+              f"demo {mode}: {len(blocks)} frames of {DEMO_FRAMES}")
+
+        # the same pipeline on the same frames, ingested as the demo does
+        dspec, dparams, dmode = detect.build_params(
+            CFG, weights, quantized=mode == "int8", echo=False)
+        pipe = pipeline.DetectionPipeline(
+            dspec, dparams, dmode, thresh=DEMO_THRESH,
+            nms=0.2 if mode == "int8" else 0.4, k=256, compute_dtype=cd,
+            device="cuda")
+        sized = np.stack([im_io.resize_image(f.astype(np.float32) / 255.0,
+                                             spec.net.w, spec.net.h)
+                          for f in rgb])
+        if mode == "bf16":
+            sized = (sized * 255.0 + 0.5).astype(np.uint8)
+        n_lines = n_near = 0
+        for b0 in range(0, DEMO_FRAMES, 4):
+            dets = pipe(sized[b0:b0 + 4], im_sizes=[(FRAME_W, FRAME_H)] * 4)
+            for j, d in enumerate(dets):
+                buf = io.StringIO()
+                im_io.echo_detections_cv(d, names, DEMO_THRESH, N_CLASSES,
+                                         FRAME_W, FRAME_H, buf)
+                want = buf.getvalue().splitlines()
+                near, _ = check_near_lines(
+                    blocks[b0 + j], want,
+                    f"demo {mode}: frame {b0 + j} against the pipeline")
+                n_lines, n_near = n_lines + len(want), n_near + near
+        check(n_lines > 0, f"demo {mode}: no object line")
+        rc, stdout, _ = run_cli(["detector", "demo", names_file, CFG,
+                                 weights, long_video, "-dont_show"] + flags)
+        check(rc == 0, f"detector demo {' '.join(flags)} on the "
+              f"{DEMO_FPS_FRAMES}-frame video exited {rc}")
+        n_long = len(_demo_blocks(stdout))
+        check(n_long == DEMO_FPS_FRAMES,
+              f"demo {mode}: {n_long} frames of {DEMO_FPS_FRAMES}")
+        check("cv2" not in sys.modules,
+              f"detector demo {' '.join(flags)} imported OpenCV")
+        steady, quarters = _demo_fps(stdout)
+        rows[mode] = {"frames": len(blocks), "obj_bias": bias,
+                      "object_lines": n_lines,
+                      "lines_off_by_a_count": n_near, "fps": steady,
+                      "fps_quarters": quarters, "fps_frames": n_long,
+                      "wall_s": wall, "launches_at_capture": launches}
+        say("demo", f"detector demo {' '.join(flags) or '(bf16)'}: "
+            f"{len(blocks)} of {DEMO_FRAMES} frames, no OpenCV imported; "
+            f"{n_lines} object lines equal to the pipeline's on the same "
+            f"frames ({n_near} with a box field one count off); "
+            f"{wall:.2f} s with set-up and capture; kernels captured "
+            f"{launches}; over {n_long} frames {steady:.1f} frames per "
+            f"second after frame {DEMO_WARM} (quarters "
+            + " / ".join(f"{q:.1f}" for q in quarters) + ")")
+        del pipe
+    return rows
+
+
+def phase_tree(tmp: str) -> dict:
+    """The mini YOLO9000 net (tests/test_tree.py's tree and cfg, random
+    weights from seed 31) on the card: ``detector test -quantized`` through
+    the CLI (K1 at its int8 convs) with heads and lines equal to the plain
+    path's; the pipeline (device decode of the tree head, device NMS) with
+    its detections equal to ``detect_image``'s (phase 8's comparison) and
+    to the plain pipeline's."""
+    tree = os.path.join(tmp, "mini.tree")
+    with open(tree, "w") as f:
+        f.write(TREE_TEXT)
+    cfg = os.path.join(tmp, "mini-tree.cfg")
+    with open(cfg, "w") as f:
+        f.write(TREE_CFG.format(tree_path=tree))
+    weights = os.path.join(tmp, "mini-tree.weights")
+    save_random_weights(cfg, weights, seed=31)
+    names_file = os.path.join(tmp, "tree.names")
+    with open(names_file, "w") as f:
+        f.write("\n".join(TREE_NAMES) + "\n")
+    int8_conv.reset_launch_counts()
+    rc, stdout, _ = run_cli(["detector", "test", names_file, cfg, weights,
+                             IMAGE, "-dont_show", "-thresh", "0.2",
+                             "-quantized", "-save",
+                             os.path.join(tmp, "pred_tree")])
+    check(rc == 0, f"detector test on the tree net exited {rc}")
+    launches = {k: v for k, v in int8_conv.LAUNCH_COUNTS.items() if v}
+    check(launches.get("int8_conv", 0) > 0, "tree net: K1 not launched")
+    text = detection_text(stdout)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        plain_text = detect.run(TREE_NAMES, cfg, weights, IMAGE, thresh=0.2,
+                                quantized=True, int8_impl="plain",
+                                save_path=os.path.join(tmp, "pred_tree_p"),
+                                device="cuda")
+    check_same_lines(text, plain_text.rstrip("\n"),
+                     "tree net: lines of the kernel and the plain path")
+    spec, params, mode = detect.build_params(cfg, weights, quantized=True,
+                                             echo=False)
+    check(spec.layers[-1].softmax_tree is not None, "tree net: no tree")
+    kernel = network.Predictor(spec, params, mode, device="cuda")
+    plain = network.Predictor(spec, params, mode, device="cuda",
+                              int8_impl="plain")
+    x = np.random.RandomState(SEED).rand(2, 64, 64, 3).astype(np.float32)
+    for a, b in zip(kernel(x), plain(x)):
+        check(torch.equal(a.data, b.data), "tree net: heads of the kernel "
+              "and the plain path differ")
+    args = dict(thresh=0.2, nms=0.4, k=256, device_nms=True, device="cuda")
+    piped = pipeline.DetectionPipeline(spec, params, mode, **args)
+    # the plain twins make host scalars on the fly, which a CUDA graph
+    # cannot capture: the plain pipeline runs eagerly
+    piped_plain = pipeline.DetectionPipeline(spec, params, mode,
+                                             int8_impl="plain",
+                                             cuda_graph=False, **args)
+    frames = (np.random.RandomState(SEED).rand(4, 64, 64, 3) * 255).astype(
+        np.uint8)
+    from PIL import Image
+    n_lines = 0
+    for i, (d, dp) in enumerate(zip(piped(frames), piped_plain(frames))):
+        got = post_boxes.format_detections(d, TREE_NAMES, 0.2, 64,
+                                           64).splitlines()
+        check(got == post_boxes.format_detections(
+            dp, TREE_NAMES, 0.2, 64, 64).splitlines(),
+            f"tree net: pipeline lines of frame {i} != the plain pipeline's")
+        path = os.path.join(tmp, f"tree_frame{i}.png")
+        Image.fromarray(frames[i]).save(path)
+        host, _, _ = detect.detect_image(kernel, spec, path, 0.2, 0.4,
+                                         TREE_NAMES)
+        check_near_lines(got, post_boxes.format_detections(
+            host, TREE_NAMES, 0.2, 64, 64).splitlines(),
+            f"tree net: pipeline and detect_image lines of frame {i}")
+        n_lines += len(got)
+    check(n_lines > 0, "tree net: no pipeline detection")
+    say("tree", f"mini YOLO9000 tree net: detector test -quantized launches "
+        f"{launches}; {len(text.splitlines())} lines and the heads equal "
+        f"the plain path's; the pipeline's {n_lines} lines over 4 frames "
+        "equal the plain pipeline's and detect_image's")
+    return {"launches": launches, "lines": len(text.splitlines()),
+            "pipeline_lines": n_lines}
+
+
+def phase_profile(tmp: str, weights: str, names_file: str) -> dict:
+    """``detector test -bf16 -profile DIR`` writes a torch.profiler trace
+    with device activity; ``profile_layers`` times the -bf16 forward layer
+    by layer with CUDA events (the ten costliest layers printed);
+    ``-i 0`` prints the lines it prints without it."""
+    prof = os.path.join(tmp, "profile")
+    base = ["detector", "test", names_file, CFG, weights, IMAGE, "-dont_show",
+            "-thresh", THRESH, "-bf16", "-save",
+            os.path.join(tmp, "pred_prof")]
+    rc, out_p, _ = run_cli(base + ["-profile", prof])
+    check(rc == 0, f"detector test -profile exited {rc}")
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    k6_events = sum("bf16_conv_kernel" in str(e.get("name", ""))
+                    for e in events)
+    check(k6_events >= 75, f"-profile trace: {k6_events} K6 events")
+    rc, out_i, _ = run_cli(base + ["-i", "0"])
+    check(rc == 0, "detector test -i 0 failed")
+    check_same_lines(detection_text(out_i), detection_text(out_p),
+                     "-i 0 and the run without it")
+    spec, params, _ = detect.build_params(CFG, weights, echo=False)
+    x = np.random.RandomState(SEED).rand(1, 416, 416, 3).astype(np.float32)
+    rows = profiling.profile_layers(spec, params, x, iters=3,
+                                    compute_dtype=torch.bfloat16,
+                                    device="cuda")
+    check(len(rows) == spec.n and all(r[3] >= 0 for r in rows),
+          "profile_layers rows")
+    top = sorted(rows, key=lambda r: -r[3])[:10]
+    size = os.path.getsize(os.path.join(prof, "trace.json"))
+    say("profile", f"-profile wrote {size} bytes of trace with {k6_events} "
+        f"K6 kernel events; -i 0 prints the "
+        f"same lines; -bf16 forward layer by layer (CUDA events): "
+        f"{rows[-1][2]:.3f} ms to layer {rows[-1][0]}, costliest "
+        + ", ".join(f"{r[0]} {r[1]} {r[3]:.3f}" for r in top))
+    return {"trace_k6_events": k6_events, "total_ms": rows[-1][2],
+            "top_layers": [list(r) for r in top]}
+
 def main() -> int:
     smi_line = phase_device()
     phase_build()
@@ -1994,6 +2617,16 @@ def main() -> int:
         precision = phase_precision(tmp, weights, names_file, names)
         old_rows = phase_old_kernels()
         old = phase_old(tmp)
+        bf16_rows = phase_bf16_kernels()
+        bf16_run = phase_bf16(tmp, weights, names_file, names)
+        slice11 = {"bf16": bf16_run, "demo": phase_demo(tmp),
+                   "tree": phase_tree(tmp),
+                   "profile": phase_profile(tmp, weights, names_file)}
+        for mode, r in slice11["demo"].items():
+            say("demo", f"{mode}: {r['fps']:.1f} frames per second over "
+                f"{r['fps_frames']} frames (quarters "
+                + " / ".join(f"{q:.1f}" for q in r["fps_quarters"])
+                + f") on {smi_line}")
     k1 = {
         "kernel": "int8_conv", "route": "cuda", "source": KERNEL_SOURCE,
         "launches": launches,
@@ -2083,6 +2716,22 @@ def main() -> int:
             **row_bound(shapes),
             "library_ms": sum(r["library_ms"] for r in shapes),
             "library": k1["library"], "shapes": shapes})
+    # K6: not a TPU kernel (it replaces XLA's bf16 conv); its launches are
+    # those of phase 11's detector test -bf16 forward
+    kernels.append({
+        "name": "bf16_conv", "kernel": "bf16_conv", "route": "cuda",
+        "source": BF16_SOURCE, "replaces": BF16_REPLACES,
+        "launches": bf16_run["-bf16"]["launches"]["bf16_conv"],
+        "max_abs_err": max(r["max_abs_err"] for r in bf16_rows),
+        "ms": sum(r["ms"] for r in bf16_rows),
+        "plain_ms": sum(r["plain_ms"] for r in bf16_rows),
+        **row_bound(bf16_rows),
+        "library_ms": sum(r["library_ms"] for r in bf16_rows),
+        "library": "cuDNN's bfloat16 conv (F.conv2d on bfloat16, its sum "
+                   "rounded to bfloat16)",
+        "f32_conv_ms": sum(r["f32_conv_ms"] for r in bf16_rows),
+        "shapes": bf16_rows})
+    print(json.dumps({"slice11": slice11}), flush=True)
     print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"precision": precision}), flush=True)
     print(json.dumps({"cpu_old": old}), flush=True)

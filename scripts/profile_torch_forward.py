@@ -5,7 +5,8 @@ weights from ``--seed``: yolov3-416 (``tests/data/yolov3.cfg``) in int8
 (``-quantized``, cpu policy; ``int8-fused`` adds ``-int8_impl fused``) and
 fp32, and in the precision modes (``int8-gpu``: ``-int8_policy gpu``;
 ``int8-turbo``, ``int8-turbo_int8``, ``int8-turbo_int8-fused``,
-``int8-bf16``, ``bf16``), and tiny-yolo-obj_xnor-416
+``int8-bf16``, ``bf16``: the float convs on the bf16 conv kernel), and
+tiny-yolo-obj_xnor-416
 (``tests/data/tiny-yolo-obj_xnor.cfg``) in each ``-xnor_kernel`` engine
 (``xnor-int8``, ``xnor-pallas``, ``xnor-pallas_mxu``, ``xnor-auto``) and
 under ``-turbo`` with ``pallas_mxu`` (``xnor-pallas_mxu-turbo``), and
@@ -68,7 +69,7 @@ MODES.update({"voc-int8-cpu_old": (VOC_CFG, "int8", {"int8_policy": "cpu_old"}),
               "voc-fp32": (VOC_CFG, "fp32", {})})
 # the kernels of yolo2_light_tpu_torch/csrc, as the profiler names them
 HAND_KERNELS = ("int8_conv_kernel", "fused_res_kernel", "xnor_popcount_kernel",
-                "xnor_mma_kernel")
+                "xnor_mma_kernel", "bf16_conv_kernel")
 
 
 def profile_mode(weights: str, name: str, seed: int, iters: int,

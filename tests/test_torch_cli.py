@@ -148,22 +148,139 @@ def test_turbo_flag_guards_match_jax_cli(assets, capsys, flags):
     assert out_t == out_j == ""
 
 
-@pytest.mark.parametrize("sub", ["demo"])
-def test_other_apps_not_yet_ported(capsys, sub):
-    rc, _, err = _run(torch_main, capsys,
-                      ["detector", sub, "x.data", "x.cfg", "x.weights"])
-    assert rc != 0 and "not yet ported" in err
+def test_detector_demo_streams_match_jax_cli(assets, capsys, tmp_path):
+    """``detector demo`` (ported): a 4-frame raw video through both CLIs in
+    -fp32, the same streams once the FPS figures are masked
+    (tests/test_torch_demo.py covers the other modes and flags)."""
+    import re
+
+    import numpy as np
+
+    from yolo2_light_tpu_torch.io.rawvideo import write_rawvideo
+    d, names, weights = assets
+    rng = np.random.RandomState(5)
+    vid = str(tmp_path / "v.cvs")
+    write_rawvideo(vid, [(rng.rand(64, 64, 3) * 255).astype(np.uint8)
+                         for _ in range(4)])
+    args = ["detector", "demo", names, CFG, weights, vid, "-dont_show",
+            "-fp32", "-thresh", "0.4"]
+    rc_j, out_j, err_j = _run(jax_main, capsys, args)
+    rc_t, out_t, err_t = _run(torch_main, capsys, args + ["-device", "cpu"])
+    assert rc_j == rc_t == 0, err_t[-2000:]
+    fps = re.compile(r"FPS:\S*")
+    out_t, out_j = fps.sub("FPS:#", out_t), fps.sub("FPS:#", out_j)
+    assert out_t.count("Objects:") == 4
+    assert_streams_match(out_t, out_j, context="stdout")
+    assert_streams_match(err_t, err_j, context="stderr")
 
 
 @pytest.mark.parametrize("flag", [["-device_resize"], ["-uint8_ingest"],
                                   ["-pp", "2"], ["-no_uint8_ingest"]])
 def test_unported_flags_exit_nonzero(assets, capsys, flag):
+    """The mesh flags stay refused. The demo's ingest flags are ported
+    (tests/test_torch_demo.py runs them): ``detector test`` parses them as
+    the JAX CLI does and prints the same streams as without them."""
     d, names, weights = assets
-    rc, _, err = _run(torch_main, capsys,
-                      ["detector", "test", names, CFG, weights, IMAGE,
-                       "-dont_show", "-device", "cpu", "-save",
-                       str(d / "u")] + flag)
-    assert rc != 0 and "not yet ported" in err
+    args = ["detector", "test", names, CFG, weights, IMAGE, "-dont_show",
+            "-device", "cpu", "-save", str(d / "u")]
+    rc, out, err = _run(torch_main, capsys, args + flag)
+    if flag[0] == "-pp":
+        assert rc != 0 and "not yet ported" in err
+        return
+    rc_base, out_base, err_base = _run(torch_main, capsys, args)
+    rc_j, out_j, err_j = _run(jax_main, capsys, args[:-3] + flag + [
+        "-save", str(d / "uj")])
+    assert rc == rc_base == rc_j == 0
+    drop = ("Predicted in",)
+    assert_streams_match(out, out_base, drop=drop, context="stdout")
+    assert_streams_match(out, out_j, drop=drop, context="stdout")
+    assert_streams_match(err, err_j, drop=drop, context="stderr")
+
+
+def test_params_cache_key_hit_and_miss_match_jax(assets, capsys, tmp_path):
+    """-params_cache: the port names its cache file as the JAX CLI does for
+    the same inputs; a second run loads it and prints the same streams as
+    the first (and as the JAX CLI's cached run); an edited cfg misses."""
+    import shutil
+
+    from yolo2_light_tpu_torch.apps.detect import params_cache_path
+    d, names, weights = assets
+    cfg = str(tmp_path / "c.cfg")
+    shutil.copy(CFG, cfg)
+    jdir, tdir = str(tmp_path / "jc"), str(tmp_path / "tc")
+    args = ["detector", "test", names, cfg, weights, IMAGE, "-dont_show",
+            "-quantized", "-thresh", "0.1", "-save", str(tmp_path / "p")]
+    rc, out1, err1 = _run(torch_main, capsys,
+                          args + ["-params_cache", tdir, "-device", "cpu"])
+    assert rc == 0 and os.listdir(tdir)
+    rc_j, _, _ = _run(jax_main, capsys, args + ["-params_cache", jdir])
+    assert rc_j == 0 and os.listdir(jdir) == os.listdir(tdir)
+    assert os.listdir(tdir) == [os.path.basename(
+        params_cache_path(tdir, cfg, weights, True))]
+    rc, out2, err2 = _run(torch_main, capsys,
+                          args + ["-params_cache", tdir, "-device", "cpu"])
+    rc_j, out_j2, err_j2 = _run(jax_main, capsys,
+                                args + ["-params_cache", jdir])
+    drop = ("Predicted in",)
+    assert rc == rc_j == 0
+    # a hit skips the quantize step and its prints, as in the JAX CLI
+    assert "Quantinization!" in out1 and "Quantinization!" not in out2
+    assert_streams_match(out2, out_j2, drop=drop, context="stdout")
+    assert_streams_match(err2, err_j2, drop=drop, context="stderr")
+    assert parse_detection_lines(out2)[0] == parse_detection_lines(out1)[0]
+    with open(cfg, "a") as f:
+        f.write("\n")
+    rc, _, _ = _run(torch_main, capsys,
+                    args + ["-params_cache", tdir, "-device", "cpu"])
+    assert rc == 0 and len(os.listdir(tdir)) == 2
+
+
+def test_profile_writes_a_trace_and_cost_table_matches_jax(assets, capsys,
+                                                           tmp_path):
+    """-profile DIR: ``detector test`` prints its usual streams and leaves a
+    torch.profiler trace in DIR; ``layer_cost_table`` prints the JAX
+    package's text; ``profile_layers`` gives a row per layer on the CPU."""
+    import numpy as np
+
+    from yolo2_light_tpu.utils import profiling as JP
+    from yolo2_light_tpu_torch import cfg as TC
+    from yolo2_light_tpu_torch.apps.detect import build_params
+    from yolo2_light_tpu_torch.utils import profiling as TP
+    d, names, weights = assets
+    prof = tmp_path / "prof"
+    args = ["detector", "test", names, CFG, weights, IMAGE, "-dont_show",
+            "-device", "cpu", "-save", str(tmp_path / "p")]
+    rc, out, err = _run(torch_main, capsys, args + ["-profile", str(prof)])
+    rc_base, out_base, _ = _run(torch_main, capsys, args)
+    assert rc == rc_base == 0
+    assert_streams_match(out, out_base, drop=("Predicted in",))
+    assert (prof / "trace.json").stat().st_size > 0
+    for path in (CFG, os.path.join(DATA, "yolov3.cfg"),
+                 os.path.join(DATA, "mini-xnor.cfg")):
+        assert TP.layer_cost_table(TC.parse_network_cfg(path, batch=1)) == \
+            JP.layer_cost_table(parse_network_cfg(path, batch=1))
+    spec, params, _ = build_params(CFG, weights, echo=False)
+    x = np.random.RandomState(0).rand(1, 64, 64, 3).astype(np.float32)
+    rows = TP.profile_layers(spec, params, x, iters=2, device="cpu")
+    assert [r[:2] for r in rows] == [
+        (l.index, type(l).__name__.replace("Spec", "")) for l in spec.layers]
+    assert all(r[2] >= 0 and r[3] >= 0 for r in rows)
+    assert rows[-1][2] >= rows[0][2]
+
+
+def test_device_index_flag(assets, capsys):
+    """-i 0 changes nothing; an index past the devices of the chosen kind
+    exits 1 with the JAX CLI's message."""
+    d, names, weights = assets
+    args = ["detector", "test", names, CFG, weights, IMAGE, "-dont_show",
+            "-device", "cpu", "-save", str(d / "i")]
+    rc0, out0, _ = _run(torch_main, capsys, args + ["-i", "0"])
+    rc, out, _ = _run(torch_main, capsys, args)
+    assert rc0 == rc == 0
+    assert_streams_match(out0, out, drop=("Predicted in",))
+    rc, out, err = _run(torch_main, capsys, args + ["-i", "3"])
+    assert rc == 1 and out == ""
+    assert err == "device index 3 out of range (1 devices)\n"
 
 
 def test_bad_values_exit_nonzero(capsys):

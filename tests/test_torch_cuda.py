@@ -907,11 +907,19 @@ PRECISION_MODES = {
 
 
 @pytest.mark.parametrize("name", list(PRECISION_MODES))
-def test_precision_mode_kernel_path_equals_plain_path(dev, name):
+def test_precision_mode_kernel_path_equals_plain_path(dev, name,
+                                                     monkeypatch):
     """Each mode's kernel path on the card against its plain path on the
     card, head for head, bit for bit; under -turbo in int8 mode K1 reads
-    and stores bf16 with nothing launched in front of it."""
+    and stores bf16 with nothing launched in front of it. Under -bf16 the
+    float convs run K6 against its plain twin, whose float32 sums differ
+    in order only: the heads are held at the CPU tests' bf16 bound
+    (``bf16_conv.heads_gap``: a sum within an ULP of a bfloat16 boundary of
+    the next conv's input rounds the other way, and the step travels
+    downstream). Under -quantized -bf16 the plain path runs K6 too, so K1
+    is held bit for bit."""
     from yolo2_light_tpu_torch.models import network as TN
+    from yolo2_light_tpu_torch.ops import bf16_conv as B
     cfg, mode, kw = PRECISION_MODES[name]
     spec, params, _ = build_params(os.path.join(DATA, f"{cfg}.cfg"), None,
                                    quantized=mode == "int8", echo=False)
@@ -926,9 +934,19 @@ def test_precision_mode_kernel_path_equals_plain_path(dev, name):
     hk = kernel(x)
     torch.cuda.synchronize()
     launches, pre = dict(K.LAUNCH_COUNTS), dict(K.PRE_LAUNCHES)
+    bf16 = kw.get("compute_dtype") == torch.bfloat16
+    near = bf16 and mode != "int8"
+    if bf16 and mode == "int8":
+        monkeypatch.setattr(B, "conv2d_bf16_plain", B.conv2d_bf16)
     for a, b in zip(hk, plain(x)):
         assert a.data.dtype == torch.float32
-        assert torch.equal(a.data, b.data), a.index
+        if near:
+            gap = B.heads_gap(a.data, b.data)
+            assert gap.within == 1.0 and gap.mean < B.HEADS_MEAN, gap
+        else:
+            assert torch.equal(a.data, b.data), a.index
+    if bf16:
+        assert launches["bf16_conv"] > 0
     if mode == "int8" and kw.get("int8_impl") != "fused":
         policy = kw.get("int8_policy", "cpu")
         assert launches["int8_conv"] == len(TN._int8_layer_set(spec, policy))
@@ -954,9 +972,9 @@ def test_pipeline_graph_replay_equals_eager_in_precision_modes(dev, name):
 
 
 def test_bf16_conv_does_not_depend_on_the_input_layout(dev):
-    """cuDNN picks a bfloat16 conv's algorithm by the input's memory layout
-    and rounds that algorithm's sum: the float conv takes an NCHW-strided
-    map (a plain twin's output) as the same map laid out NHWC."""
+    """The float conv takes an NCHW-strided map (a plain twin's output) as
+    the same map laid out NHWC: the bf16 conv kernel reads dense NHWC rows,
+    and the wrapper makes a strided map dense first."""
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.rand(1, 64, 13, 13).astype(np.float32)).to(dev)
     w = torch.from_numpy(rng.randn(255, 64, 1, 1).astype(np.float32)).to(
@@ -1068,3 +1086,140 @@ def test_cpu_old_kernel_path_equals_plain_path(dev, name, tmp_path):
     assert dict(K.FORM_LAUNCHES) == want
     for a, b in zip(hk, plain(x)):
         assert torch.equal(a.data, b.data), a.index
+
+
+# ---------------------------------------------------------------------------
+# K6: the bf16 conv with a float32 sum (-bf16's float convs)
+# ---------------------------------------------------------------------------
+
+
+def _yolov3_float_shapes():
+    """yolov3-416's 23 distinct conv shapes (H, W, C, M, ks, stride, pad):
+    every conv runs K6 under -bf16."""
+    from yolo2_light_tpu_torch.cfg import ConvSpec, parse_network_cfg
+    spec = parse_network_cfg(os.path.join(DATA, "yolov3.cfg"), batch=1)
+    return list(dict.fromkeys(
+        (l.h, l.w, l.c, l.n, l.size, l.stride, l.pad)
+        for l in spec.layers if isinstance(l, ConvSpec)))
+
+
+def _bf16_operands(dev, seed, b, h, w, c, m, ks):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(dev)
+    wt = torch.from_numpy((rng.randn(m, ks, ks, c) / np.sqrt(ks * ks * c))
+                          .astype(np.float32)).to(dev).to(torch.bfloat16)
+    return x, wt
+
+
+@pytest.mark.parametrize("shape", _yolov3_float_shapes(),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bf16_conv_within_bound_of_plain_and_batch_invariant(dev, shape):
+    """K6 at each yolov3-416 float conv shape, b=1 and b=8: within the
+    float32-accumulate bound of its plain twin (the float32 conv of the same
+    bfloat16 operands, TF32 off, cuDNN deterministic), and the b=8 result's
+    image 0 bit-identical to the b=1 result (F14's pin)."""
+    from yolo2_light_tpu_torch.ops import bf16_conv as B
+    h, w, c, m, ks, stride, pad = shape
+    L.set_fp32_precision()
+    x8, wt = _bf16_operands(dev, h * c + m, 8, h, w, c, m, ks)
+    x1 = x8[:1].contiguous()
+    outs = {}
+    for b, x in ((1, x1), (8, x8)):
+        K.reset_launch_counts()
+        out = B.conv2d_bf16_cuda(x, wt, stride, pad)
+        assert K.LAUNCH_COUNTS == {"bf16_conv": 1}
+        ref = B.conv2d_bf16_plain(x, wt, stride, pad)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and out.dtype == torch.float32
+        diff = (out.double() - ref.double()).abs()
+        assert bool((diff <= B.sum_bound(x, wt, stride, pad)).all()), \
+            float(diff.max())
+        outs[b] = out
+    assert torch.equal(outs[8][:1], outs[1])
+
+
+@pytest.mark.parametrize("plan", [(8, 8, 2), (4, 8, 3), (4, 4, 4)])
+def test_bf16_conv_every_tile_and_depth_bit_identical(dev, plan):
+    """The sum order depends on C and ks alone: every tile and ring depth
+    gives the same bits."""
+    from yolo2_light_tpu_torch.ops import bf16_conv as B
+    x, wt = _bf16_operands(dev, 5, 2, 19, 23, 40, 70, 3)
+    base = B.plan_launch(2, 19, 23, 40, 70, 3, 1, 1)
+    want = B.conv2d_bf16_cuda(x, wt, 1, 1)
+    th, tw, st = plan
+    got = B.conv2d_bf16_cuda(x, wt, 1, 1, plan=base._replace(
+        tile_h=th, tile_w=tw, stages=st))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_bf16_conv_refuses_what_the_kernel_does_not_take(dev):
+    from yolo2_light_tpu_torch.ops import bf16_conv as B
+    x, wt = _bf16_operands(dev, 0, 1, 16, 16, 64, 64, 7)
+    plan = B.plan_launch(1, 16, 16, 64, 64, 7, 1, 3)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        # 8x8 tiles of a 7x7 conv do not fit in shared memory
+        B.conv2d_bf16_cuda(x, wt, 1, 3, plan=plan._replace(
+            tile_h=8, tile_w=8, stages=4))
+    with pytest.raises(ValueError, match="no tile"):
+        B.conv2d_bf16_cuda(*_bf16_operands(dev, 0, 1, 16, 16, 8, 8, 9), 1, 4)
+    with pytest.raises(TypeError):
+        B.conv2d_bf16_cuda(x.to(torch.bfloat16), wt, 1, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        B.conv2d_bf16_cuda(x.transpose(1, 2), wt, 1, 3)
+
+
+def test_bf16_forward_launches_k6_per_float_conv(dev):
+    """-bf16 on the card: one K6 launch per conv in fp32 mode, one per
+    float conv (layer 0 and the heads) beside K1 in int8 mode; no cuDNN
+    conv."""
+    from yolo2_light_tpu_torch.cfg import ConvSpec
+    from yolo2_light_tpu_torch.models import network as TN
+    for mode in ("fp32", "int8"):
+        spec, params, _ = build_params(os.path.join(DATA, "mini-yolo3.cfg"),
+                                       None, quantized=mode == "int8",
+                                       echo=False)
+        x = np.random.RandomState(2).rand(2, spec.net.h, spec.net.w,
+                                          3).astype(np.float32)
+        pred = Predictor(spec, params, mode, device=dev,
+                         compute_dtype=torch.bfloat16)
+        K.reset_launch_counts()
+        pred(x)
+        torch.cuda.synchronize()
+        convs = sum(isinstance(l, ConvSpec) for l in spec.layers)
+        int8 = len(TN._int8_layer_set(spec, "cpu")) if mode == "int8" else 0
+        assert K.LAUNCH_COUNTS["bf16_conv"] == convs - int8
+        assert K.LAUNCH_COUNTS["int8_conv"] == int8
+
+
+def test_demo_on_card_runs_a_raw_video_without_cv2(dev, tmp_path):
+    """``detector demo`` on the card (bf16 by default, so K6 in the
+    captured graph) over a raw video, with OpenCV blocked: every frame."""
+    import subprocess
+    import sys
+    from yolo2_light_tpu_torch.io.rawvideo import write_rawvideo
+    from yolo2_light_tpu_torch.params import save_random_weights
+    cfg = os.path.join(DATA, "mini-yolo3.cfg")
+    weights = str(tmp_path / "w.weights")
+    save_random_weights(cfg, weights, seed=3)
+    rng = np.random.RandomState(0)
+    vid = str(tmp_path / "v.cvs")
+    write_rawvideo(vid, [(rng.rand(80, 96, 3) * 255).astype(np.uint8)
+                         for _ in range(6)])
+    names = tmp_path / "n.names"
+    names.write_text("aaa\nbbb\nccc\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys\n"
+        "sys.modules['cv2'] = None\n"
+        "from yolo2_light_tpu_torch.apps.cli import main\n"
+        "from yolo2_light_tpu_torch.ops import int8_conv\n"
+        f"rc = main(['detector', 'demo', {str(names)!r}, {cfg!r}, "
+        f"{weights!r}, {vid!r}, '-dont_show'])\n"
+        "assert int8_conv.LAUNCH_COUNTS['bf16_conv'] > 0\n"
+        "sys.exit(rc)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(tmp_path), timeout=600,
+                       env=dict(os.environ, PYTHONPATH=repo))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.count("Objects:") == 6

@@ -316,3 +316,110 @@ def test_native_library_builds_inside_the_checkout():
     build = os.path.join(os.path.dirname(DATA), os.pardir, "build", "native")
     assert glob.glob(os.path.join(os.path.abspath(build),
                                   "libyolo2native-*.so"))
+
+
+# ---------------------------------------------------------------------------
+# post/boxes_legacy.py, utils/distribution.py, utils/voc_label.py: the
+# JAX package's own tests of these modules, run on the port's copies, and
+# the copies against the originals on the same inputs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["dintersect", "dunion"])
+def test_boxes_legacy_gradient_tests_run_on_the_copy(name):
+    from tests import test_boxes_legacy as T
+    from yolo2_light_tpu_torch.post import boxes_legacy as TBL
+    T.test_gradients_match_finite_differences(
+        getattr(TBL, name), {"dintersect": T._inter, "dunion": T._union}[name])
+
+
+@pytest.mark.parametrize("test", [
+    "test_diou_analytic_matches_finite_differences",
+    "test_diou_is_unconditionally_the_delta_branch",
+    "test_derivative_disjoint_is_pure_approach", "test_box_rmse",
+    "test_encode_decode_roundtrip"])
+def test_boxes_legacy_tests_run_on_the_copy(monkeypatch, test):
+    from tests import test_boxes_legacy as T
+    from yolo2_light_tpu_torch.post import boxes_legacy as TBL
+    monkeypatch.setattr(T, "BL", TBL)
+    getattr(T, test)()
+
+
+def test_boxes_legacy_copy_matches_jax():
+    from yolo2_light_tpu.post import boxes_legacy as JBL
+    from yolo2_light_tpu_torch.post import boxes_legacy as TBL
+    rng = np.random.RandomState(4)
+    a = (rng.rand(50, 4) + 0.1).astype(np.float32)
+    b = (a + rng.randn(50, 4) * 0.3).astype(np.float32)
+    for fn in ("derivative", "dintersect", "dunion", "diou",
+               "diou_analytic"):
+        for x, y in zip(a, b):
+            _assert_same(getattr(TBL, fn)(x, y), getattr(JBL, fn)(x, y), fn)
+    for fn in ("box_rmse", "encode_box", "decode_box"):
+        _assert_same(getattr(TBL, fn)(a, np.abs(b) + 0.1),
+                     getattr(JBL, fn)(a, np.abs(b) + 0.1), fn)
+
+
+@pytest.mark.parametrize("test", [
+    "test_draw_distribution", "test_draw_distribution_show_headless_noop",
+    "test_draw_distribution_geometry", "test_voc_label_converter"])
+def test_utils_tools_tests_run_on_the_copies(monkeypatch, tmp_path, test):
+    """tests/test_utils_tools.py with the JAX modules it imports replaced by
+    the port's copies (and the port's quant)."""
+    import sys
+
+    from tests import test_utils_tools as T
+    from yolo2_light_tpu_torch import quant as TQ
+    from yolo2_light_tpu_torch.utils import distribution as TDist
+    from yolo2_light_tpu_torch.utils import voc_label as TVoc
+    for name, mod in (("yolo2_light_tpu.utils.distribution", TDist),
+                      ("yolo2_light_tpu.utils.voc_label", TVoc),
+                      ("yolo2_light_tpu.quant", TQ)):
+        monkeypatch.setitem(sys.modules, name, mod)
+    fn = getattr(T, test)
+    if test == "test_draw_distribution_show_headless_noop":
+        fn(tmp_path, monkeypatch)
+    else:
+        fn(tmp_path)
+
+
+def test_distribution_and_voc_label_copies_match_jax(tmp_path):
+    """The same array draws the same pixels and multiplier; the same VOC
+    annotation converts to the same label and list files."""
+    from PIL import Image
+
+    from yolo2_light_tpu.utils import distribution as JDist
+    from yolo2_light_tpu.utils import voc_label as JVoc
+    from yolo2_light_tpu_torch.utils import distribution as TDist
+    from yolo2_light_tpu_torch.utils import voc_label as TVoc
+    arr = (np.random.RandomState(2).randn(5000) * 0.07).astype(np.float32)
+    mj = JDist.draw_distribution(arr, "w", out_path=str(tmp_path / "j.png"))
+    mt = TDist.draw_distribution(arr, "w", out_path=str(tmp_path / "t.png"))
+    assert mt == mj
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "t.png")),
+                                  np.asarray(Image.open(tmp_path / "j.png")))
+    assert TVoc.convert_box((100, 200), (10, 50, 20, 120)) == \
+        JVoc.convert_box((100, 200), (10, 50, 20, 120))
+    outs = {}
+    for tag, main in (("j", JVoc.main), ("t", TVoc.main)):
+        root = tmp_path / tag / "VOCdevkit"
+        ann = root / "VOC2012" / "Annotations"
+        sets = root / "VOC2012" / "ImageSets" / "Main"
+        ann.mkdir(parents=True)
+        sets.mkdir(parents=True)
+        (ann / "a1.xml").write_text(
+            "<annotation><size><width>64</width><height>48</height></size>"
+            "<object><name>car</name><difficult>0</difficult><bndbox>"
+            "<xmin>3</xmin><xmax>40</xmax><ymin>5</ymin><ymax>30</ymax>"
+            "</bndbox></object></annotation>")
+        (sets / "train.txt").write_text("a1\n")
+        cwd = os.getcwd()
+        os.chdir(tmp_path / tag)
+        try:
+            main(["--root", "VOCdevkit", "--sets", "2012,train"])
+        finally:
+            os.chdir(cwd)
+        outs[tag] = ((root / "VOC2012" / "labels" / "a1.txt").read_text(),
+                     (tmp_path / tag / "2012_train.txt").read_text())
+    assert outs["t"][0] == outs["j"][0] and outs["t"][0].startswith("6 ")
+    assert outs["t"][1].replace("/t/", "/j/") == outs["j"][1]

@@ -43,7 +43,14 @@ def test_port_modules_are_found():
               "yolo2_light_tpu_torch.ops.resize",
               "yolo2_light_tpu_torch.pipeline",
               "yolo2_light_tpu_torch.post.device_decode",
-              "yolo2_light_tpu_torch.post.device_nms"):
+              "yolo2_light_tpu_torch.post.device_nms",
+              "yolo2_light_tpu_torch.ops.bf16_conv",
+              "yolo2_light_tpu_torch.apps.demo",
+              "yolo2_light_tpu_torch.io.rawvideo",
+              "yolo2_light_tpu_torch.utils.profiling",
+              "yolo2_light_tpu_torch.post.boxes_legacy",
+              "yolo2_light_tpu_torch.utils.voc_label",
+              "yolo2_light_tpu_torch.utils.distribution"):
         assert m in mods
 
 

@@ -141,11 +141,19 @@ def test_region_head(do_softmax):
 
 
 def test_softmax_tree_and_softmax_layer_not_yet_ported():
-    x = torch.zeros(1, 2, 2, 2 * 9)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TL.region_head(x, 2, 4, 4, True, softmax_tree_groups=[2, 2])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TL.softmax_layer(x.reshape(1, -1), 1, 1.0)
+    """Once refused by the port, now ported: the region head over softmax
+    tree groups and the [softmax] layer equal JAX's (the exp tolerance;
+    tests/test_torch_tree.py holds them at more shapes)."""
+    x = _rand(9, 1, 2, 2, 2 * 9, scale=3.0)
+    ref = np.asarray(JL.region_head(jnp.asarray(x), 2, 4, 4, True,
+                                    softmax_tree_groups=[2, 2]))
+    out = TL.region_head(torch.from_numpy(x), 2, 4, 4, True,
+                         softmax_tree_groups=[2, 2]).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+    flat = x.reshape(1, -1)
+    ref = np.asarray(JL.softmax_layer(jnp.asarray(flat), 1, 1.0))
+    out = TL.softmax_layer(torch.from_numpy(flat), 1, 1.0).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("ks,stride,pad,bn,act", [

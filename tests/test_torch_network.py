@@ -203,13 +203,23 @@ def test_xnor_cfg_int8_runs_int8_path_like_jax():
 
 
 def test_softmax_layer_cfg_not_yet_ported(tmp_path):
+    """Once refused by the port, now ported: a cfg ending in [softmax] runs
+    through the forward, whose final output equals the JAX forward's."""
+    from yolo2_light_tpu.models import network as JN
     cfg = tmp_path / "sm.cfg"
     cfg.write_text("[net]\nwidth=8\nheight=8\nchannels=3\n\n"
                    "[convolutional]\nfilters=4\nsize=1\nstride=1\n"
                    "activation=leaky\n\n[softmax]\ngroups=1\n")
     spec = TC.parse_network_cfg(str(cfg), batch=1)
-    with pytest.raises(NotImplementedError, match="softmax"):
-        TN.build_forward(spec, "fp32")
+    jspec = parse_network_cfg(str(cfg), batch=1)
+    params = fuse_conv_batchnorm(jspec, random_params(jspec, seed=2))
+    x = np.random.RandomState(3).rand(2, 8, 8, 3).astype(np.float32)
+    _, aux = TN.build_forward(spec, "fp32")(
+        TN.device_params(spec, params, "fp32", "cpu"), torch.from_numpy(x))
+    _, jaux = JN.build_forward(jspec, "fp32")(JN.params_to_device(params), x)
+    assert aux["final"].shape == (2, 8 * 8 * 4)
+    np.testing.assert_allclose(aux["final"].numpy(), np.asarray(jaux["final"]),
+                               rtol=1e-4, atol=1e-5)
 
 
 def test_predictor_holds_params_as_buffers_on_its_device():

@@ -1,19 +1,25 @@
 """Command-line interface with the reference's usage, ``detector test``,
-``detector map`` and ``detector calibrate`` (reference: main/run_detector,
-src/main.c:584-667):
+``detector map``, ``detector calibrate`` and ``detector demo`` (reference:
+main/run_detector, src/main.c:584-667):
 
     python -m yolo2_light_tpu_torch detector test <names> <cfg> [weights] [image]
         [-thresh T] [-dont_show] [-quantized] [-int8_impl xla|pallas|fused]
         [-xnor_kernel int8|pallas|pallas_mxu|auto] [-letterbox] [-save PATH]
         [-int8_policy cpu|gpu|cpu_old] [-bf16|-fp32] [-turbo|-turbo_int8]
-        [-device cuda|cpu]
+        [-params_cache DIR] [-profile DIR] [-i N] [-device cuda|cpu]
     python -m yolo2_light_tpu_torch detector map <datacfg> <cfg> [weights]
         [-thresh T] [-iou_thresh F] [-quantized] [-int8_impl xla|pallas|fused]
         [-batch N] [-k N] [-device_nms] [-int8_policy cpu|gpu|cpu_old]
-        [-bf16|-fp32] [-turbo|-turbo_int8] [-device cuda|cpu]
+        [-bf16|-fp32] [-turbo|-turbo_int8] [-i N] [-device cuda|cpu]
     python -m yolo2_light_tpu_torch detector calibrate <datacfg> <cfg>
         [weights] [-input_calibration N] [-calib_method device|host]
-        [-device cuda|cpu]
+        [-i N] [-device cuda|cpu]
+    python -m yolo2_light_tpu_torch detector demo <names> <cfg> [weights]
+        [video] [-thresh T] [-dont_show] [-quantized] [-bf16|-fp32]
+        [-c CAM] [-s FRAME_SKIP] [-prefix P] [-out_filename F] [-batch N]
+        [-k N] [-device_nms] [-device_resize] [-uint8_ingest|-no_uint8_ingest]
+        [-params_cache DIR] [-int8_policy ..] [-int8_impl ..]
+        [-turbo|-turbo_int8] [-i N] [-device cuda|cpu]
 
 ``-int8_impl fused`` runs each darknet53 residual block as one launch of the
 fused kernel; ``xla`` and ``pallas`` run every int8 conv on the int8 conv
@@ -25,16 +31,18 @@ graph per batch shape): ``-batch N`` images a batch (default 8), ``-k N`` the
 initial candidate buffer (default 1024; a saturated buffer grows to the
 net's total candidate count, or 4096 with ``-device_nms``), ``-device_nms``
 the exact greedy NMS on the device. ``-device`` defaults to ``cuda``; ``cpu``
-runs the plain PyTorch versions of the kernels.
+runs the plain PyTorch versions of the kernels; ``-i N`` picks the N-th
+device of that kind (``cuda:N``), and an index out of range exits 1.
 
 Precision modes, as the JAX CLI's: ``-int8_policy gpu`` (with
 ``-quantized``) runs the reference's cuDNN INT8x4 flavor on the int8 conv
 kernel (only the convs with the cfg's ``quantized`` flag are int8; no
-requant, 0.1*y leaky); ``-bf16`` runs the float convs in bfloat16 (``-fp32``
-is the default float32); ``-turbo`` materializes the activations between
-layers as bfloat16 and ``-turbo_int8`` (with ``-quantized`` only) the
-residual trunk as int8, both TPU-native extensions of the JAX package, not
-reference semantics. ``-turbo`` and ``-turbo_int8`` together exit 1.
+requant, 0.1*y leaky); ``-bf16`` runs the float convs on bfloat16 operands
+with float32 sums (the bf16 conv kernel); ``-fp32`` is float32, the default
+of test and map; ``-turbo`` materializes the activations between layers as
+bfloat16 and ``-turbo_int8`` (with ``-quantized`` only) the residual trunk
+as int8, both TPU-native extensions of the JAX package, not reference
+semantics. ``-turbo`` and ``-turbo_int8`` together exit 1.
 ``-int8_policy cpu_old`` (with ``-quantized``) runs the reference's legacy
 all-int8 chain (conv, maxpool, route, reorg and region layers only; the
 int8 convs on the int8 conv kernel's "old" epilogue); it ignores
@@ -46,19 +54,24 @@ calibration of the fp32 forward's conv inputs over the first
 ``-calib_method device`` (the default) sweeps on the device, ``host`` runs
 the reference's bit-exact host sweep (``apps/calibrate.py``).
 
-``demo`` and the JAX CLI's other flags (``-device_resize`` and
-``-uint8_ingest``/``-no_uint8_ingest`` are demo flags) are not yet ported:
-they exit non-zero and say so.
+``demo`` (``apps/demo.py``) runs a video file or camera through the
+pipeline's stream, in bfloat16 by default (``-fp32``: float32 and float
+ingest); it needs OpenCV only for a codec, a window, ``-out_filename`` or
+``-prefix``. ``-params_cache DIR`` keeps the transformed params (test and
+demo, the JAX package's cache key); ``-profile DIR`` (test) writes a
+``torch.profiler`` trace into DIR.
+
+The JAX CLI's mesh flags (``-pp``, ``-pp_tp``, ``-parallel``, ``-tp``,
+``-sp``), and ``-params_cache`` and ``-device_resize`` with ``map``, are not
+yet ported: they exit non-zero and say so.
 """
 
 from __future__ import annotations
 
 import sys
 
-_NOT_PORTED_FLAGS = ("-device_resize", "-uint8_ingest", "-no_uint8_ingest")
-_NOT_PORTED_VALUES = ("-pp", "-pp_tp", "-parallel", "-tp",
-                      "-sp", "-params_cache", "-profile", "-i",
-                      "-c", "-s", "-prefix", "-out_filename")
+_NOT_PORTED = ("-pp", "-pp_tp", "-parallel", "-tp", "-sp")
+_NOT_PORTED_IN_MAP = ("-params_cache", "-device_resize")
 
 
 def _find_flag(args, name):
@@ -99,14 +112,17 @@ def _main(argv=None) -> int:
         print(f"Not an option: {args[0]}", file=sys.stderr)
         return 1
     args = args[1:]
-    for flag in _NOT_PORTED_FLAGS + _NOT_PORTED_VALUES:
+    refused = _NOT_PORTED + (_NOT_PORTED_IN_MAP if args[:1] == ["map"]
+                             else ())
+    for flag in refused:
         if flag in args:
             raise NotImplementedError(
                 f"{flag} is not yet ported to yolo2_light_tpu_torch")
 
     dont_show = _find_flag(args, "-dont_show")
     bf16 = _find_flag(args, "-bf16")
-    _find_flag(args, "-fp32")   # float32 convs: the default of test and map
+    fp32 = _find_flag(args, "-fp32")  # the default of test and map; demo's
+    #                                   float32 and float-ingest path
     turbo = _find_flag(args, "-turbo")
     turbo_int8 = _find_flag(args, "-turbo_int8")
     if turbo and turbo_int8:
@@ -124,7 +140,18 @@ def _main(argv=None) -> int:
     letterbox = _find_flag(args, "-letterbox")
     thresh = _find_value(args, "-thresh", 0.25, float)
     iou_thresh = _find_value(args, "-iou_thresh", 0.5, float)
+    cam_index = _find_value(args, "-c", 0, int)       # src/main.c:591
+    frame_skip = _find_value(args, "-s", 0, int)      # src/main.c:594
+    prefix = _find_value(args, "-prefix", None)
+    out_filename = _find_value(args, "-out_filename", None)
     device_nms = _find_flag(args, "-device_nms")
+    device_resize = _find_flag(args, "-device_resize")
+    # demo's ingest precision (default: uint8 under bf16, float otherwise)
+    uint8_ingest = None
+    if _find_flag(args, "-uint8_ingest"):
+        uint8_ingest = True
+    if _find_flag(args, "-no_uint8_ingest"):
+        uint8_ingest = False
     batch = _find_value(args, "-batch", 0, int)
     topk = _find_value(args, "-k", 0, int)   # candidate-buffer K (map)
     save_path = _find_value(args, "-save", "predictions")
@@ -132,13 +159,25 @@ def _main(argv=None) -> int:
     int8_impl = _find_value(args, "-int8_impl", "xla")
     xnor_kernel = _find_value(args, "-xnor_kernel", "int8")
     device = _find_value(args, "-device", "cuda")
+    device_index = _find_value(args, "-i", 0, int)
     input_calibration = _find_value(args, "-input_calibration", 0, int)
     calib_method = _find_value(args, "-calib_method", "device")
+    params_cache = _find_value(args, "-params_cache", None)
+    profile_dir = _find_value(args, "-profile", None)
     if int8_impl not in ("xla", "pallas", "fused"):
         raise ValueError(f"unknown int8_impl {int8_impl!r} "
                          "(expected xla, pallas or fused)")
     if device not in ("cuda", "cpu"):
         raise ValueError(f"unknown device {device!r} (expected cuda or cpu)")
+    if device_index:
+        # reference: -i selects the GPU (src/main.c:653-661)
+        import torch
+        count = (torch.cuda.device_count() if device == "cuda" else 1)
+        if not 0 <= device_index < count:
+            print(f"device index {device_index} out of range "
+                  f"({count} devices)", file=sys.stderr)
+            return 1
+        device = f"{device}:{device_index}"
 
     if len(args) < 2:
         print("usage: yolo2_light_tpu_torch detector [test/map/calibrate/demo] "
@@ -153,10 +192,7 @@ def _main(argv=None) -> int:
               "(detector test uses the reference host post-processing path)",
               file=sys.stderr)
         return 1
-    if sub == "demo":
-        raise NotImplementedError(
-            f"detector {sub} is not yet ported to yolo2_light_tpu_torch")
-    if sub not in ("test", "map", "calibrate"):
+    if sub not in ("test", "map", "calibrate", "demo"):
         print(f"Not an option: {sub}", file=sys.stderr)
         return 1
     obj_names = args[1]
@@ -167,8 +203,9 @@ def _main(argv=None) -> int:
         print("error: missing cfg file", file=sys.stderr)
         return 1
     import torch
-    compute_dtype = torch.bfloat16 if bf16 else None
-    if device == "cuda":
+    compute_dtype = (torch.bfloat16 if bf16
+                     else torch.float32 if fp32 and sub == "demo" else None)
+    if device.startswith("cuda"):
         if not torch.cuda.is_available():
             print("error: CUDA is not available; pass -device cpu to run the "
                   "plain PyTorch path", file=sys.stderr)
@@ -205,12 +242,31 @@ def _main(argv=None) -> int:
                               compute_dtype=compute_dtype, turbo=turbo, **kw)
         return 0
     from ..datacfg import load_names
-    from .detect import run
     names = load_names(obj_names)
-    run(names, cfg, weights, filename, thresh=thresh, quantized=quantized,
-        dont_show=dont_show, int8_policy=int8_policy, save_path=save_path,
-        letter=letterbox, int8_impl=int8_impl, xnor_impl=xnor_kernel,
-        device=device, compute_dtype=compute_dtype, turbo=turbo)
+    if sub == "demo":
+        from .demo import demo
+        demo(cfg, weights, thresh, filename, names, quantized=quantized,
+             out_filename=out_filename, dont_show=dont_show,
+             int8_policy=int8_policy, compute_dtype=compute_dtype,
+             prefix=prefix, cam_index=cam_index, frame_skip=frame_skip,
+             batch=batch, params_cache=params_cache, device_nms=device_nms,
+             uint8_ingest=uint8_ingest, turbo=turbo, int8_impl=int8_impl,
+             device_resize=device_resize, device=device,
+             **({"k": topk} if topk > 0 else {}))
+        return 0
+    import contextlib
+    from .detect import run
+    tracing = contextlib.nullcontext()
+    if profile_dir:
+        from ..utils.profiling import trace
+        tracing = trace(profile_dir)
+    with tracing:
+        run(names, cfg, weights, filename, thresh=thresh, quantized=quantized,
+            dont_show=dont_show, int8_policy=int8_policy,
+            save_path=save_path, letter=letterbox, int8_impl=int8_impl,
+            xnor_impl=xnor_kernel, device=device,
+            compute_dtype=compute_dtype, turbo=turbo,
+            params_cache=params_cache)
     return 0
 
 

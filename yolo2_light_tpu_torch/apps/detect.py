@@ -8,6 +8,8 @@ the JAX package's (``cfg``, ``weights``, ``quant``, ``io``, ``post``).
 
 from __future__ import annotations
 
+import hashlib
+import os
 import sys
 import time
 
@@ -19,19 +21,35 @@ from ..io import image as im_io
 from ..models.network import Predictor
 from ..post import boxes as post
 from ..quant import quantize_params
-from ..weights import fuse_conv_batchnorm, load_weights, random_params
+from ..weights import (fuse_conv_batchnorm, load_params_cache, load_weights,
+                       random_params, save_params_cache)
 from ..xnor import binarize_params
 
 
 def build_params(cfgfile: str, weightfile, quantized: bool = False,
-                 seed: int = 0, echo: bool = True, quant_banner: bool = False):
+                 seed: int = 0, echo: bool = True, quant_banner: bool = False,
+                 params_cache=None):
     """Init chain (reference: src/main.c:160-171 and :4552-4561):
     parse -> load/init -> BN-fuse -> XNOR-binarize -> (INT8-quantize), with
     the reference's construction-time prints when ``echo``; random params
-    from ``seed`` when there is no ``weightfile``."""
+    from ``seed`` when there is no ``weightfile``.
+
+    ``params_cache``: a directory where the transformed params are kept as
+    ``params_<key>.npz``, the JAX package's file under the JAX package's key
+    (the SHA-1 of the weights' absolute path, mtime_ns and size,
+    ``quantized`` and the SHA-1 of the cfg's bytes, cut to 16 hex digits):
+    a later run with the same inputs skips load, fuse, binarize and
+    quantize, and an edited cfg (new calibration scales, xnor flags) misses.
+    """
     spec = parse_network_cfg(cfgfile, batch=1, quantized=quantized,
                              echo_table=echo)
     mode = "int8" if quantized else "fp32"
+    cpath = None
+    if params_cache and weightfile:
+        cpath = params_cache_path(params_cache, cfgfile, weightfile,
+                                  quantized)
+        if os.path.exists(cpath):
+            return spec, load_params_cache(cpath, spec.n), mode
     if weightfile:
         params = load_weights(spec, weightfile, verbose=echo)
     else:
@@ -42,17 +60,36 @@ def build_params(cfgfile: str, weightfile, quantized: bool = False,
         if echo and quant_banner:
             print("\n\n Quantinization! \n")
         params = quantize_params(spec, params, echo=echo)
+    if cpath:
+        save_params_cache(params, cpath)
     return spec, params, mode
+
+
+def params_cache_path(cache_dir: str, cfgfile: str, weightfile: str,
+                      quantized: bool) -> str:
+    """``<cache_dir>/params_<key>.npz`` under the JAX package's key
+    (``yolo2_light_tpu/apps/detect.py`` build_params); makes the
+    directory."""
+    st = os.stat(weightfile)
+    with open(cfgfile, "rb") as f:
+        cfg_digest = hashlib.sha1(f.read()).hexdigest()
+    key = hashlib.sha1(
+        f"{os.path.abspath(weightfile)}:{st.st_mtime_ns}:{st.st_size}:"
+        f"{quantized}:{cfg_digest}".encode()).hexdigest()[:16]
+    os.makedirs(cache_dir, exist_ok=True)
+    return os.path.join(cache_dir, f"params_{key}.npz")
 
 
 def build_predictor(cfgfile: str, weightfile, quantized: bool = False,
                     int8_policy: str = "cpu", int8_impl: str = "xla",
                     xnor_impl: str = "int8", device="cuda",
-                    compute_dtype=None, turbo=False):
+                    compute_dtype=None, turbo=False, params_cache=None):
     """``compute_dtype``: None (float32) or torch.bfloat16 (``-bf16``);
-    ``turbo``: False, True (``-turbo``) or "int8" (``-turbo_int8``)."""
+    ``turbo``: False, True (``-turbo``) or "int8" (``-turbo_int8``);
+    ``params_cache``: :func:`build_params`'."""
     spec, params, mode = build_params(cfgfile, weightfile, quantized,
-                                      quant_banner=True)
+                                      quant_banner=True,
+                                      params_cache=params_cache)
     pred = Predictor(spec, params, mode, device=device,
                      int8_policy=int8_policy, int8_impl=int8_impl,
                      xnor_impl=xnor_impl, turbo=turbo,
@@ -103,14 +140,16 @@ def run(names, cfgfile: str, weightfile, filename, thresh: float = 0.24,
         quantized: bool = False, dont_show: bool = True,
         int8_policy: str = "cpu", save_path: str = "predictions",
         letter: bool = False, int8_impl: str = "xla", xnor_impl: str = "int8",
-        device="cuda", compute_dtype=None, turbo=False) -> str:
+        device="cuda", compute_dtype=None, turbo=False,
+        params_cache=None) -> str:
     """Single-image detect; with no filename, loops reading image paths from
     stdin (reference: test_detector_cpu while(1) fgets loop,
     src/main.c:176-186). Returns the last image's detection text."""
     spec, pred = build_predictor(cfgfile, weightfile, quantized,
                                  int8_policy=int8_policy, int8_impl=int8_impl,
                                  xnor_impl=xnor_impl, device=device,
-                                 compute_dtype=compute_dtype, turbo=turbo)
+                                 compute_dtype=compute_dtype, turbo=turbo,
+                                 params_cache=params_cache)
     nms = 0.2 if quantized else 0.4  # reference: src/main.c:174,213
     head_specs = pred.head_specs()
     classes = head_specs[-1].classes if head_specs else 0

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops import int8_conv
+from ..ops import bf16_conv, int8_conv
 
 # ---------------------------------------------------------------------------
 # Activations (reference: src/additionally.h:66-165)
@@ -78,7 +78,7 @@ def set_fp32_precision() -> None:
 
 
 def conv2d_fp32(x, weights, biases, stride: int, pad: int, activation: str,
-                bn=None, compute_dtype=torch.float32):
+                bn=None, compute_dtype=torch.float32, plain: bool = False):
     """Dense conv + optional (unfused) BN + bias + activation.
     ``weights``: ``[O, I, kh, kw]`` (float32, or already in ``compute_dtype``).
 
@@ -87,29 +87,32 @@ def conv2d_fp32(x, weights, biases, stride: int, pad: int, activation: str,
     with epsilon added OUTSIDE the sqrt. ``network.build_forward`` turns TF32 off
     (:func:`set_fp32_precision`) before any conv runs.
 
-    ``compute_dtype=bfloat16`` (``-bf16``) rounds the input and the weights
-    to bfloat16 and returns float32; BN, bias and the activation run in
-    float32, as in the JAX package (its bf16 conv accumulates in float32,
-    ``preferred_element_type``). On the CPU the bfloat16 operands are
-    convolved in float32: their products are exact in float32, so this is
-    XLA's result up to the order of the sums. On the card the conv is cuDNN's
-    bfloat16 convolution, which accumulates in float32 but returns its sum
-    rounded to bfloat16: one rounding more than XLA, before the bias.
-    ``chip_smoke.py`` prints the largest difference against the float32
-    convolution of the same bfloat16 operands.
+    ``compute_dtype=bfloat16`` (``-bf16``) convolves the input and the
+    weights rounded to bfloat16 and sums in float32, as the JAX package does
+    (``preferred_element_type=float32``); BN, bias and the activation run
+    in float32. The conv is ``ops/bf16_conv.conv2d_bf16``: the hand kernel
+    for a CUDA tensor (one launch, which rounds the float32 input as it
+    stages it), its plain twin for a CPU tensor (the float32 conv of the
+    bfloat16-rounded operands; the products are exact in float32, so either
+    is XLA's result up to the order of the sums); ``plain=True`` runs the
+    plain twin on any device (the reference the kernel is checked against).
+    A bfloat16 input (turbo's
+    maps) is upcast first, exactly. Weights laid out by ``params`` (bfloat16
+    in channels-last memory) reach the kernel without a copy.
 
-    The input is made dense NHWC first (a no-op for the kernels' outputs):
-    cuDNN picks its algorithm by the memory layout too, and a bfloat16
-    result rounds each algorithm's sum, so an NCHW-strided map (the plain
-    int8 twin's and the dense XNOR engine's outputs) would otherwise give
-    other values than the same map laid out NHWC.
+    The float32 path makes the input dense NHWC first (a no-op for the
+    kernels' outputs): cuDNN picks its algorithm by the memory layout too.
     """
-    xc = x.contiguous().permute(0, 3, 1, 2).to(compute_dtype)
-    wc = weights.to(compute_dtype)
-    if compute_dtype == torch.bfloat16 and not x.is_cuda:
-        xc, wc = xc.to(torch.float32), wc.to(torch.float32)
-    y = F.conv2d(xc, wc, stride=stride, padding=pad)
-    y = y.permute(0, 2, 3, 1).to(torch.float32)
+    if compute_dtype == torch.bfloat16:
+        conv = (bf16_conv.conv2d_bf16_plain if plain
+                else bf16_conv.conv2d_bf16)
+        y = conv(x.to(torch.float32).contiguous(),
+                 bf16_conv.kernel_weights(weights), stride, pad)
+    else:
+        xc = x.contiguous().permute(0, 3, 1, 2).to(compute_dtype)
+        y = F.conv2d(xc, weights.to(compute_dtype), stride=stride,
+                     padding=pad)
+        y = y.permute(0, 2, 3, 1)
     if bn is not None:
         scales, rolling_mean, rolling_variance = bn
         denom = torch.sqrt(rolling_variance) + 1e-6
@@ -369,26 +372,45 @@ def yolo_head(x, n: int, classes: int):
     return y.reshape(b, h, w, n * (5 + classes))
 
 
+def _group_softmax(x, group_sizes) -> list:
+    """A softmax over each run of ``group_sizes`` consecutive entries of the
+    last axis, in order (the softmax tree's groups)."""
+    parts, start = [], 0
+    for gs in group_sizes:
+        parts.append(torch.softmax(x[..., start:start + gs], dim=-1))
+        start += gs
+    return parts
+
+
 def region_head(x, n: int, classes: int, coords: int, do_softmax: bool,
                 softmax_tree_groups=None):
     """YOLOv2 region head: logistic on t0; softmax over classes
     (reference: forward_region_layer_cpu, src/yolov2_forward_network.c:511-576).
     x,y stay raw (their logistic is applied at decode). Returns
-    ``[B,H,W,n,coords+1+classes]``. The softmax-tree variant is not ported."""
-    if softmax_tree_groups:
-        raise NotImplementedError(
-            "region softmax tree (YOLO9000) is not yet ported to "
-            "yolo2_light_tpu_torch")
+    ``[B,H,W,n,coords+1+classes]``. ``softmax_tree_groups`` (YOLO9000's
+    tree): a softmax over each group of consecutive classes instead."""
     b, h, w, _ = x.shape
     y = x.reshape(b, h, w, n, coords + 1 + classes)
     t0 = torch.sigmoid(y[..., coords:coords + 1])
     cls = y[..., coords + 1:]
-    if do_softmax:
+    if softmax_tree_groups:
+        cls = torch.cat(_group_softmax(cls, softmax_tree_groups), dim=-1)
+    elif do_softmax:
         cls = torch.softmax(cls, dim=-1)
     return torch.cat([y[..., :coords], t0, cls], dim=-1)
 
 
 def softmax_layer(x, groups: int, temperature: float, tree_groups=None):
-    """[softmax] layer: not yet ported."""
-    raise NotImplementedError(
-        "[softmax] layers are not yet ported to yolo2_light_tpu_torch")
+    """[softmax] layer. The reference never dispatches its forward (the
+    constructor comments it out, src/additionally.c:2313); the JAX package
+    and the port run it: softmax_cpu semantics
+    (src/yolov2_forward_network.c:476-491) over ``groups`` equal parts of
+    each flattened input, or the grouped softmax_tree variant (:494-505)
+    when the cfg supplies ``tree=``. Returns ``[B, inputs]``."""
+    b = x.shape[0]
+    ten = torch.tensor(temperature, dtype=torch.float32, device=x.device)
+    if tree_groups:
+        return torch.cat(_group_softmax(x.reshape(b, -1) / ten, tree_groups),
+                         dim=-1)
+    y = torch.softmax(x.reshape(b, groups, -1) / ten, dim=-1)
+    return y.reshape(b, -1)

@@ -50,8 +50,9 @@ float input itself) and makes the tensor only where it is more than that:
 under ``turbo="int8"``, whose trunk quantization feeds the target conv the
 producer's q, which its dequantized view need not give back.
 
-Everything else the JAX package's ``build_forward`` offers raises
-``NotImplementedError`` naming what is not yet ported; nothing falls back.
+The region head's softmax tree (YOLO9000) and ``[softmax]`` layers (plain,
+grouped or over the tree's groups) run as in the JAX package; a layer type
+its forward does not run raises ``NotImplementedError`` here too.
 """
 
 from __future__ import annotations
@@ -65,18 +66,20 @@ from torch import nn
 from ..cfg import (ConvSpec, MaxpoolSpec, ModelSpec, RegionSpec, ReorgSpec,
                    RouteSpec, ShortcutSpec, SoftmaxSpec, UpsampleSpec,
                    YoloSpec)
-from ..ops import fused_res, int8_conv, xnor_gemm
+from ..ops import bf16_conv, fused_res, int8_conv, xnor_gemm
 from ..params import params_to_torch
+from ..tree import softmax_groups
 from . import layers as L
 
 # "xla", "pallas" and "fused" name the JAX package's engines; on the port
 # "xla" and "pallas" run the int8 conv kernel behind every int8 conv, and
 # "fused" runs the residual blocks on the fused kernel and the other int8
 # convs on the int8 conv kernel. "plain" runs every kernel's plain PyTorch
-# version instead (the int8 ones and the XNOR engine's), on any device: the
-# reference the kernel paths are checked against; "fused_plain" does so with
-# the fused engine's blocks (which under turbo="int8" compute another
-# function than the unfused path: a run's interior trunk stays float32).
+# version instead (the int8 ones, the XNOR engine's and -bf16's float conv),
+# on any device: the reference the kernel paths are checked against;
+# "fused_plain" does so with the fused engine's blocks (which under
+# turbo="int8" compute another function than the unfused path: a run's
+# interior trunk stays float32).
 INT8_IMPLS = ("xla", "pallas", "fused", "plain", "fused_plain")
 XNOR_IMPLS = ("int8", "pallas", "pallas_mxu", "auto")
 
@@ -237,6 +240,14 @@ def _not_ported(what: str) -> NotImplementedError:
                                "yolo2_light_tpu_torch")
 
 
+def _tree_groups(l):
+    """The softmax tree's group sizes of a region or softmax layer, or None
+    (the JAX forward's ``softmax_groups`` spans, sizes only)."""
+    if l.softmax_tree is None:
+        return None
+    return [gs for _, gs in softmax_groups(l.softmax_tree)]
+
+
 def _check_ported(spec: ModelSpec, mode: str, int8_policy: str,
                   int8_impl: str, xnor_impl: str, compute_dtype,
                   turbo) -> set:
@@ -269,12 +280,6 @@ def _check_ported(spec: ModelSpec, mode: str, int8_policy: str,
                     f"{type(l).__name__} is not supported by the reference's "
                     "old INT8 pipeline (src/yolov2_forward_network_quantized."
                     "c:1121-1133 comments it out)")
-        return int8_set
-    for l in spec.layers:
-        if isinstance(l, SoftmaxSpec):
-            raise _not_ported(f"[softmax] layer {l.index}")
-        if isinstance(l, RegionSpec) and l.softmax_tree is not None:
-            raise _not_ported(f"region softmax tree (layer {l.index})")
     return int8_set
 
 
@@ -389,7 +394,7 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                   int8_policy: str = "cpu", int8_impl: str = "xla",
                   xnor_impl: str = "int8", compute_dtype=torch.float32,
                   turbo=False, int8_chain: bool = True,
-                  capture_conv_inputs: bool = False):
+                  capture_conv_inputs: bool = False, layer_hook=None):
     """Return ``forward(params, x) -> (heads, aux)``.
 
     ``x``: [B, H, W, C] float32, NHWC, values in [0,1]. ``params``: the
@@ -397,7 +402,9 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
     HeadOutput (float32 in every mode); ``aux["final"]`` is the last layer's
     output, and with ``capture_conv_inputs`` ``aux["conv_inputs"]`` the
     input of every conv in order. The modes and the int8 chain are in the
-    module docstring.
+    module docstring. ``layer_hook(i)``, where given, is called after each
+    layer i has been issued (``utils/profiling.profile_layers`` records its
+    per-layer times there).
     """
     int8_set = _check_ported(spec, mode, int8_policy, int8_impl, xnor_impl,
                              compute_dtype, turbo)
@@ -556,7 +563,8 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                               p["rolling_variance"])
                     cur = L.conv2d_fp32(cur, p["weights"], p["biases"],
                                         l.stride, l.pad, l.activation, bn=bn,
-                                        compute_dtype=compute_dtype)
+                                        compute_dtype=compute_dtype,
+                                        plain=plain)
                     if narrow is not None:
                         cur = cur.to(narrow)
                     cur, cur_i8 = finish_conv(i, cur)
@@ -630,16 +638,25 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
             elif isinstance(l, RegionSpec):
                 cur_i8 = None
                 y5 = L.region_head(cur.to(torch.float32), l.n, l.classes,
-                                   l.coords, l.softmax)
+                                   l.coords, l.softmax,
+                                   softmax_tree_groups=_tree_groups(l))
                 b, h, w = y5.shape[:3]
                 cur = y5.reshape(b, h, w, -1)
                 heads.append(HeadOutput(i, "region", y5))
+            elif isinstance(l, SoftmaxSpec):
+                cur_i8 = None
+                cur = cur.to(torch.float32)     # head math stays float32
+                cur = L.softmax_layer(cur.reshape(cur.shape[0], -1), l.groups,
+                                      l.temperature,
+                                      tree_groups=_tree_groups(l))
             else:
                 raise _not_ported(f"layer {type(l).__name__}")
             if i in kept:
                 outputs[i] = cur
             if i not in route_srcs:
                 i8_outputs.pop(i, None)
+            if layer_hook is not None:
+                layer_hook(i)
         aux = {"final": cur}
         if capture_conv_inputs:
             aux["conv_inputs"] = conv_inputs
@@ -789,12 +806,16 @@ def device_params(spec: ModelSpec, params: list, mode: str, device, *,
 
 
 def load_kernels(spec: ModelSpec, mode: str, *, int8_policy: str = "cpu",
-                 int8_impl: str = "xla", xnor_impl: str = "int8") -> None:
+                 int8_impl: str = "xla", xnor_impl: str = "int8",
+                 compute_dtype=torch.float32) -> None:
     """Build and bind the hand kernels a forward of ``spec`` launches on the
     card, so that the first forward does not include their builds."""
     if int8_impl in ("plain", "fused_plain"):
         return
     int8_set = _int8_layer_set(spec, int8_policy) if mode == "int8" else ()
+    if compute_dtype == torch.bfloat16 and not (mode == "int8" and
+                                                int8_policy == "cpu_old"):
+        bf16_conv.load_kernel()
     if mode == "int8":
         int8_conv.load_kernel()
         if int8_policy == "cpu_old":   # the old chain runs K1 alone
@@ -853,7 +874,8 @@ class Predictor(nn.Module):
             self._layout.append((names, scalars))
         if self.device.type == "cuda":
             load_kernels(spec, mode, int8_policy=int8_policy,
-                         int8_impl=int8_impl, xnor_impl=xnor_impl)
+                         int8_impl=int8_impl, xnor_impl=xnor_impl,
+                         compute_dtype=compute_dtype)
 
     def layer_params(self) -> list:
         """The per-layer param dicts ``forward`` reads, from the buffers."""

@@ -36,7 +36,8 @@ def layer_to_torch(p: dict, device, drop=frozenset(),
 
     * ``weights`` HWIO float32 -> ``[O, I, kh, kw]`` (PyTorch's conv layout)
       in ``weights_dtype`` (bfloat16 for ``-bf16``'s float convs, cast once
-      here instead of at every forward);
+      here instead of at every forward, and then in channels-last memory,
+      the ``[O, kh, kw, I]`` rows ``ops/bf16_conv`` reads);
     * ``biases``, unfused BN vectors, the XNOR ``mean_arr`` and the
       ``cpu_old`` epilogue's ``biases_quant`` -> float32 tensors;
     * with INT8 fields: ``weights_int8`` HWIO -> ``[M, kh, kw, C]`` (the
@@ -57,8 +58,13 @@ def layer_to_torch(p: dict, device, drop=frozenset(),
     out = {}
     if "weights" in p and "weights" not in drop:
         w = torch.as_tensor(np.asarray(p["weights"], np.float32))
-        out["weights"] = w.permute(3, 2, 0, 1).contiguous().to(
-            device, weights_dtype)
+        if weights_dtype == torch.bfloat16:
+            # channels-last memory: the bf16 conv kernel reads this
+            # [O, I, kh, kw] tensor's permute(0, 2, 3, 1) without a copy
+            w = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+        else:
+            w = w.permute(3, 2, 0, 1).contiguous()
+        out["weights"] = w.to(device, weights_dtype)
     for k in _FLOAT_KEYS:
         if k in p and k not in drop:
             out[k] = torch.as_tensor(np.asarray(p[k], np.float32)).to(device)

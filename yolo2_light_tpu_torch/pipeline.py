@@ -197,7 +197,8 @@ class DetectionPipeline:
         self._grown_cache = None
         if self.device.type == "cuda":
             load_kernels(spec, mode, int8_policy=int8_policy,
-                         int8_impl=int8_impl, xnor_impl=xnor_impl)
+                         int8_impl=int8_impl, xnor_impl=xnor_impl,
+                         compute_dtype=compute_dtype)
             if self.device_nms:
                 load_nms_kernel()
             if self._cuda_graph:
