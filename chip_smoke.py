@@ -125,19 +125,29 @@ Phases, each reported on its own lines:
    threshold bin or a neighbour, and each method's ms per image after its
    set-up is printed.
 11. bf16, demo, tree, profile. K6 (``csrc/bf16_conv.cu``, -bf16's float
-   convs: bfloat16 operands, float32 sums) against its plain twin (the
-   float32 conv of the same bfloat16 operands, TF32 off, cuDNN
-   deterministic) at each of yolov3-416's 23 conv shapes at b=1 and b=8:
-   every output within K * 2**-23 * sum |x * w| (K = ks*ks*C, the
-   float32-accumulate bound of two orders of the same sum), and image 0 of
-   the b=8 result bit-identical to the b=1 result; timed at b=1 beside its
-   bound, the plain twin, cuDNN's bfloat16 conv (``library_ms``) and cuDNN's
-   float32 conv of the bfloat16 operands. ``detector test -bf16`` through
-   the CLI on yolov3-416: 75 K6 launches a forward (``-quantized -bf16``: 4
-   beside K1's 71), each of the forward's convs within the bound on the
-   input the forward gives it, the heads near the plain path's
-   (``check_bf16_heads``), and at b=8 every image's heads bit-identical and
-   its lines equal to its b=1 ones. ``detector demo`` through the CLI on a
+   convs: bfloat16 operands, float32 sums split across a cluster and
+   combined in rank order, bias and leaky in its store) against its
+   plain twin (the float32 conv of the same bfloat16 operands, TF32 off,
+   cuDNN deterministic) at each of yolov3-416's 23 conv shapes (the first
+   is yolov2-voc-416's first conv too) at b=1 and b=8: the plan (form,
+   slab width, split) the same at both, every output within K * 2**-23 *
+   sum |x * w| (K = ks*ks*C, the float32-accumulate bound of two orders of
+   the same sum), every image of the b=8 result bit-identical to that
+   image alone at b=1, and bias and leaky in the store bit-equal to the
+   bare conv followed by the unfused chain (``epilogue_plain``); timed at
+   b=1 with its epilogue beside its bare conv, its
+   bound, the plain twin, cuDNN's bfloat16 conv (``library_ms``) and
+   cuDNN's float32 conv of the bfloat16 operands. ``detector test -bf16``
+   through the CLI on yolov3-416: 75 K6 launches a forward (``-quantized -bf16``: 4
+   beside K1's 71), the first conv in the c3 form and every conv whose
+   input is 13x13 or 26x26 splitting K; one forward of each under
+   torch.profiler (K6's device time and launches, device busy and
+   operations; under -bf16 no bias or leaky op, ``aten::add`` only at the
+   23 shortcuts, and no op of an unfused BN); each of the
+   forward's convs within the bound on the input the forward gives it,
+   the heads near the plain path's (``check_bf16_heads``), and at b=8
+   every image's heads bit-identical and its lines equal to its b=1
+   ones. ``detector demo`` through the CLI on a
    24-frame 640x480 raw video written from numpy (yolov3-416, head biases made
    sparse as in phase 8, about 30 candidates a frame above the CLI's
    default thresh 0.25) in the default bf16 mode, ``-fp32`` and
@@ -196,8 +206,8 @@ import torch
 
 from yolo2_light_tpu_torch import pipeline
 from yolo2_light_tpu_torch.apps import cli, detect
-from yolo2_light_tpu_torch.cfg import (ConvSpec, RegionSpec, YoloSpec,
-                                       parse_network_cfg)
+from yolo2_light_tpu_torch.cfg import (ConvSpec, RegionSpec, ShortcutSpec,
+                                       YoloSpec, parse_network_cfg)
 from yolo2_light_tpu_torch.io import image as im_io
 from yolo2_light_tpu_torch.models import layers, network
 from yolo2_light_tpu_torch.io.rawvideo import write_rawvideo
@@ -592,13 +602,21 @@ def check_bf16_lines(lines: list, plain_lines: list, what: str) -> int:
     return unlike
 
 
+def k6_bare(x, w, stride: int, pad: int):
+    """K6's bare conv of ``x`` and ``[M,ks,ks,C]`` weights ``w``, the c3
+    form's padded rows made here."""
+    k32 = (bf16_conv.pad_k32(w) if bf16_conv.c3_form(w.shape[3], w.shape[1])
+           else None)
+    return bf16_conv.conv2d_bf16_cuda(x, w, stride, pad, w_k32=k32)
+
+
 @contextlib.contextmanager
 def k6_on_the_plain_path():
     """Inside the block the plain path's -bf16 float convs run K6 itself
     (its twin swapped out), so that the other kernels of a mode are held bit
     for bit against their plain twins with K6 on both sides."""
     twin = bf16_conv.conv2d_bf16_plain
-    bf16_conv.conv2d_bf16_plain = bf16_conv.conv2d_bf16
+    bf16_conv.conv2d_bf16_plain = k6_bare
     try:
         yield
     finally:
@@ -2144,6 +2162,11 @@ def _bf16_shapes() -> list:
                               for l in spec.conv_layers()))
 
 
+def _bf16_label(shape) -> str:
+    h, w, c, m, ks, s, _ = shape
+    return f"{ks}x{ks}/s{s} {h}x{w}x{c}->{m}"
+
+
 def check_bf16_sums(out, ref, x, wt, stride: int, pad: int,
                     what: str) -> tuple:
     """K6's ``out`` within ``bf16_conv.sum_bound`` of the plain twin's
@@ -2158,68 +2181,132 @@ def check_bf16_sums(out, ref, x, wt, stride: int, pad: int,
 
 
 def phase_bf16_kernels() -> list:
-    """K6 against its plain twin at each of yolov3-416's 23 conv shapes, at
-    b=1 and b=8: within the float32-accumulate bound, and image 0 of the b=8
-    result bit-identical to the b=1 result. At b=1 (the main path's shapes)
-    K6 is timed beside its bound (bytes: the float32 input read once, the
-    bfloat16 weights, the float32 output written once; operations: the
-    multiply-adds at the bf16 tensor-core peak), its plain twin, cuDNN's
-    bfloat16 conv (the library call, never on the port's path; its sum is
-    rounded to bfloat16) and cuDNN's float32 conv of the bfloat16-rounded
-    operands."""
+    """K6 against its plain twin at each of yolov3-416's 23 conv shapes (the
+    first of them is also yolov2-voc-416's first conv), at b=1 and b=8:
+    within the float32-accumulate bound, and every image of the b=8 result
+    bit-identical to that image alone at b=1; with bias and leaky in its
+    store (the main path's epilogue, BN folded into the weights) bit-equal
+    to its bare conv followed by ``epilogue_plain``, the unfused chain. At
+    b=1 (the main path's shapes) prints the plan (form, slab width, split of
+    K across a cluster) and times K6 with its epilogue beside its bare
+    conv, its bound (bytes: the float32 input read
+    once, the bfloat16 weights, the bias, the float32 output written once;
+    operations: the multiply-adds at the bf16 tensor-core peak), its plain
+    twin with the epilogue, cuDNN's bfloat16 conv (the library call, never
+    on the port's path; its sum is rounded to bfloat16) and cuDNN's float32
+    conv of the bfloat16-rounded operands."""
     dev = torch.device("cuda")
     layers.set_fp32_precision()
     rows = []
     for i, (h, w, c, m, ks, s, pad) in enumerate(_bf16_shapes()):
-        label = f"{ks}x{ks}/s{s} {h}x{w}x{c}->{m}"
+        label = _bf16_label((h, w, c, m, ks, s, pad))
         rng = np.random.RandomState(SEED + i)
         x8 = torch.from_numpy(rng.randn(8, h, w, c).astype(np.float32)).to(dev)
         wt = torch.from_numpy((rng.randn(m, ks, ks, c) / np.sqrt(ks * ks * c))
                               .astype(np.float32)).to(dev).to(torch.bfloat16)
+        bias = torch.from_numpy(rng.randn(m).astype(np.float32)).to(dev)
         x1 = x8[:1].contiguous()
         plan = bf16_conv.plan_launch(1, h, w, c, m, ks, s, pad)
-        outs, err, share = {}, 0.0, 0.0
-        for b, x in ((1, x1), (8, x8)):
-            out = bf16_conv.conv2d_bf16_cuda(x, wt, s, pad)
-            ref = bf16_conv.conv2d_bf16_plain(x, wt, s, pad)
-            torch.cuda.synchronize()
-            e, sh = check_bf16_sums(out, ref, x, wt, s, pad,
-                                    f"{label} b={b}")
-            err, share = max(err, e), max(share, sh)
-            outs[b] = out
-        check(torch.equal(outs[8][:1], outs[1]),
-              f"K6 {label}: image 0 of b=8 != b=1")
-        del outs, x8
+        check(bf16_conv.plan_launch(8, h, w, c, m, ks, s, pad)._replace(
+            tiles=0, blocks=0) == plan._replace(tiles=0, blocks=0),
+            f"K6 {label}: the plan follows the batch")
+        k32 = bf16_conv.pad_k32(wt) if plan.form == "c3" else None
+        out8 = k6_bare(x8, wt, s, pad)
+        ref8 = bf16_conv.conv2d_bf16_plain(x8, wt, s, pad)
+        torch.cuda.synchronize()
+        err, share = check_bf16_sums(out8, ref8, x8, wt, s, pad,
+                                     f"{label} b=8")
+        del ref8
+        for j in range(8):
+            one = k6_bare(x8[j:j + 1].contiguous(), wt, s, pad)
+            check(torch.equal(out8[j:j + 1], one),
+                  f"K6 {label}: image {j} of b=8 != that image at b=1")
+        one = k6_bare(x1, wt, s, pad)
+        e, sh = check_bf16_sums(one, bf16_conv.conv2d_bf16_plain(
+            x1, wt, s, pad), x1, wt, s, pad, f"{label} b=1")
+        err, share = max(err, e), max(share, sh)
+        fused = bf16_conv.conv2d_bf16_cuda(x1, wt, s, pad, w_k32=k32,
+                                           biases=bias, activation="leaky")
+        check(torch.equal(fused, bf16_conv.epilogue_plain(one, bias,
+                                                          "leaky")),
+              f"K6 {label}: bias and leaky in the store != the unfused chain")
+        del out8, x8
         xb = x1.permute(0, 3, 1, 2).to(torch.bfloat16)
         wb = wt.permute(0, 3, 1, 2)
         xf, wf = xb.float(), wb.float()
-        row = {"shape": label, "tile": [plan.tile_h, plan.tile_w],
-               "stages": plan.stages, "blocks": plan.blocks,
-               "max_abs_err": err, "bound_share_max": share}
+        row = {"shape": label, "form": plan.form, "kc": plan.kc,
+               "split": plan.split,
+               "tile": [plan.tile_h, plan.tile_w], "stages": plan.stages,
+               "blocks": plan.blocks, "max_abs_err": err,
+               "bound_share_max": share, "epilogue_bit_equal": True}
+        if c == 3:
+            row["also"] = "yolov2-voc-416's first conv (the same shape)"
         row["ms"] = event_ms(lambda: bf16_conv.conv2d_bf16_cuda(
-            x1, wt, s, pad))
-        row["plain_ms"] = event_ms(lambda: bf16_conv.conv2d_bf16_plain(
-            x1, wt, s, pad), iters=20)
+            x1, wt, s, pad, w_k32=k32, biases=bias, activation="leaky"))
+        row["bare_ms"] = event_ms(lambda: bf16_conv.conv2d_bf16_cuda(
+            x1, wt, s, pad, w_k32=k32))
+        row["plain_ms"] = event_ms(lambda: bf16_conv.conv2d_bf16(
+            x1, wt, s, pad, biases=bias, activation="leaky", plain=True),
+            iters=20)
         row["library_ms"] = event_ms(lambda: torch.nn.functional.conv2d(
             xb, wb, stride=s, padding=pad))
         row["f32_conv_ms"] = event_ms(lambda: torch.nn.functional.conv2d(
             xf, wf, stride=s, padding=pad))
         oh, ow = (h + 2 * pad - ks) // s + 1, (w + 2 * pad - ks) // s + 1
         row["bound_ms"], row["bound_by"] = bound(
-            4 * x1.numel() + 2 * wt.numel() + 4 * oh * ow * m,
+            4 * x1.numel() + 2 * wt.numel() + 4 * m + 4 * oh * ow * m,
             2.0 * oh * ow * m * ks * ks * c, PEAK_BF16_FLOPS)
+        tile = ("flat" if plan.tile_h == 0
+                else f"{plan.tile_h}x{plan.tile_w}")
         say("bf16", f"K6 {label}: within the float32-accumulate bound of the "
             f"plain twin at b=1 and b=8 (max |d| {err:.3g}, "
-            f"{100 * share:.2f}% of the bound at most), b=8 image 0 "
-            f"bit-identical to b=1; tile "
-            f"{plan.tile_h}x{plan.tile_w}, {plan.stages} stages, "
-            f"{plan.blocks} blocks; K6 {row['ms']:.4f} ms, plain "
+            f"{100 * share:.2f}% of the bound at most), every image of b=8 "
+            f"bit-identical to it alone at b=1, bias and leaky in the store "
+            f"bit-equal to the unfused chain; {plan.form} form, {tile}, "
+            f"{plan.kc}-channel slabs, split {plan.split}, {plan.stages} "
+            f"stages, {plan.blocks} blocks; K6 {row['ms']:.4f} ms (bare "
+            f"{row['bare_ms']:.4f}), plain "
             f"{row['plain_ms']:.4f}, cuDNN bf16 {row['library_ms']:.4f}, "
             f"cuDNN f32 of the bf16 operands {row['f32_conv_ms']:.4f} ms; "
             f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
             f"{100 * row['bound_ms'] / row['ms']:.1f}% of it")
         rows.append(row)
+    say("bf16", f"K6 over the 23 shapes: {sum(r['ms'] for r in rows):.4f} ms "
+        f"(bare {sum(r['bare_ms'] for r in rows):.4f}), cuDNN bf16 "
+        f"{sum(r['library_ms'] for r in rows):.4f}, bound "
+        f"{sum(r['bound_ms'] for r in rows) * 1e3:.1f} us")
     return rows
+
+
+def k6_profile(pred, x) -> dict:
+    """One warm forward of ``pred`` under torch.profiler: K6's device time
+    and launches, every kernel's device time (busy) and count, the ops of a
+    leaky or an unfused BN (``aten::where``, ``gt``, ``mul``, ``sub``,
+    ``div``) and the ``aten::add`` ops (a bias, or a shortcut) launched."""
+    from torch.profiler import ProfilerActivity, profile
+    pred(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pred(x)
+        torch.cuda.synchronize()
+    k6_us = busy_us = 0.0
+    k6 = kernels = epilogue = adds = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += 1
+            busy_us += e.self_device_time_total
+            if "bf16_conv_kernel" in e.name:
+                k6 += 1
+                k6_us += e.self_device_time_total
+        elif e.name in ("aten::where", "aten::gt", "aten::mul", "aten::sub",
+                        "aten::div"):
+            epilogue += 1
+        elif e.name == "aten::add":
+            adds += 1
+    return {"k6_ms": k6_us / 1e3, "k6_launches": k6,
+            "busy_ms": busy_us / 1e3, "device_ops": kernels,
+            "epilogue_ops": epilogue, "add_ops": adds}
 
 
 def _detection_lines_of(heads, i: int, pred, spec, w: int, h: int,
@@ -2247,21 +2334,34 @@ def phase_bf16(tmp: str, weights: str, names_file: str, names: list) -> dict:
                           (["-quantized", "-bf16"],
                            {"int8_conv": 71, "bf16_conv": 4})):
         int8_conv.reset_launch_counts()
+        bf16_conv.reset_plan_launches()
         rc, stdout, _ = run_cli(["detector", "test", names_file, CFG, weights,
                                  IMAGE, "-dont_show", "-thresh", THRESH,
                                  "-save", os.path.join(tmp, "pred_bf16")]
                                 + flags)
         launches = {k: v for k, v in int8_conv.LAUNCH_COUNTS.items() if v}
+        plans = dict(bf16_conv.PLAN_LAUNCHES)
         check(rc == 0, f"detector test {' '.join(flags)} exited {rc}")
         check(launches == expect, f"detector test {' '.join(flags)}: "
               f"launches {launches} in one forward, expected {expect}")
+        check(plans.get("c3/kc32/split1") == 1,
+              f"detector test {' '.join(flags)}: the first conv did not run "
+              f"K6's c3 form ({plans})")
         lines = detection_text(stdout)
         if flags == ["-bf16"]:
             text = lines
-        out[" ".join(flags)] = {"launches": launches,
+        out[" ".join(flags)] = {"launches": launches, "plans": plans,
                                 "detection_lines": len(lines.splitlines())}
         say("bf16", f"CLI {' '.join(flags)}: launches in one forward "
-            f"{launches}; {len(lines.splitlines())} detection lines")
+            f"{launches}, K6 by plan {plans}; {len(lines.splitlines())} "
+            "detection lines")
+    spec = parse_network_cfg(CFG, batch=1, echo_table=False)
+    deep = [l for l in spec.conv_layers() if l.h in (13, 26)]
+    check(all(bf16_conv.plan_launch(1, l.h, l.w, l.c, l.n, l.size, l.stride,
+                                    l.pad).split > 1 for l in deep),
+          "a -bf16 conv at 13x13 or 26x26 does not split K")
+    say("bf16", f"-bf16 at b=1: each of the {len(deep)} convs whose input "
+        "is 13x13 or 26x26 splits K across a cluster")
 
     spec, params, mode = detect.build_params(CFG, weights, echo=False)
     bf = dict(compute_dtype=torch.bfloat16)
@@ -2282,11 +2382,35 @@ def phase_bf16(tmp: str, weights: str, names_file: str, names: list) -> dict:
         for l, xin in zip(convs, aux["conv_inputs"]):
             wk = bf16_conv.kernel_weights(lp[l.index]["weights"])
             e, sh = check_bf16_sums(
-                bf16_conv.conv2d_bf16_cuda(xin, wk, l.stride, l.pad),
+                k6_bare(xin, wk, l.stride, l.pad),
                 bf16_conv.conv2d_bf16_plain(xin, wk, l.stride, l.pad),
                 xin, wk, l.stride, l.pad, f"-bf16 forward conv {l.index}")
             worst, worst_share = max(worst, e), max(worst_share, sh)
     del aux
+    # K6 in one warm forward under the profiler, -bf16 and -quantized -bf16
+    xt = torch.from_numpy(x1).cuda()
+    prof = {"-bf16": k6_profile(kernel, xt)}
+    spec8, params8, mode8 = detect.build_params(CFG, weights, quantized=True,
+                                                echo=False)
+    prof["-quantized -bf16"] = k6_profile(network.Predictor(
+        spec8, params8, mode8, device="cuda", **bf), xt)
+    del spec8, params8
+    for flags, n in (("-bf16", 75), ("-quantized -bf16", 4)):
+        p = prof[flags]
+        check(p["k6_launches"] == n, f"{flags} forward under the profiler: "
+              f"{p['k6_launches']} K6 kernels, expected {n}")
+        say("bf16", f"{flags} forward (profiler, b=1): K6 {p['k6_ms']:.3f} ms "
+            f"in {p['k6_launches']} launches; device busy {p['busy_ms']:.3f} "
+            f"ms in {p['device_ops']} device operations; "
+            f"{p['epilogue_ops']} leaky/BN ops (where, gt, mul, sub, div), "
+            f"{p['add_ops']} aten::add")
+    shortcuts = sum(isinstance(l, ShortcutSpec) for l in spec.layers)
+    check(prof["-bf16"]["epilogue_ops"] == 0,
+          "-bf16 forward: leaky or BN ran outside K6")
+    check(prof["-bf16"]["add_ops"] == shortcuts,
+          f"-bf16 forward: {prof['-bf16']['add_ops']} aten::add, expected "
+          f"one at each of the {shortcuts} shortcuts (a bias ran outside K6)")
+    out["profile"] = prof
     hk, hp = kernel(x1), plain(x1)
     check_heads(hk, "-bf16 kernel path")
     gap = check_bf16_heads([(a.data, b.data, a.index)
@@ -2730,6 +2854,8 @@ def main() -> int:
         "library": "cuDNN's bfloat16 conv (F.conv2d on bfloat16, its sum "
                    "rounded to bfloat16)",
         "f32_conv_ms": sum(r["f32_conv_ms"] for r in bf16_rows),
+        "bare_ms": sum(r["bare_ms"] for r in bf16_rows),
+        "per_forward": bf16_run["profile"],
         "shapes": bf16_rows})
     print(json.dumps({"slice11": slice11}), flush=True)
     print(json.dumps({"pipeline": piped}), flush=True)

@@ -113,7 +113,7 @@ def profile_mode(weights: str, name: str, seed: int, iters: int,
     hand: dict = collections.defaultdict(lambda: [0.0, 0])
     for name, (ms, count) in per_kernel.items():
         for kernel in HAND_KERNELS:
-            if f"::{kernel}<" in name or f"::{kernel}(" in name:
+            if f"::{kernel}" in name:
                 hand[kernel][0] += ms
                 hand[kernel][1] += count // n
     if hand:

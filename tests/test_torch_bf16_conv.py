@@ -131,35 +131,180 @@ def test_bf16_weights_are_laid_out_once_for_the_kernel():
     assert torch.equal(bf, f32.to(torch.bfloat16))
 
 
-def _yolov3_shapes():
+def _cfg_shapes(name="yolov3"):
+    """The distinct conv shapes (H, W, C, M, ks, stride, pad) of a cfg of
+    tests/data at 416."""
     from yolo2_light_tpu_torch.cfg import ConvSpec
     from yolo2_light_tpu_torch.cfg import parse_network_cfg as tparse
-    spec = tparse(os.path.join(DATA, "yolov3.cfg"), batch=1)
+    spec = tparse(os.path.join(DATA, f"{name}.cfg"), batch=1)
     return sorted({(l.h, l.w, l.c, l.n, l.size, l.stride, l.pad)
                    for l in spec.layers if isinstance(l, ConvSpec)})
 
 
+def _yolov3_shapes():
+    return _cfg_shapes("yolov3")
+
+
 def test_planner_never_splits_k_and_ignores_the_batch():
-    """At every yolov3-416 conv shape: the tile and ring depth do not
-    change with the batch, no plan splits K, two or three blocks fit an SM,
-    and the shared memory fits a block; a 9x9 conv fits no tile."""
+    """At every yolov3-416 conv shape: no field of the plan but the tile
+    and block counts changes with the batch (the split of K across a
+    cluster is one image's, so the sum order never follows the batch), one
+    to three blocks fit an SM, the shared memory fits a
+    block, the first conv (C = 3) takes the c3 form, the 3x3 convs the 8x8
+    tile, 32-channel slabs at the 1x1 convs and where C >= 512; a 9x9 conv
+    fits no tile."""
     shapes = _yolov3_shapes()
     assert len(shapes) == 23
     for h, w, c, m, ks, stride, pad in shapes:
         plans = [B.plan_launch(b, h, w, c, m, ks, stride, pad)
                  for b in (1, 2, 8, 64)]
-        assert {(p.tile_h, p.tile_w, p.stages, p.smem) for p in plans} == {
-            (plans[0].tile_h, plans[0].tile_w, plans[0].stages,
-             plans[0].smem)}
-        assert "split" not in B.Plan._fields
+        assert {p._replace(tiles=0, blocks=0) for p in plans} == {
+            plans[0]._replace(tiles=0, blocks=0)}
         assert plans[0].smem <= B.MAX_SMEM
-        assert B.blocks_per_sm(plans[0].smem) >= 2
-        assert plans[0].slabs == -(-c // B.SLAB)
+        assert B.blocks_per_sm(plans[0].smem) >= 1
         flat = ks == 1 and stride == 1 and pad == 0
-        assert (plans[0].tile_h == 0) == flat
-        assert plans[2].blocks == 8 * plans[0].blocks or flat
+        form = "c3" if c == 3 else "flat" if flat else "halo"
+        assert plans[0].form == form
+        assert (plans[0].tile_h == 0) == (form != "halo")
+        if form != "c3":
+            assert plans[0].kc == (32 if c % 32 == 0 and (flat or c >= 512)
+                                   else 16)
+            assert (plans[0].tile_h, plans[0].tile_w) in ((0, 0), (8, 8))
+            assert plans[0].slabs == -(-c // plans[0].kc)
+            assert 1 <= plans[0].split <= min(8, plans[0].slabs)
+        assert plans[2].blocks == 8 * plans[0].blocks or form != "halo"
     with pytest.raises(ValueError, match="no tile"):
         B.plan_launch(1, 16, 16, 8, 8, 9, 1, 4)
+
+
+@pytest.mark.parametrize("name", ["yolov3", "yolov2-voc"])
+def test_plan_is_the_same_at_b_1_8_128(name):
+    """The planner's form, tile, slab width, split and ring depth at b = 1,
+    8 and 128 are equal at every conv shape of the cfg at 416: every field
+    of the plan but the counts of tiles and blocks comes from one image's
+    shape."""
+    for shape in _cfg_shapes(name):
+        plans = [B.plan_launch(b, *shape) for b in (1, 8, 128)]
+        keys = {(p.form, p.tile_h, p.tile_w, p.kc, p.split, p.stages,
+                 p.halo_rows, p.m_tiles, p.slabs, p.smem) for p in plans}
+        assert len(keys) == 1, (shape, plans)
+
+
+@pytest.mark.parametrize("name", ["yolov3", "yolov2-voc"])
+def test_every_plan_fits_shared_memory(name):
+    for shape in _cfg_shapes(name):
+        plan = B.plan_launch(1, *shape)
+        assert 0 < plan.smem <= 232448, (shape, plan)
+
+
+def test_split_fills_the_card_at_13x13():
+    """At b=1 every 13x13 conv of yolov3-416 reaches the card's 132 SMs in
+    blocks, or the split cap (8, or half its slab count), or half the
+    card's block slots at its plan's shared memory (where doubling the
+    split would take a second wave: the 3x3 512->1024 conv's 128 blocks at
+    one block an SM); and every conv whose input is 13x13 or 26x26 splits
+    K, in a power of two."""
+    tested = 0
+    for h, w, c, m, ks, stride, pad in _yolov3_shapes():
+        plan = B.plan_launch(1, h, w, c, m, ks, stride, pad)
+        if h == 13:
+            slots = 132 * B.blocks_per_sm(plan.smem)
+            assert (plan.blocks >= 132 or 2 * plan.blocks >= slots
+                    or plan.split == min(8, plan.slabs // 2)), plan
+            tested += 1
+        assert plan.split in (1, 2, 4, 8)
+        if h in (13, 26):
+            assert plan.split > 1, (h, c, m, ks, stride, plan)
+    assert tested >= 4
+
+
+@pytest.mark.parametrize("slabs,split", [(1, 1), (2, 2), (3, 2), (16, 3),
+                                         (32, 6), (32, 8), (40, 7), (5, 5)])
+def test_slab_ranges_cover_k_once_in_order(slabs, split):
+    ranges = B.slab_ranges(slabs, split)
+    assert len(ranges) == split
+    assert ranges[0][0] == 0 and ranges[-1][1] == slabs
+    for (lo, hi), (lo2, _) in zip(ranges, ranges[1:]):
+        assert lo < hi == lo2
+    assert [s for lo, hi in ranges for s in range(lo, hi)] == list(
+        range(slabs))
+
+
+@pytest.mark.parametrize("ks", [1, 3])
+def test_c3_weight_padding_is_exact(ks):
+    """The c3 form's ``[M, 32]`` rows: each filter's ks*ks*3 bfloat16 values
+    in the order of its ``[ks, ks, C]`` row, then zeros; ``params`` keeps
+    them beside -bf16's weights of a first conv only."""
+    _, w_hwio = _operands(4, 1, 1, 1, 3, 32, ks)
+    p = layer_to_torch({"weights": w_hwio}, "cpu",
+                       weights_dtype=torch.bfloat16)
+    k32 = p["weights_k32"]
+    assert k32.shape == (32, 32) and k32.dtype == torch.bfloat16
+    assert k32.is_contiguous()
+    rows = torch.from_numpy(w_hwio).permute(3, 0, 1, 2).reshape(32, -1).to(
+        torch.bfloat16)
+    assert torch.equal(k32[:, :ks * ks * 3], rows)
+    assert not k32[:, ks * ks * 3:].any()
+    assert torch.equal(B.pad_k32(B.kernel_weights(p["weights"])), k32)
+    assert B.plan_launch(1, 16, 16, 3, 32, ks, 1, ks // 2).form == "c3"
+    _, w8 = _operands(4, 1, 1, 1, 8, 32, 3)
+    assert "weights_k32" not in layer_to_torch(
+        {"weights": w8}, "cpu", weights_dtype=torch.bfloat16)
+    assert "weights_k32" not in layer_to_torch({"weights": w_hwio}, "cpu")
+    with pytest.raises(ValueError, match="do not fit"):
+        B.pad_k32(torch.zeros(4, 5, 5, 3, dtype=torch.bfloat16))
+
+
+def _epilogue_inputs(m, bn_on):
+    rng = np.random.RandomState(m + bn_on)
+    bias = torch.from_numpy(rng.randn(m).astype(np.float32))
+    bn = None
+    if bn_on:
+        bn = (torch.from_numpy(rng.rand(m).astype(np.float32) + 0.5),
+              torch.from_numpy(rng.randn(m).astype(np.float32) * 0.1),
+              torch.from_numpy(rng.rand(m).astype(np.float32) + 0.5))
+    return bias, bn
+
+
+@pytest.mark.parametrize("act", ["leaky", "linear", "logistic"])
+@pytest.mark.parametrize("bn_on", [False, True], ids=["bias", "bn"])
+@pytest.mark.parametrize("shape", [SHAPES[1], SHAPES[3], SHAPES[4]],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_epilogue_plain_after_twin_equals_conv2d_fp32_bf16(shape, bn_on,
+                                                           act):
+    """The fused conv's twin, ``conv2d_bf16_plain`` then ``epilogue_plain``
+    (then the activation where the kernel's store has none; an unfused BN
+    between the two as PyTorch ops, as ``conv2d_fp32`` runs it), is
+    bit-equal to ``layers.conv2d_fp32(compute_dtype=bfloat16)`` on the CPU
+    and to the chain conv2d_fp32 ran before the epilogue moved into the
+    kernel: the f32 conv of the bf16-rounded operands, ``(y - mean) /
+    (sqrt(var) + 1e-6) * scales``, ``+ bias``, the activation."""
+    b, h, w, c, m, ks, stride, pad = shape
+    x, w_hwio = _operands(h + m, b, h, w, c, m, ks)
+    bias, bn = _epilogue_inputs(m, bn_on)
+    p = layer_to_torch({"weights": w_hwio}, "cpu",
+                       weights_dtype=torch.bfloat16)
+    xt = torch.from_numpy(x)
+    xr = xt.to(torch.bfloat16).to(torch.float32).permute(0, 3, 1, 2)
+    ref = torch.nn.functional.conv2d(
+        xr, p["weights"].to(torch.float32), stride=stride,
+        padding=pad).permute(0, 2, 3, 1).contiguous()
+    if bn is not None:
+        denom = torch.sqrt(bn[2]) + 1e-6
+        ref = (ref - bn[1]) / denom * bn[0]
+    ref = TL.activate(ref + bias, act)
+    wk = B.kernel_weights(p["weights"])
+    twin = B.conv2d_bf16_plain(xt, wk, stride, pad)
+    if bn is not None:
+        twin = (twin - bn[1]) / (torch.sqrt(bn[2]) + 1e-6) * bn[0]
+    twin = B.epilogue_plain(twin, bias, act)
+    if act not in B.STORE_ACTIVATIONS:
+        twin = TL.activate(twin, act)
+    got = TL.conv2d_fp32(xt, p["weights"], bias, stride, pad, act, bn=bn,
+                         compute_dtype=torch.bfloat16,
+                         weights_k32=p.get("weights_k32"))
+    assert torch.equal(twin, ref)
+    assert torch.equal(got, ref)
 
 
 def _tiny_cfg_params(name, quantized):

@@ -937,7 +937,7 @@ def test_precision_mode_kernel_path_equals_plain_path(dev, name,
     bf16 = kw.get("compute_dtype") == torch.bfloat16
     near = bf16 and mode != "int8"
     if bf16 and mode == "int8":
-        monkeypatch.setattr(B, "conv2d_bf16_plain", B.conv2d_bf16)
+        monkeypatch.setattr(B, "conv2d_bf16_plain", _k6)
     for a, b in zip(hk, plain(x)):
         assert a.data.dtype == torch.float32
         if near:
@@ -1111,46 +1111,152 @@ def _bf16_operands(dev, seed, b, h, w, c, m, ks):
     return x, wt
 
 
+def _k6(x, wt, stride, pad, **kw):
+    """K6 through its wrapper, the c3 form's padded weights made here where
+    ``wt`` is a first conv's (the network keeps them in its params)."""
+    from yolo2_light_tpu_torch.ops import bf16_conv as B
+    if B.c3_form(wt.shape[3], wt.shape[1]):
+        kw["w_k32"] = B.pad_k32(wt)
+    return B.conv2d_bf16_cuda(x, wt, stride, pad, **kw)
+
+
+def _voc_float_shapes():
+    """yolov2-voc-416's distinct conv shapes, as _yolov3_float_shapes."""
+    from yolo2_light_tpu_torch.cfg import ConvSpec, parse_network_cfg
+    spec = parse_network_cfg(os.path.join(DATA, "yolov2-voc.cfg"), batch=1)
+    return list(dict.fromkeys(
+        (l.h, l.w, l.c, l.n, l.size, l.stride, l.pad)
+        for l in spec.layers if isinstance(l, ConvSpec)))
+
+
 @pytest.mark.parametrize("shape", _yolov3_float_shapes(),
                          ids=lambda s: "x".join(map(str, s)))
 def test_bf16_conv_within_bound_of_plain_and_batch_invariant(dev, shape):
     """K6 at each yolov3-416 float conv shape, b=1 and b=8: within the
     float32-accumulate bound of its plain twin (the float32 conv of the same
-    bfloat16 operands, TF32 off, cuDNN deterministic), and the b=8 result's
-    image 0 bit-identical to the b=1 result (F14's pin)."""
+    bfloat16 operands, TF32 off, cuDNN deterministic), and every image of
+    the b=8 result bit-identical to that image alone at b=1 (F14's pin)."""
     from yolo2_light_tpu_torch.ops import bf16_conv as B
     h, w, c, m, ks, stride, pad = shape
     L.set_fp32_precision()
     x8, wt = _bf16_operands(dev, h * c + m, 8, h, w, c, m, ks)
-    x1 = x8[:1].contiguous()
-    outs = {}
-    for b, x in ((1, x1), (8, x8)):
-        K.reset_launch_counts()
-        out = B.conv2d_bf16_cuda(x, wt, stride, pad)
-        assert K.LAUNCH_COUNTS == {"bf16_conv": 1}
-        ref = B.conv2d_bf16_plain(x, wt, stride, pad)
+    K.reset_launch_counts()
+    out8 = _k6(x8, wt, stride, pad)
+    assert K.LAUNCH_COUNTS == {"bf16_conv": 1}
+    ref = B.conv2d_bf16_plain(x8, wt, stride, pad)
+    torch.cuda.synchronize()
+    assert out8.shape == ref.shape and out8.dtype == torch.float32
+    diff = (out8.double() - ref.double()).abs()
+    assert bool((diff <= B.sum_bound(x8, wt, stride, pad)).all()), \
+        float(diff.max())
+    del ref, diff
+    for i in range(8):
+        xi = x8[i:i + 1].contiguous()
+        one = _k6(xi, wt, stride, pad)
         torch.cuda.synchronize()
-        assert out.shape == ref.shape and out.dtype == torch.float32
-        diff = (out.double() - ref.double()).abs()
-        assert bool((diff <= B.sum_bound(x, wt, stride, pad)).all()), \
-            float(diff.max())
-        outs[b] = out
-    assert torch.equal(outs[8][:1], outs[1])
+        assert torch.equal(out8[i:i + 1], one), i
+        if i == 0:
+            d1 = (one.double() - B.conv2d_bf16_plain(
+                xi, wt, stride, pad).double()).abs()
+            assert bool((d1 <= B.sum_bound(xi, wt, stride, pad)).all())
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", sorted(set(_yolov3_float_shapes())
+                                         | set(_voc_float_shapes())),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bf16_conv_every_split_within_bound(dev, shape, split):
+    """K6 with the K split forced to 1, 2, 4 and 8 blocks of a cluster (at
+    most the slab count; the c3 form takes no split) at every yolov3-416
+    and yolov2-voc-416 conv shape, b=1: within the float32-accumulate bound
+    of the plain twin."""
+    from yolo2_light_tpu_torch.ops import bf16_conv as B
+    h, w, c, m, ks, stride, pad = shape
+    L.set_fp32_precision()
+    x, wt = _bf16_operands(dev, h * c + m + split, 1, h, w, c, m, ks)
+    plan = B.plan_launch(1, h, w, c, m, ks, stride, pad)
+    if plan.form != "c3":
+        plan = plan._replace(split=min(split, plan.slabs))
+    out = _k6(x, wt, stride, pad, plan=plan)
+    ref = B.conv2d_bf16_plain(x, wt, stride, pad)
+    torch.cuda.synchronize()
+    diff = (out.double() - ref.double()).abs()
+    assert bool((diff <= B.sum_bound(x, wt, stride, pad)).all()), \
+        float(diff.max())
 
 
 @pytest.mark.parametrize("plan", [(8, 8, 2), (4, 8, 3), (4, 4, 4)])
 def test_bf16_conv_every_tile_and_depth_bit_identical(dev, plan):
-    """The sum order depends on C and ks alone: every tile and ring depth
-    gives the same bits."""
+    """The sum order depends on C, ks and the split alone: at a fixed split
+    (1 and 2 blocks of a cluster) every tile and ring depth gives the same
+    bits, in both slab widths (C = 40: 16 channels, 3 slabs, ranges of
+    unequal length at split 2; C = 64: 16 or 32, whose orders agree at
+    split 1)."""
     from yolo2_light_tpu_torch.ops import bf16_conv as B
-    x, wt = _bf16_operands(dev, 5, 2, 19, 23, 40, 70, 3)
-    base = B.plan_launch(2, 19, 23, 40, 70, 3, 1, 1)
-    want = B.conv2d_bf16_cuda(x, wt, 1, 1)
     th, tw, st = plan
-    got = B.conv2d_bf16_cuda(x, wt, 1, 1, plan=base._replace(
-        tile_h=th, tile_w=tw, stages=st))
+    for c in (40, 64):
+        x, wt = _bf16_operands(dev, 5 + c, 2, 19, 23, c, 70, 3)
+        base = B.plan_launch(2, 19, 23, c, 70, 3, 1, 1)
+        kcs = (16, 32) if c % 32 == 0 else (16,)
+        for split in (1, 2):
+            want = B.conv2d_bf16_cuda(x, wt, 1, 1, plan=base._replace(
+                split=split))
+            for kc in kcs:
+                if split > 1 and kc != base.kc:
+                    continue
+                got = B.conv2d_bf16_cuda(x, wt, 1, 1, plan=base._replace(
+                    tile_h=th, tile_w=tw, stages=st, split=split, kc=kc))
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (c, split, kc)
+
+
+@pytest.mark.parametrize("act", ["leaky", "linear"])
+@pytest.mark.parametrize("bias_on", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("shape", [
+    (2, 416, 416, 3, 32, 3, 1, 1),       # c3 form
+    (2, 13, 13, 1024, 255, 1, 1, 0),     # flat, split 8, ragged M
+    (1, 26, 26, 512, 1024, 3, 2, 1),     # halo s2, split
+    (3, 11, 9, 40, 70, 3, 1, 1),         # 16-channel slabs, ragged
+])
+def test_bf16_conv_fused_epilogue_equals_bare_conv_then_plain_epilogue(
+        dev, shape, bias_on, act):
+    """K6 with bias (or none) and leaky or linear in its store is bit-equal
+    to K6's bare conv followed by ``epilogue_plain`` (the PyTorch ops
+    conv2d_fp32 ran) on the card."""
+    from yolo2_light_tpu_torch.ops import bf16_conv as B
+    b, h, w, c, m, ks, stride, pad = shape
+    x, wt = _bf16_operands(dev, c + m, b, h, w, c, m, ks)
+    bias = None
+    if bias_on:
+        bias = torch.from_numpy(np.random.RandomState(m).randn(m).astype(
+            np.float32)).to(dev)
+    K.reset_launch_counts()
+    fused = _k6(x, wt, stride, pad, biases=bias, activation=act)
+    bare = _k6(x, wt, stride, pad)
+    assert K.LAUNCH_COUNTS == {"bf16_conv": 2}
+    want = B.epilogue_plain(bare, bias, act)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert torch.equal(fused, want)
+
+
+def test_bf16_conv_c3_form_within_bound_at_416(dev):
+    """The first conv of yolov3-416 and yolov2-voc-416 (416x416x3 -> 32,
+    3x3/s1) runs the c3 form from the weights ``pad_k32`` pads (which it
+    requires: ``params`` makes them once), within the float32-accumulate
+    bound of the twin."""
+    from yolo2_light_tpu_torch.ops import bf16_conv as B
+    L.set_fp32_precision()
+    x, wt = _bf16_operands(dev, 3, 1, 416, 416, 3, 32, 3)
+    assert B.plan_launch(1, 416, 416, 3, 32, 3, 1, 1).form == "c3"
+    with pytest.raises(ValueError, match="w_k32"):
+        B.conv2d_bf16_cuda(x, wt, 1, 1)
+    B.reset_plan_launches()
+    out = B.conv2d_bf16_cuda(x, wt, 1, 1, w_k32=B.pad_k32(wt))
+    assert dict(B.PLAN_LAUNCHES) == {"c3/kc32/split1": 1}
+    ref = B.conv2d_bf16_plain(x, wt, 1, 1)
+    torch.cuda.synchronize()
+    diff = (out.double() - ref.double()).abs()
+    assert bool((diff <= B.sum_bound(x, wt, 1, 1)).all()), float(diff.max())
 
 
 def test_bf16_conv_refuses_what_the_kernel_does_not_take(dev):
@@ -1161,6 +1267,9 @@ def test_bf16_conv_refuses_what_the_kernel_does_not_take(dev):
         # 8x8 tiles of a 7x7 conv do not fit in shared memory
         B.conv2d_bf16_cuda(x, wt, 1, 3, plan=plan._replace(
             tile_h=8, tile_w=8, stages=4))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        # the split is 1, 2, 4 or 8 blocks of a cluster
+        B.conv2d_bf16_cuda(x, wt, 1, 3, plan=plan._replace(split=3))
     with pytest.raises(ValueError, match="no tile"):
         B.conv2d_bf16_cuda(*_bf16_operands(dev, 0, 1, 16, 16, 8, 8, 9), 1, 4)
     with pytest.raises(TypeError):
@@ -1190,6 +1299,43 @@ def test_bf16_forward_launches_k6_per_float_conv(dev):
         int8 = len(TN._int8_layer_set(spec, "cpu")) if mode == "int8" else 0
         assert K.LAUNCH_COUNTS["bf16_conv"] == convs - int8
         assert K.LAUNCH_COUNTS["int8_conv"] == int8
+
+
+def test_bf16_forward_profile_shows_one_k6_per_conv_and_no_epilogue_ops(
+        dev):
+    """A -bf16 forward on the card under torch.profiler: one K6 kernel per
+    conv and no bias or leaky op (no aten::where, aten::gt or aten::mul,
+    and an aten::add only at each shortcut), nor an unfused BN's
+    aten::sub or aten::div; the plain path on the card runs them, so the
+    check sees them where they are."""
+    from torch.profiler import ProfilerActivity, profile
+    from yolo2_light_tpu_torch.cfg import ConvSpec, ShortcutSpec
+    spec, params, _ = build_params(os.path.join(DATA, "mini-yolo3.cfg"), None,
+                                   echo=False)
+    convs = sum(isinstance(l, ConvSpec) for l in spec.layers)
+    shortcuts = sum(isinstance(l, ShortcutSpec) for l in spec.layers)
+    x = np.random.RandomState(4).rand(1, spec.net.h, spec.net.w,
+                                      3).astype(np.float32)
+    counts = {}
+    for impl in ("xla", "plain"):
+        pred = Predictor(spec, params, "fp32", device=dev, int8_impl=impl,
+                         compute_dtype=torch.bfloat16)
+        pred(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pred(x)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        counts[impl] = {
+            "k6": sum("bf16_conv_kernel" in n for n in names),
+            "epilogue": sum(n in ("aten::where", "aten::gt", "aten::mul",
+                                  "aten::sub", "aten::div") for n in names),
+            "add": names.count("aten::add")}
+    assert counts["xla"] == {"k6": convs, "epilogue": 0,
+                             "add": shortcuts}, counts
+    assert counts["plain"]["k6"] == 0 and counts["plain"]["epilogue"] > 0
+    assert counts["plain"]["add"] == convs + shortcuts, counts
 
 
 def test_demo_on_card_runs_a_raw_video_without_cv2(dev, tmp_path):

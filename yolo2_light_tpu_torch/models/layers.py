@@ -78,7 +78,8 @@ def set_fp32_precision() -> None:
 
 
 def conv2d_fp32(x, weights, biases, stride: int, pad: int, activation: str,
-                bn=None, compute_dtype=torch.float32, plain: bool = False):
+                bn=None, compute_dtype=torch.float32, plain: bool = False, *,
+                weights_k32=None):
     """Dense conv + optional (unfused) BN + bias + activation.
     ``weights``: ``[O, I, kh, kw]`` (float32, or already in ``compute_dtype``).
 
@@ -90,24 +91,36 @@ def conv2d_fp32(x, weights, biases, stride: int, pad: int, activation: str,
     ``compute_dtype=bfloat16`` (``-bf16``) convolves the input and the
     weights rounded to bfloat16 and sums in float32, as the JAX package does
     (``preferred_element_type=float32``); BN, bias and the activation run
-    in float32. The conv is ``ops/bf16_conv.conv2d_bf16``: the hand kernel
-    for a CUDA tensor (one launch, which rounds the float32 input as it
-    stages it), its plain twin for a CPU tensor (the float32 conv of the
-    bfloat16-rounded operands; the products are exact in float32, so either
-    is XLA's result up to the order of the sums); ``plain=True`` runs the
-    plain twin on any device (the reference the kernel is checked against).
-    A bfloat16 input (turbo's
-    maps) is upcast first, exactly. Weights laid out by ``params`` (bfloat16
-    in channels-last memory) reach the kernel without a copy.
+    in float32. It is ``ops/bf16_conv.conv2d_bf16``: on a CUDA tensor one
+    launch of the hand kernel, which rounds the float32 input as it stages
+    it and, with BN folded into the weights (every app path), runs bias and
+    leaky or linear in its store; on a CPU tensor (or with ``plain=True``,
+    the reference the kernel is checked against) its plain twin, the
+    float32 conv of the bfloat16-rounded operands, then the same chain as
+    PyTorch ops (``bf16_conv.epilogue_plain``). The products are exact in
+    float32, so either is XLA's result up to the order of the sums. An
+    unfused BN runs as PyTorch ops after the bare conv, and any other
+    activation follows as a PyTorch op. A bfloat16 input (turbo's maps) is
+    upcast first, exactly. Weights laid out by ``params`` (bfloat16 in
+    channels-last memory) reach the kernel without a copy;
+    ``weights_k32``, the first conv's rows padded for the kernel, is made
+    once there too.
 
     The float32 path makes the input dense NHWC first (a no-op for the
     kernels' outputs): cuDNN picks its algorithm by the memory layout too.
     """
     if compute_dtype == torch.bfloat16:
-        conv = (bf16_conv.conv2d_bf16_plain if plain
-                else bf16_conv.conv2d_bf16)
-        y = conv(x.to(torch.float32).contiguous(),
-                 bf16_conv.kernel_weights(weights), stride, pad)
+        xb = x.to(torch.float32).contiguous()
+        wk = bf16_conv.kernel_weights(weights)
+        if bn is None:
+            y = bf16_conv.conv2d_bf16(xb, wk, stride, pad, w_k32=weights_k32,
+                                      biases=biases, activation=activation,
+                                      plain=plain)
+            if activation in bf16_conv.STORE_ACTIVATIONS:
+                return y
+            return activate(y, activation)
+        y = bf16_conv.conv2d_bf16(xb, wk, stride, pad, w_k32=weights_k32,
+                                  plain=plain)
     else:
         xc = x.contiguous().permute(0, 3, 1, 2).to(compute_dtype)
         y = F.conv2d(xc, weights.to(compute_dtype), stride=stride,

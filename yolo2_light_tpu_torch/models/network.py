@@ -564,7 +564,8 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                     cur = L.conv2d_fp32(cur, p["weights"], p["biases"],
                                         l.stride, l.pad, l.activation, bn=bn,
                                         compute_dtype=compute_dtype,
-                                        plain=plain)
+                                        plain=plain,
+                                        weights_k32=p.get("weights_k32"))
                     if narrow is not None:
                         cur = cur.to(narrow)
                     cur, cur_i8 = finish_conv(i, cur)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .cfg import parse_network_cfg
+from .ops import bf16_conv
 from .ops.int8_conv import alpha_f32, relayout_hwio
 from .quant import R_MULT
 from .weights import random_params, save_weights
@@ -40,6 +41,9 @@ def layer_to_torch(p: dict, device, drop=frozenset(),
       the ``[O, kh, kw, I]`` rows ``ops/bf16_conv`` reads);
     * ``biases``, unfused BN vectors, the XNOR ``mean_arr`` and the
       ``cpu_old`` epilogue's ``biases_quant`` -> float32 tensors;
+    * with bfloat16 weights of a first conv (C = 3), ``weights_k32``: the
+      ``[M, 32]`` rows of ``bf16_conv.pad_k32``, which the bf16 conv
+      kernel's c3 form reads;
     * with INT8 fields: ``weights_int8`` HWIO -> ``[M, kh, kw, C]`` (the
       kernel's layout), ``input_quant_multipler``, ``alpha`` =
       float32(R_MULT) / (float32(in_mult) * float32(w_mult)) (the "cpu"
@@ -68,6 +72,12 @@ def layer_to_torch(p: dict, device, drop=frozenset(),
     for k in _FLOAT_KEYS:
         if k in p and k not in drop:
             out[k] = torch.as_tensor(np.asarray(p[k], np.float32)).to(device)
+    if "weights" in out and weights_dtype == torch.bfloat16:
+        # the first conv's rows padded to one k32 step, for the kernel
+        _, i, kh, _ = out["weights"].shape
+        if bf16_conv.c3_form(i, kh):
+            out["weights_k32"] = bf16_conv.pad_k32(
+                bf16_conv.kernel_weights(out["weights"]))
     if "weights_int8" in p and "weights_int8" not in drop:
         out["weights_int8"] = relayout_hwio(p["weights_int8"]).to(device)
         out["input_quant_multipler"] = float(
