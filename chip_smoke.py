@@ -8,7 +8,7 @@ Phases, each reported on its own lines:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as nvidia-smi reports them.
-2. build: compiles the six kernels of ``yolo2_light_tpu_torch/csrc``, one
+2. build: compiles the seven kernels of ``yolo2_light_tpu_torch/csrc``, one
    nvcc per source, all started together (each build and the phase timed).
 3. kernels: the int8 conv kernel in both input forms (f32 input quantized
    in its loader, the network's path; pre-quantized int8 input, the Pallas
@@ -56,9 +56,14 @@ Phases, each reported on its own lines:
    at the convs ``auto``'s rule gives it; the four engines and the plain
    versions on the card must give equal head maps and identical detection
    lines. Times the warm b=1 forward of each engine.
-8. pipeline: the NMS rank walk (``csrc/nms_walk.cu``) against its plain
-   version, bit for bit, at B=8, C=80 and K = 256, 1024 and 4096 (clustered
-   candidates with exact-prob ties), timed beside its byte bound. Then the
+8. pipeline: the device NMS's two kernels, K7 (``csrc/nms_order.cu``: the
+   overlap bits, the carried argsort chain, rank_has_work) and the rank walk
+   (``csrc/nms_walk.cu``), against their plain versions, bit for bit, at
+   B=8, C=80 and K = 256, 1024 and 4096 and at C = 20 (B = 8 and 1, K =
+   1024), on views of a packed buffer of clustered candidates with
+   exact-prob ties, each timed beside its bound and its plain version; the
+   peak device memory of one ``nms_packed`` at B=8, K=4096, kernels against
+   plain versions. Then the
    serving pipeline (``pipeline.DetectionPipeline``, device NMS on) on
    yolov3-416 int8 (``xla`` and ``fused``) and fp32 and on
    tiny-yolo-obj_xnor-416 ``pallas_mxu`` and ``pallas``, from 640x480 uint8
@@ -67,7 +72,13 @@ Phases, each reported on its own lines:
    ``-quantized -bf16``, ``-bf16``): each replay of the captured CUDA graph must
    equal the eager program bit for bit, the hand kernels of the mode must
    launch inside the capture, and ``serve_scan`` over the 8-frame ring must
-   equal the per-frame calls. The detections of 8 frames at the net's size
+   equal the per-frame calls. For yolov3-416 int8 and tiny-yolo-obj_xnor-416
+   ``pallas_mxu`` at b=1 and b=8, the NMS stage on the decode's own packed
+   buffer: K7, the walk and ``nms_packed`` timed, K7's plain version (the
+   PyTorch ops it replaced) beside them; after the last phase, the
+   stage's device operations under torch.profiler in a process of its own,
+   and no sort in it (profiler sessions in this process lost kernels after
+   a few). The detections of 8 frames at the net's size
    (b=8) must print the lines ``detect_image`` (eager forward, host decode
    and NMS) prints for the same frames as PNGs, as multisets; a line may
    differ only by one print count in a box field, in at most 1% of the lines
@@ -175,9 +186,10 @@ multiply-adds at the int8 peak, the count of the earlier XNOR figures.
 Any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
 preceded by the card's name and power limit and, before that, a line with one
-JSON object describing each of the six TPU kernels' counterparts and K6 (after
+JSON object describing each of the six TPU kernels' counterparts, K6 and the
+device NMS's K7 and walk (after
 a ``{"slice11": ...}`` line with phase 11's numbers, a
-``{"pipeline": ...}`` line with phase 8's numbers and the NMS walk's row, a
+``{"pipeline": ...}`` line with phase 8's numbers and the NMS kernels' rows, a
 ``{"precision": ...}`` line with phase 9's and a ``{"cpu_old": ...}`` line
 with phase 10's): its launches on the main path, its time, the plain
 version's, the bound (sums over the shapes timed) and the library call's
@@ -212,7 +224,8 @@ from yolo2_light_tpu_torch.io import image as im_io
 from yolo2_light_tpu_torch.models import layers, network
 from yolo2_light_tpu_torch.io.rawvideo import write_rawvideo
 from yolo2_light_tpu_torch.ops import (_build, bf16_conv, fused_res,
-                                       int8_conv, nms_walk, xnor_gemm)
+                                       int8_conv, nms_order, nms_walk,
+                                       xnor_gemm)
 from yolo2_light_tpu_torch.params import save_random_weights
 from yolo2_light_tpu_torch.post import boxes as post_boxes
 from yolo2_light_tpu_torch.post import device_nms
@@ -232,6 +245,7 @@ SLEEP_CYCLES = 50_000_000   # about 25 ms of device time to queue behind
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
 # the binary tensor cores (mma .b1 m16n8k256): an m16n8k256 .b1 MMA retires
 # at the m16n8k32 .s8 MMA's rate with 8x its multiply-adds
 # (scripts/trace_xnor_gemm.py's probe)
@@ -304,6 +318,7 @@ KERNEL_LOADERS = {
     "xnor_gemm": lambda: xnor_gemm.load_kernel("xnor_gemm"),
     "xnor_gemm_mxu": lambda: xnor_gemm.load_kernel("xnor_gemm_mxu"),
     "nms_walk": nms_walk.load_kernel,
+    "nms_order": nms_order.load_kernel,
     "bf16_conv": bf16_conv.load_kernel,
 }
 # phase 8: the serving pipeline
@@ -311,6 +326,13 @@ NMS_SOURCE = "yolo2_light_tpu_torch/csrc/nms_walk.cu"
 # the lax.while_loop of nms_probs_with_order (an XLA loop, no pallas_call)
 NMS_REPLACES = "yolo2_light_tpu/post/device_nms.py:93"
 NMS_SHAPES = [(8, 256, 80), (8, 1024, 80), (8, 4096, 80)]   # B, K, C
+NMS_C20_SHAPES = [(8, 1024, 20), (1, 1024, 20)]   # tiny-yolo-obj_xnor's C
+ORDER_SOURCE = "yolo2_light_tpu_torch/csrc/nms_order.cu"
+# pairwise_iou, iou > thresh, the lax.scan of stable argsorts and
+# rank_has_work of nms_probs_with_order (XLA ops, no pallas_call)
+ORDER_REPLACES = "yolo2_light_tpu/post/device_nms.py:69"
+# the modes whose NMS stage phase 8 times at the pipeline's own shape
+NMS_STAGE_MODES = ("yolov3 int8", "tiny-yolo-obj_xnor pallas_mxu")
 FRAME_H, FRAME_W = 480, 640
 MAP_IMAGES = 16
 TARGET_LIVE = 300       # candidates of a frame above detector map's thresh
@@ -1339,53 +1361,218 @@ def busy_ms(fn, wall: float) -> float:
         return event_ms(fn, iters=1, warmup=1, sleep_cycles=cycles)
 
 
-def phase_nms_walk() -> list:
-    """The walk kernel against its plain version at detector map's K (1024),
-    the pipeline's default (256) and the device-NMS ceiling (4096), C = 80,
-    B = 8, on clustered candidates with exact-prob ties."""
+def _nms_packed_input(dev, b: int, k: int, c: int):
+    """A packed [B, K, 5 + C] candidate buffer: clustered boxes (overlap
+    galore), quantized probs (exact ties galore), trailing zero rows."""
+    rng = np.random.RandomState(SEED + k + c)
+    boxes = rng.rand(b, k, 4).astype(np.float32)
+    boxes[..., 2:] = 0.05 + 0.3 * boxes[..., 2:]
+    centers = rng.rand(b, k // 8, 2)
+    which = rng.randint(0, k // 8, (b, k))
+    boxes[..., :2] = (np.take_along_axis(centers, which[..., None], 1)
+                      + 0.02 * rng.randn(b, k, 2))
+    probs = rng.rand(b, k, c).astype(np.float32)
+    probs[probs < 0.6] = 0.0
+    probs = (np.round(probs * 8) / 8).astype(np.float32)
+    probs[:, k - k // 5:] = 0.0
+    return torch.from_numpy(np.concatenate(
+        [boxes, np.ones((b, k, 1), np.float32), probs], axis=-1)).to(dev)
+
+
+def order_bound(b: int, k: int, c: int) -> tuple:
+    """K7's least time: boxes and probs read, bit rows, order, rank_has_work
+    and perm written; the IoU's 11 float32 operations a pair (min, max and
+    a subtraction per axis, the product, sum and difference of areas, the
+    division, the comparison) at the float32 peak."""
+    w = -(-k // 32)
+    return bound(4 * (b * k * 4 + b * k * c) + 4 * (b * k * w + b * c * k
+                                                     + b * k) + 8 * b * k,
+                 11.0 * b * k * k, PEAK_F32_FLOPS)
+
+
+def walk_bound(ins, probs) -> tuple:
+    """The walk's least time: each input read once, the output written once;
+    its operations (an and-not per row word and live rank) are far below
+    the bytes' time."""
+    over, order, rhw = ins[:3]
+    return bound(4 * (over.numel() + order.numel() + rhw.numel()
+                      + 2 * probs.numel()), 0.0)
+
+
+def _same(got, want) -> bool:
+    return all(a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int8), b.contiguous().view(torch.int8))
+        for a, b in zip(got, want))
+
+
+def _plain_nms_packed(packed, thresh: float):
+    """``device_nms.nms_packed`` with both kernels' plain versions."""
+    boxes, probs = packed[..., :4], packed[..., 5:]
+    ins = nms_order.nms_order_plain(boxes, probs, thresh)
+    new = nms_walk.nms_walk_plain(*ins[:3], probs)
+    out = torch.cat([packed[..., :5], new], dim=-1)
+    return torch.take_along_dim(out, ins[3][..., None], dim=1)
+
+
+def peak_mb(fn) -> float:
+    """Device memory ``fn`` allocates at its peak beyond what was allocated
+    before it, in MB (``torch.cuda.max_memory_allocated``)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 1e6
+
+
+def phase_nms_kernels() -> list:
+    """K7 (``nms_order``) and the rank walk against their plain versions, bit
+    for bit, at detector map's K (1024), the pipeline's default (256) and
+    the device-NMS ceiling (4096), C = 80, B = 8, and at C = 20, on the
+    packed buffer's views; each timed beside its bound and its plain
+    version. Then the peak memory of one ``nms_packed`` at B = 8, K = 4096,
+    kernels against plain versions."""
     dev = torch.device("cuda")
     rows = []
-    for b, k, c in NMS_SHAPES:
-        rng = np.random.RandomState(SEED + k)
-        boxes = rng.rand(b, k, 4).astype(np.float32)
-        boxes[..., 2:] = 0.05 + 0.3 * boxes[..., 2:]
-        centers = rng.rand(b, k // 8, 2)
-        which = rng.randint(0, k // 8, (b, k))
-        boxes[..., :2] = (np.take_along_axis(centers, which[..., None], 1)
-                          + 0.02 * rng.randn(b, k, 2))
-        probs = rng.rand(b, k, c).astype(np.float32)
-        probs[probs < 0.6] = 0.0
-        probs = (np.round(probs * 8) / 8).astype(np.float32)
-        probs[:, k - k // 5:] = 0.0
-        probs = torch.from_numpy(probs).to(dev)
-        over, order, rhw, _ = device_nms.walk_inputs(
-            torch.from_numpy(boxes).to(dev), probs, PIPE_NMS)
-        out = nms_walk.nms_walk_cuda(over, order, rhw, probs)
-        ref = nms_walk.nms_walk_plain(over, order, rhw, probs)
+    for b, k, c in NMS_SHAPES + NMS_C20_SHAPES:
+        packed = _nms_packed_input(dev, b, k, c)
+        boxes, probs = packed[..., :4], packed[..., 5:]
+        ins = nms_order.nms_order_cuda(boxes, probs, PIPE_NMS)
+        want = nms_order.nms_order_plain(boxes, probs, PIPE_NMS)
+        torch.cuda.synchronize()
+        check(_same(ins, want), f"nms_order != plain at B={b} K={k} C={c}")
+        out = nms_walk.nms_walk_cuda(*ins[:3], probs)
+        ref = nms_walk.nms_walk_plain(*ins[:3], probs)
         torch.cuda.synchronize()
         check(torch.equal(_bits(out), _bits(ref)),
               f"nms_walk != plain at B={b} K={k} C={c}")
+        rhw = ins[2]
         live = int((rhw > 0).sum(1).max())
-        ms = event_ms(lambda: nms_walk.nms_walk_cuda(over, order, rhw, probs))
+        nonzero = int((probs != 0).sum(1).max())
+        o_ms = event_ms(lambda: nms_order.nms_order_cuda(boxes, probs,
+                                                         PIPE_NMS))
+        o_plain = event_ms(lambda: nms_order.nms_order_plain(
+            boxes, probs, PIPE_NMS), iters=3, warmup=1)
+        w_ms = event_ms(lambda: nms_walk.nms_walk_cuda(*ins[:3], probs))
         # the plain walk reads its stop rank on the host: its time is its
         # host-bound loop's
-        plain_ms = event_ms(lambda: nms_walk.nms_walk_plain(
-            over, order, rhw, probs), iters=2, warmup=1)
-        # each input read once, the output written once; the walk's
-        # operations (an and-not per row word and live rank) are far below
-        # the bytes' time
-        b_ms, b_by = bound(4 * (over.numel() + order.numel() + rhw.numel()
-                                + 2 * probs.numel()), 0.0)
+        w_plain = event_ms(lambda: nms_walk.nms_walk_plain(*ins[:3], probs),
+                           iters=2, warmup=1)
+        ob_ms, ob_by = order_bound(b, k, c)
+        wb_ms, wb_by = walk_bound(ins, probs)
         suppressed = int((ref == 0).sum() - (probs == 0).sum())
-        say("pipeline", f"nms_walk B={b} K={k} C={c}: bit-identical to plain "
-            f"({suppressed} probs suppressed, {live} live ranks in the "
-            f"busiest image); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; "
-            f"bound {b_ms * 1e3:.2f} us ({b_by}), "
-            f"{100 * b_ms / ms:.1f}% of it")
-        rows.append({"shape": [b, k, c], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
-                     "live_ranks": live, "suppressed": suppressed})
+        say("pipeline", f"B={b} K={k} C={c} ({live} live ranks, at most "
+            f"{nonzero} nonzero probs of a class, {suppressed} suppressed): "
+            f"nms_order bit-identical to plain, {o_ms:.4f} ms (plain "
+            f"{o_plain:.3f}), bound {ob_ms * 1e3:.2f} us ({ob_by}), "
+            f"{100 * ob_ms / o_ms:.1f}%; nms_walk bit-identical to plain, "
+            f"{w_ms:.4f} ms (plain {w_plain:.2f}), bound "
+            f"{wb_ms * 1e3:.2f} us ({wb_by}), {100 * wb_ms / w_ms:.1f}%")
+        rows.append({"shape": [b, k, c], "live_ranks": live,
+                     "suppressed": suppressed, "max_abs_err": 0.0,
+                     "nms_order": {"ms": o_ms, "plain_ms": o_plain,
+                                   "bound_ms": ob_ms, "bound_by": ob_by},
+                     "nms_walk": {"ms": w_ms, "plain_ms": w_plain,
+                                  "bound_ms": wb_ms, "bound_by": wb_by}})
+        del ins, want, out, ref
+    b, k, c = NMS_SHAPES[-1]
+    packed = _nms_packed_input(dev, b, k, c)
+    kernels = peak_mb(lambda: device_nms.nms_packed(packed, PIPE_NMS))
+    plain = peak_mb(lambda: _plain_nms_packed(packed, PIPE_NMS))
+    say("pipeline", f"peak device memory of one nms_packed at B={b} K={k} "
+        f"C={c}: {kernels:.1f} MB on the kernels, {plain:.1f} MB on the "
+        "plain versions")
+    rows.append({"peak_mb": {"shape": [b, k, c], "kernels": kernels,
+                             "plain": plain}})
     return rows
+
+
+# the (B, K, C) of each NMS stage timed in phase 8, and its row: its device
+# operations are counted after the last phase in a process of their own, as
+# torch.profiler sessions in this one lost kernels after a few (phase 11
+# counts K6's launches under one)
+_NMS_STAGES: list = []
+
+
+def nms_stage(pipe, x) -> dict:
+    """The NMS stage of ``pipe`` (eager) on the device batch ``x``: K7, the
+    walk and ``nms_packed`` timed on the packed buffer the decode gives, and
+    K7's plain version (the PyTorch ops it replaced) beside them."""
+    counted = dict(int8_conv.LAUNCH_COUNTS)     # these launches do not count
+    with torch.inference_mode():
+        heads = [h.data for h in pipe._fwd(pipe.params, pipe.ingest(x))[0]]
+        packed = pipe._decoder.packed(heads)
+        boxes, probs = packed[..., :4], packed[..., 5:]
+        ins = nms_order.nms_order_cuda(boxes, probs, PIPE_NMS)
+        b, k, c = probs.shape
+        row = {"shape": [b, k, c],
+               "live_ranks": int((ins[2] > 0).sum(1).max()),
+               "nonzero": int((probs != 0).sum(1).max()),
+               "nms_order_ms": event_ms(lambda: nms_order.nms_order_cuda(
+                   boxes, probs, PIPE_NMS)),
+               "nms_order_plain_ms": event_ms(
+                   lambda: nms_order.nms_order_plain(boxes, probs, PIPE_NMS),
+                   iters=3, warmup=1),
+               "nms_walk_ms": event_ms(lambda: nms_walk.nms_walk_cuda(
+                   *ins[:3], probs)),
+               "stage_ms": event_ms(lambda: device_nms.nms_packed(
+                   packed, PIPE_NMS))}
+        row["nms_order_bound_ms"], _ = order_bound(b, k, c)
+        row["nms_walk_bound_ms"], _ = walk_bound(ins, probs)
+    int8_conv.LAUNCH_COUNTS.clear()
+    int8_conv.LAUNCH_COUNTS.update(counted)
+    _NMS_STAGES.append(row)
+    return row
+
+
+def count_nms_ops(shapes) -> list:
+    """(device operations, sorts) of one ``nms_packed`` on a packed buffer
+    of each (B, K, C) in ``shapes``, under torch.profiler: for a process of
+    its own (``phase_nms_ops``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    device_nms.load_kernels(dev)
+    out = []
+    for b, k, c in shapes:
+        packed = _nms_packed_input(dev, b, k, c)
+        with torch.inference_mode():
+            device_nms.nms_packed(packed, PIPE_NMS)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                device_nms.nms_packed(packed, PIPE_NMS)
+                torch.cuda.synchronize()
+        ev = prof.events()
+        out.append([sum(e.device_type == DeviceType.CUDA for e in ev),
+                    sum(e.name in ("aten::sort", "aten::argsort")
+                        for e in ev)])
+    return out
+
+
+def phase_nms_ops() -> None:
+    """The device operations of each NMS stage phase 8 timed (one
+    ``nms_packed`` on a buffer of its shape; the count does not follow the
+    data), counted in a fresh process; no sort may run in it."""
+    shapes = [tuple(row["shape"]) for row in _NMS_STAGES]
+    res = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke as cs; print(json.du"
+         f"mps(cs.count_nms_ops({shapes!r})))"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, "counting the NMS stage's operations failed: "
+          + res.stderr[-2000:])
+    counts = json.loads(res.stdout.strip().splitlines()[-1])
+    for row, (ops, sorts) in zip(_NMS_STAGES, counts):
+        row["stage_ops"], row["stage_sorts"] = ops, sorts
+        check(ops > 0 and sorts == 0,
+              f"NMS stage at {tuple(row['shape'])}: {ops} device operations, "
+              f"{sorts} sorts")
+        say("pipeline", f"NMS stage at {tuple(row['shape'])}: {ops} device "
+            "operations, no sort (one nms_packed under torch.profiler, in a "
+            "process of its own)")
+    _NMS_STAGES.clear()
 
 
 def _pipeline_mode(name: str, cfg: str, quantized: bool, kw: dict,
@@ -1435,12 +1622,24 @@ def _pipeline_mode(name: str, cfg: str, quantized: bool, kw: dict,
             f"{row[f'b{b}_busy_eager_ms']:.3f} ms; device idle "
             f"{100 * row[f'b{b}_captured_idle']:.1f}% / "
             f"{100 * row[f'b{b}_eager_idle']:.1f}% of the wall")
+        if name in NMS_STAGE_MODES:
+            st = row[f"b{b}_nms"] = nms_stage(eager, xd)
+            say("pipeline", f"{name} b={b}: NMS stage at {tuple(st['shape'])}"
+                f" ({st['live_ranks']} live ranks, at most {st['nonzero']} "
+                f"nonzero probs of a class): nms_packed {st['stage_ms']:.4f} "
+                f"ms; nms_order "
+                f"{st['nms_order_ms']:.4f} ms (bound "
+                f"{st['nms_order_bound_ms'] * 1e3:.2f} us; plain "
+                f"{st['nms_order_plain_ms']:.3f} ms), nms_walk "
+                f"{st['nms_walk_ms']:.4f} ms (bound "
+                f"{st['nms_walk_bound_ms'] * 1e3:.2f} us)")
     launches = dict(int8_conv.LAUNCH_COUNTS)
     if kernel is not None:
         check(launches.get(kernel, 0) > 0,
               f"{name}: {kernel} was not launched in the captures")
-    check(launches.get("nms_walk", 0) > 0,
-          f"{name}: nms_walk was not launched in the captures")
+    for k in ("nms_order", "nms_walk"):
+        check(launches.get(k, 0) > 0,
+              f"{name}: {k} was not launched in the captures")
     row["launches_at_capture"] = launches
 
     # detections against the host path (eager forward, host decode and NMS)
@@ -1600,15 +1799,15 @@ def phase_map(tmp: str, bias: float, names: list) -> dict:
           "detector map -device_nms -k 64 did not auto-grow")
     say("pipeline", "detector map: host NMS and -device_nms print identical "
         f"reports ({len(reports['host_nms'])} lines)")
-    out["nms_walk_launches"] = out["device_nms"]["launches"].get("nms_walk",
-                                                                 0)
+    for k in ("nms_order", "nms_walk"):
+        out[f"{k}_launches"] = out["device_nms"]["launches"].get(k, 0)
     return out
 
 
 def phase_pipeline(tmp: str) -> dict:
     names = [f"class_{i:02d}" for i in range(N_CLASSES)]
     voc = [f"class_{i:02d}" for i in range(VOC_CLASSES)]
-    walk = phase_nms_walk()
+    nms_rows = phase_nms_kernels()
     frames = _frames(SEED, 8)
     modes, biases = [], {}
     for name, (cfg, quantized, kw, kernel) in PIPE_MODES.items():
@@ -1618,14 +1817,26 @@ def phase_pipeline(tmp: str) -> dict:
             names if cfg == CFG else voc))
         modes[-1]["obj_bias"] = biases[name]
     mapped = phase_map(tmp, biases["yolov3 int8"], names)
-    return {"nms_walk": {
-                "name": "nms_walk", "route": "cuda", "source": NMS_SOURCE,
-                "replaces": NMS_REPLACES,
-                "launches": mapped["nms_walk_launches"],
-                "max_abs_err": 0.0,
-                "ms": sum(r["ms"] for r in walk),
-                "plain_ms": sum(r["plain_ms"] for r in walk),
-                **row_bound(walk), "library_ms": None, "shapes": walk},
+    shapes = [r for r in nms_rows if "shape" in r]
+    stages = {f"{m['mode']} b={b}": m[f"b{b}_nms"] for m in modes
+              for b in (1, 8) if f"b{b}_nms" in m}
+    # not TPU kernels: each replaces XLA ops of nms_probs_with_order; sums
+    # over the synthetic shapes, the pipeline's own shapes beside them
+    kernels = [{
+        "name": k, "kernel": k, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": mapped[f"{k}_launches"],
+        "max_abs_err": 0.0,
+        "ms": sum(r[k]["ms"] for r in shapes),
+        "plain_ms": sum(r[k]["plain_ms"] for r in shapes),
+        **row_bound([r[k] for r in shapes]), "library_ms": None,
+        "shapes": [{"shape": r["shape"], **r[k]} for r in shapes],
+        "pipeline": {n: {"ms": st[f"{k}_ms"], "bound_ms": st[f"{k}_bound_ms"],
+                         "live_ranks": st["live_ranks"]}
+                     for n, st in stages.items()}}
+        for k, source, replaces in (
+            ("nms_order", ORDER_SOURCE, ORDER_REPLACES),
+            ("nms_walk", NMS_SOURCE, NMS_REPLACES))]
+    return {"nms_kernels": kernels, "nms_shapes": nms_rows,
             "modes": modes, "map": mapped}
 
 
@@ -2288,12 +2499,18 @@ def k6_profile(pred, x) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the forward queued behind a device sleep (about 5 ms, left out of
+        # the counts): some runs lost the first K6 kernels of the window
+        # (59 of 75, 3 of 4) while the launch counters saw every launch
+        torch.cuda._sleep(SLEEP_CYCLES // 5)
         pred(x)
         torch.cuda.synchronize()
     k6_us = busy_us = 0.0
     k6 = kernels = epilogue = adds = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            if "spin_kernel" in e.name:
+                continue
             kernels += 1
             busy_us += e.self_device_time_total
             if "bf16_conv_kernel" in e.name:
@@ -2746,6 +2963,7 @@ def main() -> int:
         slice11 = {"bf16": bf16_run, "demo": phase_demo(tmp),
                    "tree": phase_tree(tmp),
                    "profile": phase_profile(tmp, weights, names_file)}
+        phase_nms_ops()
         for mode, r in slice11["demo"].items():
             say("demo", f"{mode}: {r['fps']:.1f} frames per second over "
                 f"{r['fps_frames']} frames (quarters "
@@ -2857,6 +3075,8 @@ def main() -> int:
         "bare_ms": sum(r["bare_ms"] for r in bf16_rows),
         "per_forward": bf16_run["profile"],
         "shapes": bf16_rows})
+    # the device NMS's two hand kernels (phase 8)
+    kernels += piped["nms_kernels"]
     print(json.dumps({"slice11": slice11}), flush=True)
     print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"precision": precision}), flush=True)

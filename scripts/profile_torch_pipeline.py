@@ -8,8 +8,9 @@ b=8: each mode of ``chip_smoke.PIPE_MODES`` (yolov3-416 int8 ``xla`` and
 ``--seed`` with the head objectness bias ``chip_smoke.calibrate_obj_bias``
 picks per mode (about 300 live candidates a frame). Prints per mode and batch the device time of
 one replay of the captured graph and of each stage run alone (ingest and
-resize, the network, decode and top-K compaction, the NMS inputs: IoU bits
-and the carried stable-argsort chain, and the ``nms_walk`` kernel), each
+resize, the network, decode and top-K compaction, the NMS inputs: K7,
+``nms_order``, with its plain PyTorch version beside it, and the
+``nms_walk`` kernel), each
 queued behind a device sleep so the host's dispatch is not timed, and the
 largest kernels of the eager program under ``torch.profiler``. Needs one
 CUDA device.
@@ -36,8 +37,9 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from yolo2_light_tpu_torch import pipeline  # noqa: E402
 from yolo2_light_tpu_torch.apps.detect import build_params  # noqa: E402
+from yolo2_light_tpu_torch.ops.nms_order import (  # noqa: E402
+    nms_order_cuda, nms_order_plain)
 from yolo2_light_tpu_torch.ops.nms_walk import nms_walk  # noqa: E402
-from yolo2_light_tpu_torch.post.device_nms import walk_inputs  # noqa: E402
 
 
 def device_ms(fn) -> float:
@@ -63,16 +65,18 @@ def profile_mode(name: str, seed: int, top: int) -> None:
             xin = pipe.ingest(x)
             heads = [h.data for h in pipe._fwd(pipe.params, xin)[0]]
             packed = pipe._decoder.packed(heads)
-            probs = packed[..., 5:].contiguous()
-            ins = walk_inputs(packed[..., :4], probs, cs.PIPE_NMS)
+            boxes, probs = packed[..., :4], packed[..., 5:]
+            ins = nms_order_cuda(boxes, probs, cs.PIPE_NMS)
             live = int((ins[2] > 0).sum(1).max())
             stages = {
                 "graph replay": device_ms(g.graph.replay),
                 "ingest": device_ms(lambda: pipe.ingest(x)),
                 "network": device_ms(lambda: pipe._fwd(pipe.params, xin)),
                 "decode": device_ms(lambda: pipe._decoder.packed(heads)),
-                "nms inputs": device_ms(lambda: walk_inputs(
-                    packed[..., :4], probs, cs.PIPE_NMS)),
+                "nms inputs": device_ms(lambda: nms_order_cuda(
+                    boxes, probs, cs.PIPE_NMS)),
+                "nms inputs plain": device_ms(lambda: nms_order_plain(
+                    boxes, probs, cs.PIPE_NMS)),
                 "nms_walk": device_ms(lambda: nms_walk(*ins[:3], probs)),
             }
             with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -24,7 +24,8 @@ def test_library_path_changes_with_a_header(tmp_path, monkeypatch):
 
 
 def test_each_kernel_has_its_own_library():
-    names = ("int8_conv", "fused_res", "xnor_gemm", "xnor_gemm_mxu")
+    names = ("int8_conv", "fused_res", "xnor_gemm", "xnor_gemm_mxu",
+             "nms_walk", "nms_order", "bf16_conv")
     paths = {name: _build.library_path(name) for name in names}
     for name, path in paths.items():
         assert os.path.basename(path).startswith(f"{name}-")

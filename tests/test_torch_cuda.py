@@ -724,6 +724,160 @@ def test_nms_walk_wrapper_refuses_what_the_kernel_does_not_take(dev, case):
     assert K.LAUNCH_COUNTS["nms_walk"] == 0
 
 
+def _order_operands(dev, seed, b, k, c, flavour="ties"):
+    """K7's inputs as the packed buffer holds them (views with a row stride
+    of 5 + C floats): clustered boxes, thresholded probs with exact ties and
+    trailing zero rows, then ``flavour``."""
+    rng = np.random.RandomState(seed)
+    boxes = rng.rand(b, k, 4).astype(np.float32)
+    boxes[..., 2:] = 0.05 + 0.3 * boxes[..., 2:]
+    centers = rng.rand(b, max(1, k // 8), 2)
+    which = rng.randint(0, centers.shape[1], (b, k))
+    boxes[..., :2] = (np.take_along_axis(centers, which[..., None], 1)
+                      + 0.02 * rng.randn(b, k, 2))
+    probs = rng.rand(b, k, c).astype(np.float32)
+    probs[probs < 0.6] = 0.0
+    probs = (np.round(probs * 8) / 8).astype(np.float32)
+    probs[:, k - k // 5:] = 0.0
+    if flavour == "signed_zeros":
+        probs = np.where((probs == 0) & (rng.rand(b, k, c) < 0.5),
+                         np.float32(-0.0), probs)
+    elif flavour == "negatives":
+        probs = np.where(rng.rand(b, k, c) < 0.15,
+                         -np.round(rng.rand(b, k, c) * 4) / 4, probs)
+        probs = np.where(probs == 0, -0.0, probs)
+    elif flavour == "zero_class":
+        probs[:, :, c // 2] = 0.0
+        probs[0] = 0.0
+    elif flavour == "dense":
+        probs[:, :, 0] = 0.125 + np.round(rng.rand(b, k) * 4) / 8
+    packed = np.concatenate([boxes, np.ones((b, k, 1), np.float32),
+                             probs.astype(np.float32)], axis=-1)
+    packed = torch.from_numpy(packed).to(dev)
+    return packed[..., :4], packed[..., 5:]
+
+
+def _same_inputs(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a.contiguous().view(torch.int8),
+                           b.contiguous().view(torch.int8))
+
+
+@pytest.mark.parametrize("b,k,c", [(8, 256, 80), (8, 1024, 80), (8, 4096, 80),
+                                   (1, 8192, 80), (3, 1000, 7), (2, 33, 3),
+                                   (1, 1, 1), (2, 1024, 20), (1, 2049, 20)])
+def test_nms_order_kernel_bit_identical_to_plain(dev, b, k, c):
+    from yolo2_light_tpu_torch.ops import nms_order as NO
+    boxes, probs = _order_operands(dev, k + c, b, k, c)
+    K.reset_launch_counts()
+    got = NO.nms_order_cuda(boxes, probs, 0.45)
+    assert K.LAUNCH_COUNTS["nms_order"] == 1
+    want = NO.nms_order_plain(boxes, probs, 0.45)
+    torch.cuda.synchronize()
+    _same_inputs(got, want)
+    if k <= 1024:
+        _same_inputs([t.cpu() for t in got],
+                     NO.nms_order_plain(boxes.cpu(), probs.cpu(), 0.45))
+
+
+@pytest.mark.parametrize("flavour", ["signed_zeros", "negatives",
+                                     "zero_class", "dense"])
+@pytest.mark.parametrize("count_max", [None, 0, 8192],
+                         ids=["planned", "sorted", "runs"])
+def test_nms_order_ranks_signed_zeros_negatives_and_dense_classes(
+        dev, flavour, count_max):
+    """Both ways of ranking a class (sorted runs of 32 keys and binary
+    searches, a bitonic sort of all keys) give the plain chain, with -0.0
+    tied to +0.0, negatives after the zeros, empty classes and images, and
+    a class whose every entry is positive."""
+    from yolo2_light_tpu_torch.ops import nms_order as NO
+    kw = {} if count_max is None else {"count_max": count_max}
+    for b, k, c in ((4, 300, 20), (2, 2048, 80)):
+        boxes, probs = _order_operands(dev, k + len(flavour), b, k, c,
+                                       flavour)
+        got = NO.nms_order_cuda(boxes, probs, 0.45, **kw)
+        _same_inputs(got, NO.nms_order_plain(boxes, probs, 0.45))
+
+
+def test_nms_order_bit_rows_at_iou_equal_to_thresh(dev):
+    """Pairs whose float32 IoU is exactly 1/3 or 1/4: no overlap at that
+    thresh (rounded to float32), overlap just below it; as the plain path
+    computes it on the card and on the CPU."""
+    from yolo2_light_tpu_torch.ops import nms_order as NO
+    rows = []
+    for dx in (0.5, 0.5 + 2 ** -20, 0.5 - 2 ** -20):
+        rows += [[0.5, 0.5, 1.0, 1.0], [0.5 + dx, 0.5, 1.0, 1.0]]
+    rows += [[4.0, 4.0, 1.0, 1.0], [5.0, 4.0, 1.0, 1.0],
+             [7.0, 7.0, 0.0, 1.0], [7.0, 7.0, 0.0, 1.0],
+             [9.0, 9.0, 0.5, 0.5], [9.0, 9.0, 0.25, 0.25]]
+    boxes = torch.tensor([rows], dtype=torch.float32, device=dev)
+    probs = torch.ones((1, boxes.shape[1], 1), device=dev)
+    for thresh in (1 / 3, float(np.nextafter(np.float32(1 / 3),
+                                             np.float32(0))), 0.25, 0.0,
+                   -1.0):
+        got = NO.nms_order_cuda(boxes, probs, thresh)[0]
+        assert torch.equal(got, NO.nms_order_plain(boxes, probs, thresh)[0])
+        assert torch.equal(got.cpu(), NO.nms_order_plain(
+            boxes.cpu(), probs.cpu(), thresh)[0])
+
+
+@pytest.mark.parametrize("case", ["device", "dtype", "shape", "stride", "k"])
+def test_nms_order_wrapper_refuses_what_the_kernel_does_not_take(dev, case):
+    from yolo2_light_tpu_torch.ops import nms_order as NO
+    boxes, probs = _order_operands(dev, 4, 1, 64, 3)
+    err = ValueError
+    if case == "device":
+        boxes = boxes.cpu()
+    elif case == "dtype":
+        probs, err = probs.double(), TypeError
+    elif case == "shape":
+        boxes = boxes[:, :32]
+    elif case == "stride":
+        probs = probs.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        probs = torch.zeros((1, NO.MAX_K + 32, 1), device=dev)
+        boxes = torch.zeros((1, NO.MAX_K + 32, 4), device=dev)
+    K.reset_launch_counts()
+    with pytest.raises(err):
+        NO.nms_order_cuda(boxes, probs, 0.45)
+    assert K.LAUNCH_COUNTS["nms_order"] == 0
+
+
+def _aten_ops(fn):
+    """The ATen operators ``fn()`` dispatches (a dispatch mode's record, no
+    profiler session), and its result."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with Record() as rec:
+        out = fn()
+    return set(rec.ops), out
+
+
+def test_nms_stage_runs_two_kernels_and_no_sort(dev):
+    """On the card the NMS of a packed buffer is K7, the walk, and the
+    concatenation and gather around them: no sort, no IoU matrix."""
+    from yolo2_light_tpu_torch.post.device_nms import nms_packed
+    boxes, probs = _order_operands(dev, 5, 2, 1024, 80)
+    packed = torch.cat([boxes, torch.ones_like(boxes[..., :1]), probs], -1)
+    want = nms_packed(packed.cpu(), 0.45)
+    K.reset_launch_counts()
+    ops, got = _aten_ops(lambda: nms_packed(packed, 0.45))
+    assert not {"sort", "argsort", "minimum", "div"} & ops, ops
+    assert (K.LAUNCH_COUNTS["nms_order"], K.LAUNCH_COUNTS["nms_walk"]) == (1,
+                                                                           1)
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
 PIPELINE_MODES = [("mini-yolo3", True, {}),
                   ("mini-res", True, {"int8_impl": "fused"}),
                   ("mini-yolo3", False, {}),
@@ -771,6 +925,15 @@ def test_pipeline_graph_replay_equals_eager(dev, mode, device_nms):
         assert K.LAUNCH_COUNTS[kernel] > 0
     if device_nms:
         assert K.LAUNCH_COUNTS["nms_walk"] > 0
+        assert K.LAUNCH_COUNTS["nms_order"] > 0
+        # the NMS stage on the card: no sort (the decode before it sorts)
+        from yolo2_light_tpu_torch.post.device_nms import nms_packed
+        xd = torch.from_numpy(x).to(dev)
+        with torch.inference_mode():
+            heads = eager._fwd(eager.params, eager.ingest(xd))[0]
+            packed = eager._decoder.packed([h.data for h in heads])
+            ops, _ = _aten_ops(lambda: nms_packed(packed, eager.nms))
+        assert not {"sort", "argsort"} & ops, ops
 
 
 def test_pipeline_serve_scan_equals_per_frame_calls(dev):

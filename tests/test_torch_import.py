@@ -40,6 +40,7 @@ def test_port_modules_are_found():
               "yolo2_light_tpu_torch.quant",
               "yolo2_light_tpu_torch.eval.map",
               "yolo2_light_tpu_torch.ops.nms_walk",
+              "yolo2_light_tpu_torch.ops.nms_order",
               "yolo2_light_tpu_torch.ops.resize",
               "yolo2_light_tpu_torch.pipeline",
               "yolo2_light_tpu_torch.post.device_decode",

@@ -1,10 +1,10 @@
 """The rank walk of exact greedy NMS: the hand-written Hopper kernel and its
 plain PyTorch twin.
 
-``post/device_nms.nms_probs_with_order`` builds, for a batch of B images of
-K candidates and C classes, the overlap matrix (IoU > thresh), each class's
-walk order (the carried stable-argsort chain) and the highest prob at each
-rank; what is left is the walk of ``yolo2_light_tpu/post/device_nms.py``
+``ops/nms_order`` (K7) builds, for a batch of B images of K candidates and
+C classes, the overlap bits (IoU > thresh), each class's walk order (the
+carried stable-argsort chain) and the highest prob at each rank; what is
+left is the walk of ``yolo2_light_tpu/post/device_nms.py``
 (:93-109), a ``lax.while_loop`` with a data-dependent stop:
 
     for t while t < K and rank_has_work[t] > 0:
@@ -14,11 +14,11 @@ rank; what is left is the walk of ``yolo2_light_tpu/post/device_nms.py``
                 probs[j, c] = 0 for every j with over[cur, j] and rank_c(j) > t
 
 A suppressed box never suppresses. ``csrc/nms_walk.cu`` runs it with one
-warp per (image, class): the classes are independent (class c's walk reads
-and writes column c only), the stop rank is the image's. It replaces an XLA
-loop, not a Pallas kernel: done with PyTorch ops it would be up to K launches
-and a host round trip per rank, or a host sync to count the ranks, neither of
-which a CUDA graph can hold.
+warp per (image, class) and a block per image and eight classes: the classes
+are independent (class c's walk reads and writes column c only), the stop
+rank is the image's. It replaces an XLA loop, not a Pallas kernel: done with
+PyTorch ops it would be up to K launches and a host round trip per rank, or
+a host sync to count the ranks, neither of which a CUDA graph can hold.
 
 Layout of ``over``: one bit per pair, ``[B, K, ceil(K/32)]`` int32 rows (bit
 b of word w of row i is column 32w+b; :func:`pack_rows`), 2 MB an image at
@@ -116,14 +116,17 @@ def load_kernel():
     from . import _build
     fn = _build.load(_KERNEL).nms_walk
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
     return fn
 
 
 def nms_walk_cuda(over_bits, order, rank_has_work, probs):
     """Launch the kernel on the current stream of ``probs``' device; returns
-    a new tensor (``probs`` itself is not written)."""
+    a new contiguous tensor (``probs`` itself is not written). ``probs`` may
+    be a view with any batch and row stride whose last dimension is
+    contiguous (the packed buffer's ``[..., 5:]``)."""
     tensors = (over_bits, order, rank_has_work, probs)
     if not (probs.is_cuda and all(t.device == probs.device for t in tensors)):
         raise ValueError("nms_walk_cuda: over_bits, order, rank_has_work and "
@@ -149,17 +152,20 @@ def nms_walk_cuda(over_bits, order, rank_has_work, probs):
     if k > MAX_K or b > 65535:
         raise ValueError(f"nms_walk_cuda: K={k} above {MAX_K} or B={b} "
                          "above 65535")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("nms_walk_cuda: every tensor must be contiguous")
-    out = torch.empty_like(probs)
+    if not (all(t.is_contiguous() for t in tensors[:3])
+            and probs.stride(2) == 1):
+        raise ValueError("nms_walk_cuda: over_bits, order and rank_has_work "
+                         "must be contiguous, and probs' last dimension")
+    out = torch.empty(probs.shape, dtype=probs.dtype, device=probs.device)
     if out.numel() == 0:
         return out
     kernel = load_kernel()
     stream = torch.cuda.current_stream(probs.device).cuda_stream
     LAUNCH_COUNTS[_KERNEL] += 1
     rc = kernel(over_bits.data_ptr(), order.data_ptr(),
-                rank_has_work.data_ptr(), probs.data_ptr(), out.data_ptr(),
-                b, k, c, probs.device.index, stream)
+                rank_has_work.data_ptr(), probs.data_ptr(), probs.stride(0),
+                probs.stride(1), out.data_ptr(), b, k, c, probs.device.index,
+                stream)
     if rc != 0:
         raise RuntimeError(f"nms_walk kernel launch failed: cudaError {rc}")
     return out

@@ -28,10 +28,10 @@ import torch
 
 from .cfg import ModelSpec, RegionSpec, YoloSpec
 from .models.network import build_forward, device_params, load_kernels
-from .ops.nms_walk import load_kernel as load_nms_kernel
 from .ops.resize import Resizer
 from .post import boxes as post
 from .post.device_decode import Decoder
+from .post.device_nms import load_kernels as load_nms_kernels
 from .post.device_nms import nms_packed
 
 # eager runs on a side stream before a capture (PyTorch's recipe)
@@ -200,7 +200,7 @@ class DetectionPipeline:
                          int8_impl=int8_impl, xnor_impl=xnor_impl,
                          compute_dtype=compute_dtype)
             if self.device_nms:
-                load_nms_kernel()
+                load_nms_kernels(self.device)
             if self._cuda_graph:
                 self._pool = torch.cuda.graph_pool_handle()
 
@@ -319,7 +319,8 @@ class DetectionPipeline:
     @property
     def _max_k(self) -> int:
         """Auto-grow ceiling: the net's total candidate count (K >= N cannot
-        drop anything), bounded at 4096 under device_nms (O(K^2) IoU)."""
+        drop anything), bounded at 4096 under device_nms (the JAX package's
+        ceiling; the overlap bits take K*K/8 bytes an image)."""
         return (min(4096, self._total_candidates) if self.device_nms
                 else self._total_candidates)
 

@@ -11,8 +11,8 @@ Semantics (each matches the host oracle in post/boxes.py):
 
 * The sequential-greedy recurrence is exact: a *suppressed* box never
   suppresses. The walk over ranks (``ops/nms_walk``: a hand kernel on the
-  card, its plain twin on the CPU) runs all classes at once after one [K, K]
-  IoU matrix.
+  card, its plain twin on the CPU) runs all classes at once after the
+  overlap bits of every pair.
 * Tie order is qsort-CARRY exact: the reference re-sorts the SAME array class
   after class (box.c:310-317), so class c's stable sort tie-breaks on the
   permutation classes 0..c-1 left behind. Every sort key is an ORIGINAL prob,
@@ -29,68 +29,46 @@ Semantics (each matches the host oracle in post/boxes.py):
   objectness-scaled at decode), so it neither suppresses nor changes when
   "suppressed": the reference's swap-to-end prefilter needs no handling.
 
-Everything here is device ops of fixed shapes with no host sync, so it runs
-inside a captured CUDA graph. Memory: the [B, K, K] IoU matrix, 64 MB an
-image at K = 4096 (the pipeline's device-NMS ceiling).
+On the card the stage is two hand kernels, K7 (``ops/nms_order``: the overlap
+bits, every class's order, the highest prob at each rank) and the walk, both
+reading the packed buffer's views in place; no IoU matrix or argsort runs.
+Everything is of fixed shapes with no host sync, so it runs inside a
+captured CUDA graph. Memory: the bit rows, K*K/8 bytes an image (2 MB at
+K = 4096, the pipeline's device-NMS ceiling), and C*K int32 of order; the
+plain version on the CPU builds the [B, K, K] IoU matrix.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.nms_walk import nms_walk, pack_rows
+from ..ops import nms_order as _order
+from ..ops import nms_walk as _walk
+from ..ops.nms_order import pairwise_iou  # noqa: F401  (the module's API)
 
 
-def pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
-    """[..., K, 4] center-format (x,y,w,h) -> [..., K, K] IoU (reference math:
-    box_iou/box_intersection/overlap, src/box.c:70-97: negative overlap =>
-    intersection 0; union <= 0 => IoU 0; no epsilon)."""
-    x, y, w, h = boxes.unbind(-1)
-    x1, x2 = x - w / 2, x + w / 2
-    y1, y2 = y - h / 2, y + h / 2
-    iw = (torch.minimum(x2[..., :, None], x2[..., None, :])
-          - torch.maximum(x1[..., :, None], x1[..., None, :]))
-    ih = (torch.minimum(y2[..., :, None], y2[..., None, :])
-          - torch.maximum(y1[..., :, None], y1[..., None, :]))
-    inter = torch.where((iw < 0) | (ih < 0), 0.0, iw * ih)
-    area = w * h
-    union = area[..., :, None] + area[..., None, :] - inter
-    return torch.where(union > 0, inter / union, 0.0)
+def load_kernels(device) -> None:
+    """Build and bind both kernels and set K7's shared memory limit on
+    ``device``, before any capture."""
+    dev = torch.device(device)
+    _walk.load_kernel()
+    _order.prepare(torch.cuda.current_device() if dev.index is None
+                   else dev.index)
 
 
 def walk_inputs(boxes: torch.Tensor, probs: torch.Tensor, thresh: float):
     """What the rank walk (``ops/nms_walk``) reads, for boxes [B,K,4] and
     probs [B,K,C]: (over_bits [B,K,W] int32, order [B,C,K] int32,
     rank_has_work [B,K] f32, perm [B,K]), ``perm`` being the post-NMS array
-    order."""
-    b, k, c = probs.shape
-    over = pairwise_iou(boxes) > thresh
-    # order[:, c, t] = candidate at sorted position t of class c: class c's
-    # order is the stable descending sort of the order class c-1 left
-    # behind (the carried qsort); all keys are original probs
-    perm = torch.arange(k, device=probs.device).expand(b, k)
-    orders = []
-    for ci in range(c):
-        col = torch.take_along_dim(probs[..., ci], perm, dim=1)
-        perm = torch.take_along_dim(
-            perm, torch.argsort(-col, dim=1, stable=True), dim=1)
-        orders.append(perm)
-    order = (torch.stack(orders, dim=1) if c
-             else torch.zeros((b, 0, k), dtype=torch.int64,
-                              device=probs.device))
-    # ranks past the last nonzero prob (in EVERY class) are padding or
-    # sub-threshold slots: the walk stops at the first of them
-    rank_has_work = torch.sort(probs, dim=1, descending=True).values.amax(
-        dim=2) if c else torch.zeros((b, k), device=probs.device)
-    return (pack_rows(over), order.to(torch.int32).contiguous(),
-            rank_has_work.contiguous(), perm)
+    order (``ops/nms_order``)."""
+    return _order.nms_order(boxes, probs, thresh)
 
 
 def _nms_batch(boxes: torch.Tensor, probs: torch.Tensor, thresh: float):
     """:func:`nms_probs_with_order` over a batch: boxes [B,K,4], probs
     [B,K,C] -> (probs [B,K,C], perm [B,K])."""
     over_bits, order, rank_has_work, perm = walk_inputs(boxes, probs, thresh)
-    return nms_walk(over_bits, order, rank_has_work, probs.contiguous()), perm
+    return _walk.nms_walk(over_bits, order, rank_has_work, probs), perm
 
 
 def nms_probs_with_order(boxes, probs, thresh: float):
