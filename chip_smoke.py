@@ -173,6 +173,32 @@ Phases, each reported on its own lines:
    times the -bf16 forward layer by layer with CUDA events, the forward
    queued behind a device sleep so that they time its kernels and not the
    host's dispatch.
+12. parallel: the multi-device axes (``parallel/mesh.py``, ``parallel/pp.py``)
+   on the one card, every position a stream of cuda:0 (``devices=[cuda:0] *
+   n``), yolov3-416 with random weights (seed 7) at b=2: int8 ``xla`` under
+   data2, model2, space2 and data2 x space2 x model2 (8 positions), and
+   ``-turbo_int8`` under space2 x model2 (the int8 trunk's tensors cross the
+   collectives beside their float views), heads bit-identical to the
+   single-device Predictor's, K1 launched once a position and int8 conv
+   (71 x positions; each position of a sharded conv holds its M/2 weight
+   rows); int8 ``fused`` as 2 pipeline stages at
+   microbatch 1, as pp2 x tp2, and as 2 replicas x pp2, bit-identical to the
+   fused forward image by image, K2 within a stage's runs and K1 where a
+   residual run straddles a boundary or a collective, as the rule counts
+   them; tiny-yolo-obj_xnor-416 ``pallas_mxu`` and ``pallas`` under model2
+   (K4, K3 once a position and bit-path conv, heads bit-identical);
+   ``-bf16`` under data2
+   (bit-identical: K6 is batch-invariant) and space2 (heads within phase
+   11's bf16 limits, K6 within its float32-accumulate bound at every slab
+   shape); fp32 under model2 and space2 (within ``PAR_FLOAT``, the max gap
+   printed). ``DetectionPipeline`` with device NMS on 640x480 uint8 frames
+   at b=2 under data2 x model2 and pp2: the single-device pipeline's
+   detections (``check_near_lines``), K7 and the walk once a batch after
+   the gather. The pp2 wavefront run 50 times without synchronising, every
+   run bit-identical (cross-stream lifetimes). ``detector test -pp 2`` on
+   the one card exits 1 with "need 2 devices, have 1". Walls beside the
+   single-device ones, labelled "one card, n positions": they show the cost
+   of the extra launches and copies, not scaling.
 
 Every kernel time is printed beside the least time the card could take for
 the same work: the bytes the function must move (each input read once, each
@@ -190,8 +216,8 @@ JSON object describing each of the six TPU kernels' counterparts, K6 and the
 device NMS's K7 and walk (after
 a ``{"slice11": ...}`` line with phase 11's numbers, a
 ``{"pipeline": ...}`` line with phase 8's numbers and the NMS kernels' rows, a
-``{"precision": ...}`` line with phase 9's and a ``{"cpu_old": ...}`` line
-with phase 10's): its launches on the main path, its time, the plain
+``{"precision": ...}`` line with phase 9's, a ``{"cpu_old": ...}`` line
+with phase 10's and a ``{"parallel": ...}`` line with phase 12's): its launches on the main path, its time, the plain
 version's, the bound (sums over the shapes timed) and the library call's
 where there is one, and a row for each of K1's forms on the precision
 modes' and the cpu_old path, with its launches there. Two Pallas functions
@@ -226,6 +252,8 @@ from yolo2_light_tpu_torch.io.rawvideo import write_rawvideo
 from yolo2_light_tpu_torch.ops import (_build, bf16_conv, fused_res,
                                        int8_conv, nms_order, nms_walk,
                                        xnor_gemm)
+from yolo2_light_tpu_torch.parallel import mesh as par_mesh
+from yolo2_light_tpu_torch.parallel import pp as par_pp
 from yolo2_light_tpu_torch.params import save_random_weights
 from yolo2_light_tpu_torch.post import boxes as post_boxes
 from yolo2_light_tpu_torch.post import device_nms
@@ -2933,6 +2961,376 @@ def phase_profile(tmp: str, weights: str, names_file: str) -> dict:
     return {"trace_k6_events": k6_events, "total_ms": rows[-1][2],
             "top_layers": [list(r) for r in top]}
 
+# ---------------------------------------------------------------------------
+# phase 12: the multi-device axes on one card
+# ---------------------------------------------------------------------------
+
+PAR_B = 2                # images a sharded forward
+PAR_RUNS = 50            # wavefront runs of the cross-stream check
+PAR_NOTE = ("one card, n positions: every position a stream of cuda:0, so "
+            "a wall shows the cost of the extra launches and copies, not "
+            "scaling")
+# an fp32 forward under model or space against the single-device one (the
+# float convs of a channel slice or a row slab may run other cuDNN
+# algorithms, which sum in another order): tests/test_torch_network.py's
+# float tolerance
+PAR_FLOAT = dict(rtol=1e-4, atol=1e-5)
+
+
+def _cards(n: int) -> list:
+    return [torch.device("cuda", 0)] * n
+
+
+def _synced(fn):
+    def call():
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    return call
+
+
+def _gap(got, want) -> float:
+    return max(float((g.double() - w.double()).abs().max())
+               for g, w in zip(got, want))
+
+
+def _same(got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _counts() -> dict:
+    return {k: v for k, v in int8_conv.LAUNCH_COUNTS.items() if v}
+
+
+def _fused_expect(spec, stages, microbatches: int) -> dict:
+    """K2 and K1 launches of a staged fused forward: per stage (its runs
+    between collectives, its positions), the residual blocks whose run lies
+    inside one of its runs launch K2, the other int8 convs K1."""
+    int8_set = network._int8_layer_set(spec, "cpu")
+    runs = network._fused_stage_runs(spec, int8_set)
+    k1 = k2 = 0
+    for ranges, positions in stages:
+        lo, hi = ranges[0][0], ranges[-1][1]
+        blocks = sum(len(r) for st, r in runs.items()
+                     if any(st >= a and r[-1][2] < b for a, b in ranges))
+        convs = sum(lo <= i < hi for i in int8_set)
+        k2 += positions * blocks
+        k1 += positions * (convs - 2 * blocks)
+    return {"fused_res_block": k2 * microbatches,
+            "int8_conv": k1 * microbatches}
+
+
+def _pp_stages(pp) -> list:
+    """(runs, positions) of each stage of a PipelinedPredictor."""
+    if pp.tp == 1:
+        return [([r], 1) for r in pp.ranges]
+    return [([(s.a, s.b) for s in fn.segments], fn.mesh.size)
+            for fn in pp.stage_fns]
+
+
+def _par_row(name: str, positions: int, got, want, single_wall: float,
+             call, expect: dict, exact: bool, tol=None) -> dict:
+    """Check one sharded or staged forward against the single-device one
+    and its launches against the rule; time both."""
+    launches = _counts()
+    for k, v in expect.items():
+        check(launches.get(k, 0) == v,
+              f"parallel {name}: {k} launched {launches.get(k, 0)} times, "
+              f"the rule gives {v}")
+    gap = _gap(got, want)
+    same = _same(got, want)
+    if exact:
+        check(same, f"parallel {name}: heads differ from the single-device "
+              f"forward's (max {gap:.3g})")
+    elif tol is not None:
+        for g, w in zip(got, want):
+            check(bool(torch.allclose(g, w, **tol)),
+                  f"parallel {name}: heads beyond rtol {tol['rtol']} atol "
+                  f"{tol['atol']} of the single-device forward's "
+                  f"(max {gap:.3g})")
+    wall = wall_ms(call, iters=10)
+    row = {"config": name, "positions": positions, "launches": launches,
+           "rule": expect, "bit_identical": same, "max_abs_gap": gap,
+           "wall_ms": wall, "single_wall_ms": single_wall}
+    say("parallel", f"{name}: {positions} positions; heads "
+        + ("bit-identical to" if same else f"within {gap:.3g} of")
+        + " the single-device forward's; "
+        + ("launches " + ", ".join(f"{k} {v}"
+                                   for k, v in sorted(launches.items()))
+           + " (the rule's)" if launches else "no hand kernel (cuDNN)")
+        + f"; wall {wall:.3f} ms against {single_wall:.3f} ms on one "
+        "position")
+    return row
+
+
+def _sharded(name, spec, params, mode, axes, x, want, single_wall, expect,
+             exact, tol=None, **kw) -> dict:
+    n = int(np.prod(list(axes.values())))
+    mesh = par_mesh.make_mesh(n, **axes, devices=_cards(n))
+    fn, sh = par_mesh.make_sharded_predict(spec, params, mesh, mode, **kw)
+    for l in spec.conv_layers():
+        if l.index in par_mesh.sharded_layers(spec, mesh):
+            for pos, p in zip(mesh.positions, sh):
+                for v in p[l.index].values():
+                    if isinstance(v, torch.Tensor) and v.dim() > 1:
+                        check(v.shape[0] == l.n // axes["model"],
+                              f"parallel {name}: conv {l.index} holds "
+                              f"{v.shape[0]} of {l.n} rows at {pos.index}")
+    fn(sh, x)                                     # warm (cuDNN's choice)
+    torch.cuda.synchronize()
+    int8_conv.reset_launch_counts()
+    got = fn(sh, x)
+    torch.cuda.synchronize()
+    expect = {k: v * mesh.size for k, v in expect.items()}
+    return _par_row(name, mesh.size, got, want, single_wall,
+                    _synced(lambda: fn(sh, x)), expect, exact, tol), got
+
+
+def _single(spec, params, mode, x, **kw):
+    pred = network.Predictor(spec, params, mode, device="cuda", **kw)
+    heads = [h.data for h in pred(x)]
+    torch.cuda.synchronize()
+    return heads, wall_ms(_synced(lambda: pred(x)), iters=10), pred
+
+
+def _per_image(pred, x) -> list:
+    outs = [pred(x[i:i + 1]) for i in range(x.shape[0])]
+    return [torch.cat([o[h].data for o in outs]) for h in range(len(outs[0]))]
+
+
+def _bf16_slab_sums(spec, mesh) -> dict:
+    """K6 against its plain twin within ``bf16_conv.sum_bound`` at every
+    conv shape a space-split -bf16 forward of ``spec`` gives it (the slabs'
+    rows, with their halo rows)."""
+    fwd = par_mesh.ShardedForward(spec, mesh, "fp32",
+                                  compute_dtype=torch.bfloat16)
+    halo = {s.a: s.halo for s in fwd.segments if s.halo is not None}
+    shapes = set()
+    for l in spec.conv_layers():
+        for s in range(mesh.shape["space"]):
+            if l.index in halo:
+                e0, e1 = halo[l.index][s][0]
+                rows = e1 - e0
+            else:
+                r0, r1 = fwd.slab(l.h, s)
+                rows = r1 - r0
+            shapes.add((rows, l.w, l.c, l.n, l.size, l.stride, l.pad))
+    dev = torch.device("cuda")
+    worst = 0.0
+    for i, (h, w, c, m, ks, s, pad) in enumerate(sorted(shapes)):
+        rng = np.random.RandomState(SEED + 1000 + i)
+        x = torch.from_numpy(rng.randn(1, h, w, c).astype(np.float32)).to(dev)
+        wt = torch.from_numpy((rng.randn(m, ks, ks, c) / np.sqrt(ks * ks * c))
+                              .astype(np.float32)).to(dev).to(torch.bfloat16)
+        out = k6_bare(x, wt, s, pad)
+        ref = bf16_conv.conv2d_bf16_plain(x, wt, s, pad)
+        torch.cuda.synchronize()
+        _, share = check_bf16_sums(out, ref, x, wt, s, pad,
+                                   f"sp2 slab {ks}x{ks}/s{s} {h}x{w}x{c}->{m}")
+        worst = max(worst, share)
+    return {"shapes": len(shapes), "largest_share_of_bound": worst}
+
+
+def phase_parallel(tmp: str, weights: str, names_file: str, names: list,
+                   smi_line: str) -> dict:
+    """Phase 12: the multi-device axes (``parallel/mesh.py``,
+    ``parallel/pp.py``) on the one card, every position a stream of
+    cuda:0."""
+    out = {"card": smi_line, "note": PAR_NOTE, "configs": []}
+    rows = out["configs"]
+    rng = np.random.RandomState(SEED + 12)
+    x = rng.rand(PAR_B, 416, 416, 3).astype(np.float32)
+
+    # int8 xla: every axis bit-identical, K1 once per position and int8 conv
+    spec, params, mode = detect.build_params(CFG, weights, quantized=True,
+                                             echo=False)
+    int8_set = network._int8_layer_set(spec, "cpu")
+    want, wall1, pred = _single(spec, params, mode, x)
+    for axes in (dict(data=2), dict(model=2), dict(space=2),
+                 dict(data=2, space=2, model=2)):
+        name = "int8 " + " x ".join(f"{a}{v}" for a, v in axes.items())
+        rows.append(_sharded(name, spec, params, mode, axes, x, want, wall1,
+                             {"int8_conv": len(int8_set)}, exact=True)[0])
+    # -turbo_int8: the int8 trunk's tensors cross the collectives beside
+    # their float views (K1's int8 store on a sliced M and on row slabs)
+    twant, twall, _ = _single(spec, params, mode, x, turbo="int8")
+    rows.append(_sharded("int8 turbo_int8 space2 x model2", spec, params,
+                         mode, dict(space=2, model=2), x, twant, twall,
+                         {"int8_conv": len(int8_set)}, exact=True,
+                         turbo="int8")[0])
+
+    # int8 fused: stages (K2 within a stage, K1 where a run straddles)
+    fused = network.Predictor(spec, params, mode, device="cuda",
+                              int8_impl="fused")
+    want_mb = _per_image(fused, x)
+    wall_f = wall_ms(_synced(lambda: _per_image(fused, x)), iters=10)
+    for name, make in (
+            ("int8 fused pp2", lambda: par_pp.PipelinedPredictor(
+                spec, params, mode, n_stages=2, microbatch=1,
+                int8_impl="fused", devices=_cards(2))),
+            ("int8 fused pp2 x tp2", lambda: par_pp.PipelinedPredictor(
+                spec, params, mode, n_stages=2, microbatch=1, tp=2,
+                int8_impl="fused", devices=_cards(4))),
+            ("int8 fused 2 replicas x pp2", lambda: par_pp.ReplicatedPipeline(
+                spec, params, mode, replicas=2, n_stages=2, microbatch=1,
+                int8_impl="fused", devices=_cards(4)))):
+        pp = make()
+        reps = getattr(pp, "replicas", [pp])
+        expect = collections.Counter()
+        for rep in reps:
+            expect.update(_fused_expect(spec, _pp_stages(rep),
+                                        PAR_B // len(reps)))
+        pp(x)
+        torch.cuda.synchronize()
+        int8_conv.reset_launch_counts()
+        got = [h.data for h in pp(x)[0]]
+        torch.cuda.synchronize()
+        rows.append(_par_row(name, sum(len(r.devices) for r in reps), got,
+                             want_mb, wall_f,
+                             _synced(lambda: pp(x)), dict(expect),
+                             exact=True))
+        rows[-1]["ranges"] = reps[0].ranges
+        del pp, reps
+    del fused, pred
+
+    # XNOR under tp2: K3 and K4 on sliced weights
+    xspec, xparams, xmode = detect.build_params(XNOR_CFG, None, seed=SEED,
+                                                echo=False)
+    bit = sum(1 for l in xspec.conv_layers()
+              if l.xnor and network._bit_path(l))
+    for impl, kernel in (("pallas_mxu", "xnor_gemm_mxu"),
+                         ("pallas", "xnor_gemm")):
+        xwant, xwall, _ = _single(xspec, xparams, xmode, x, xnor_impl=impl)
+        rows.append(_sharded(f"tiny-yolo-obj_xnor {impl} model2", xspec,
+                             xparams, xmode, dict(model=2), x, xwant, xwall,
+                             {kernel: bit}, exact=True,
+                             xnor_impl=impl)[0])
+
+    # -bf16: data bit-identical (K6 is batch-invariant), space within the
+    # bf16 limits of phase 8-11
+    fspec, fparams, fmode = detect.build_params(CFG, weights, echo=False)
+    bwant, bwall, _ = _single(fspec, fparams, fmode, x,
+                              compute_dtype=torch.bfloat16)
+    n_float = len(fspec.conv_layers())
+    rows.append(_sharded("bf16 data2", fspec, fparams, fmode, dict(data=2),
+                         x, bwant, bwall, {"bf16_conv": n_float}, exact=True,
+                         compute_dtype=torch.bfloat16)[0])
+    row, got = _sharded("bf16 space2", fspec, fparams, fmode, dict(space=2),
+                        x, bwant, bwall, {"bf16_conv": n_float}, exact=False,
+                        compute_dtype=torch.bfloat16)
+    mesh = par_mesh.make_mesh(2, space=2, devices=_cards(2))
+    row["heads_gap"] = check_bf16_heads(
+        [(g, w, i) for g, w, i in zip(got, bwant, (82, 94, 106))],
+        "bf16 space2 against one position")
+    row["slab_sums"] = _bf16_slab_sums(fspec, mesh)
+    say("parallel", f"bf16 space2: heads within the bf16 limits "
+        f"({row['heads_gap']}); K6 within its float32-accumulate bound at "
+        f"the {row['slab_sums']['shapes']} slab shapes (largest share "
+        f"{row['slab_sums']['largest_share_of_bound']:.3g})")
+    rows.append(row)
+
+    # fp32 under model and space: within PAR_FLOAT
+    fwant, fwall, _ = _single(fspec, fparams, fmode, x)
+    for axes in (dict(model=2), dict(space=2)):
+        name = "fp32 " + " x ".join(f"{a}{v}" for a, v in axes.items())
+        rows.append(_sharded(name, fspec, fparams, fmode, axes, x, fwant,
+                             fwall, {}, exact=False, tol=PAR_FLOAT)[0])
+    del fparams, bwant, fwant
+
+    out["pipeline"] = _par_pipeline(tmp, names)
+    out["wavefront"] = _par_wavefront(spec, params, mode)
+
+    # the CLI on one card: -pp 2 needs two GPUs
+    rc, stdout, err = run_cli(["detector", "test", names_file, CFG, weights,
+                               IMAGE, "-pp", "2", "-dont_show", "-save",
+                               os.path.join(tmp, "pred_pp")])
+    check(rc == 1 and "need 2 devices, have 1" in err
+          and "Predicted in" not in stdout,
+          f"detector test -pp 2 on one card exited {rc}: {err[-300:]!r}")
+    out["cli_pp2_one_card"] = err.strip().splitlines()[-1]
+    say("parallel", f"detector test -pp 2 on one card exits 1: "
+        f"{out['cli_pp2_one_card']}")
+    return out
+
+
+def _par_pipeline(tmp: str, names: list) -> dict:
+    """DetectionPipeline with device NMS on 640x480 uint8 frames at b=2,
+    under data2 x model2 and under pp2: the detections of the
+    single-device pipeline (frame by frame), K7 and the walk once a batch on
+    the gathered heads."""
+    frames = _frames(SEED + 12, PAR_B)
+    bias = calibrate_obj_bias(CFG, frames[0], True, {"int8_impl": "xla"})
+    spec, params, mode = detect.build_params(CFG, None, quantized=True,
+                                             seed=SEED, echo=False)
+    sparse_head_biases(spec, params, bias)
+    args = dict(thresh=PIPE_THRESH, nms=PIPE_NMS, k=PIPE_K, device_nms=True)
+    single = pipeline.DetectionPipeline(spec, params, mode, device="cuda",
+                                        **args)
+    want = [single(frames[i:i + 1])[0] for i in range(PAR_B)]
+    wall1 = wall_ms(lambda: single(frames), iters=10)
+    res = {"obj_bias": bias}
+    for name, kw in (
+            ("data2 x model2", dict(mesh=par_mesh.make_mesh(
+                4, data=2, model=2, devices=_cards(4)))),
+            ("pp2", dict(pp_stages=2, pp_microbatch=1,
+                         pp_devices=_cards(2)))):
+        pipe = pipeline.DetectionPipeline(spec, params, mode, device="cuda",
+                                          **args, **kw)
+        check(not pipe._cuda_graph, f"pipeline {name}: captured")
+        pipe(frames)
+        int8_conv.reset_launch_counts()
+        got = pipe(frames)
+        launches = _counts()
+        for k in ("nms_order", "nms_walk"):
+            check(launches.get(k) == 1,
+                  f"pipeline {name}: {k} launched {launches.get(k)} times "
+                  "for one batch")
+        n_lines = n_near = 0
+        for i in range(PAR_B):
+            w = _lines(want[i], names, FRAME_W, FRAME_H)
+            near, _ = check_near_lines(_lines(got[i], names, FRAME_W,
+                                              FRAME_H), w,
+                                       f"pipeline {name} frame {i}")
+            n_lines, n_near = n_lines + len(w), n_near + near
+        check(n_lines > 0, f"pipeline {name}: no detection line")
+        wall = wall_ms(lambda: pipe(frames), iters=10)
+        res[name] = {"launches": launches, "detection_lines": n_lines,
+                     "lines_off_by_a_count": n_near, "wall_ms": wall,
+                     "single_wall_ms": wall1}
+        say("parallel", f"pipeline {name}: {n_lines} detection lines of "
+            f"{PAR_B} 640x480 frames equal the single-device pipeline's "
+            f"({n_near} a count off); nms_order and nms_walk once a batch; "
+            f"launches {launches}; wall {wall:.3f} ms against {wall1:.3f} ms "
+            "(captured, one position)")
+    return res
+
+
+def _par_wavefront(spec, params, mode) -> dict:
+    """The pp2 wavefront (two stages on two streams of the card, b=4 in
+    microbatches of 1) run PAR_RUNS times with no synchronisation between
+    runs, every run's heads kept and then compared with the first's and
+    with the single-device forward's: the caching allocator must not hand a
+    block that one stream still reads to the other."""
+    x = np.random.RandomState(SEED + 13).rand(4, 416, 416, 3).astype(
+        np.float32)
+    pp = par_pp.PipelinedPredictor(spec, params, mode, n_stages=2,
+                                   microbatch=1, devices=_cards(2))
+    pred = network.Predictor(spec, params, mode, device="cuda")
+    want = _per_image(pred, x)
+    xs = torch.from_numpy(x).cuda()
+    t0 = time.perf_counter()
+    runs = [[h.data for h in pp(xs)[0]] for _ in range(PAR_RUNS)]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / PAR_RUNS
+    for r, got in enumerate(runs):
+        check(_same(got, want), f"wavefront run {r}: heads differ from the "
+              "single-device forward's")
+    say("parallel", f"pp2 wavefront: {PAR_RUNS} unsynchronised runs at b=4, "
+        f"every run's heads bit-identical to the single-device forward's; "
+        f"{wall:.3f} ms a run")
+    return {"runs": PAR_RUNS, "all_bit_identical": True, "ms_a_run": wall}
+
+
 def main() -> int:
     smi_line = phase_device()
     phase_build()
@@ -2964,6 +3362,7 @@ def main() -> int:
                    "tree": phase_tree(tmp),
                    "profile": phase_profile(tmp, weights, names_file)}
         phase_nms_ops()
+        parallel = phase_parallel(tmp, weights, names_file, names, smi_line)
         for mode, r in slice11["demo"].items():
             say("demo", f"{mode}: {r['fps']:.1f} frames per second over "
                 f"{r['fps_frames']} frames (quarters "
@@ -3081,6 +3480,7 @@ def main() -> int:
     print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"precision": precision}), flush=True)
     print(json.dumps({"cpu_old": old}), flush=True)
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -148,10 +148,15 @@ def test_turbo_flag_guards_match_jax_cli(assets, capsys, flags):
     assert out_t == out_j == ""
 
 
-def test_detector_demo_streams_match_jax_cli(assets, capsys, tmp_path):
+@pytest.mark.parametrize("extra", [[], ["-pp", "2"],
+                                   ["-pp", "2", "-pp_tp", "2"]],
+                         ids=["one_device", "pp2", "pp2_tp2"])
+def test_detector_demo_streams_match_jax_cli(assets, capsys, tmp_path,
+                                             extra):
     """``detector demo`` (ported): a 4-frame raw video through both CLIs in
-    -fp32, the same streams once the FPS figures are masked
-    (tests/test_torch_demo.py covers the other modes and flags)."""
+    -fp32, the same streams once the FPS figures are masked, on one device
+    and as pipeline stages (tests/test_torch_demo.py covers the other modes
+    and flags)."""
     import re
 
     import numpy as np
@@ -163,7 +168,7 @@ def test_detector_demo_streams_match_jax_cli(assets, capsys, tmp_path):
     write_rawvideo(vid, [(rng.rand(64, 64, 3) * 255).astype(np.uint8)
                          for _ in range(4)])
     args = ["detector", "demo", names, CFG, weights, vid, "-dont_show",
-            "-fp32", "-thresh", "0.4"]
+            "-fp32", "-thresh", "0.4"] + extra
     rc_j, out_j, err_j = _run(jax_main, capsys, args)
     rc_t, out_t, err_t = _run(torch_main, capsys, args + ["-device", "cpu"])
     assert rc_j == rc_t == 0, err_t[-2000:]
@@ -175,18 +180,19 @@ def test_detector_demo_streams_match_jax_cli(assets, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["-device_resize"], ["-uint8_ingest"],
-                                  ["-pp", "2"], ["-no_uint8_ingest"]])
+                                  ["-pp", "2"], ["-no_uint8_ingest"],
+                                  ["-pp", "2", "-pp_tp", "2"]])
 def test_unported_flags_exit_nonzero(assets, capsys, flag):
-    """The mesh flags stay refused. The demo's ingest flags are ported
-    (tests/test_torch_demo.py runs them): ``detector test`` parses them as
-    the JAX CLI does and prints the same streams as without them."""
+    """Every flag of the JAX CLI is ported: the demo's ingest flags
+    (tests/test_torch_demo.py runs them), which ``detector test`` parses as
+    the JAX CLI does, and the pipeline stages ``-pp`` (with ``-pp_tp``; on
+    ``-device cpu`` every stage is the CPU, the JAX CLI's are virtual host
+    devices). Each prints the same streams as the JAX CLI, and as the port
+    without it."""
     d, names, weights = assets
     args = ["detector", "test", names, CFG, weights, IMAGE, "-dont_show",
             "-device", "cpu", "-save", str(d / "u")]
     rc, out, err = _run(torch_main, capsys, args + flag)
-    if flag[0] == "-pp":
-        assert rc != 0 and "not yet ported" in err
-        return
     rc_base, out_base, err_base = _run(torch_main, capsys, args)
     rc_j, out_j, err_j = _run(jax_main, capsys, args[:-3] + flag + [
         "-save", str(d / "uj")])
@@ -195,6 +201,35 @@ def test_unported_flags_exit_nonzero(assets, capsys, flag):
     assert_streams_match(out, out_base, drop=drop, context="stdout")
     assert_streams_match(out, out_j, drop=drop, context="stdout")
     assert_streams_match(err, err_j, drop=drop, context="stderr")
+
+
+@pytest.mark.parametrize("sub", ["test", "map", "demo"])
+def test_pp_tp_without_pp_exits_1_as_jax(assets, capsys, sub):
+    """-pp_tp without -pp S > 1 would run on one device: both CLIs refuse,
+    with the same stderr and exit code."""
+    d, names, weights = assets
+    args = ["detector", sub, names, CFG, weights, "-pp_tp", "2"]
+    rc_j, out_j, err_j = _run(jax_main, capsys, args)
+    rc_t, out_t, err_t = _run(torch_main, capsys, args + ["-device", "cpu"])
+    assert rc_j == rc_t == 1
+    assert out_t == out_j == ""
+    assert err_t == err_j
+    assert "-pp_tp requires -pp S with S > 1" in err_t
+
+
+def test_pp_on_too_few_gpus_exits_1(assets, capsys):
+    """-pp 2 on -device cuda needs two GPUs: with fewer, the port exits 1
+    with the JAX package's message, and runs on no fewer devices (on a
+    machine without CUDA it says so instead)."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("checks a machine with fewer than two GPUs")
+    d, names, weights = assets
+    rc, out, err = _run(torch_main, capsys,
+                        ["detector", "test", names, CFG, weights, IMAGE,
+                         "-pp", "2", "-dont_show", "-save", str(d / "g")])
+    assert rc == 1 and "Predicted in" not in out
+    assert (("Error: need 2 devices, have 1" if torch.cuda.is_available()
+             else "CUDA is not available") in err)
 
 
 def test_params_cache_key_hit_and_miss_match_jax(assets, capsys, tmp_path):

@@ -1532,3 +1532,84 @@ def test_demo_on_card_runs_a_raw_video_without_cv2(dev, tmp_path):
                        env=dict(os.environ, PYTHONPATH=repo))
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.count("Objects:") == 6
+
+
+# ---------------------------------------------------------------------------
+# the multi-device axes on one card: every position a stream of it
+# ---------------------------------------------------------------------------
+
+
+def _mini_int8():
+    return build_params(os.path.join(DATA, "mini-yolo3.cfg"), None,
+                        quantized=True, seed=3, echo=False)
+
+
+@pytest.mark.parametrize("axes", [dict(data=2), dict(model=2), dict(space=2),
+                                  dict(space=3),
+                                  dict(data=2, space=2, model=2)])
+def test_repeated_device_mesh_bit_identical(dev, axes):
+    """A mesh whose positions repeat the card: one stream each, K1 once a
+    position and int8 conv (the sharded ones at M/model), heads bit for bit
+    the single-device forward's."""
+    from yolo2_light_tpu_torch.models.network import _int8_layer_set
+    from yolo2_light_tpu_torch.parallel import mesh as M
+    spec, params, mode = _mini_int8()
+    x = np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)
+    want = [h.data for h in Predictor(spec, params, mode, device=dev)(x)]
+    n = int(np.prod(list(axes.values())))
+    mesh = M.make_mesh(n, **axes, devices=[dev] * n)
+    assert len({p.stream.cuda_stream for p in mesh.positions}) == n
+    fn, sh = M.make_sharded_predict(spec, params, mesh, mode)
+    K.reset_launch_counts()
+    got = fn(sh, x)
+    torch.cuda.synchronize()
+    assert K.LAUNCH_COUNTS["int8_conv"] == n * len(_int8_layer_set(spec,
+                                                                   "cpu"))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_pp_wavefront_50_runs_bit_identical(dev):
+    """Two stages on two streams of the card, microbatches of 1, run 50
+    times with no synchronisation between runs and every run kept: each
+    equals the single-device forward (the caching allocator hands no block
+    one stream still reads to the other)."""
+    from yolo2_light_tpu_torch.parallel.pp import PipelinedPredictor
+    spec, params, mode = _mini_int8()
+    x = torch.from_numpy(np.random.RandomState(1).rand(
+        4, 64, 64, 3).astype(np.float32)).to(dev)
+    pred = Predictor(spec, params, mode, device=dev)
+    outs = [pred(x[i:i + 1]) for i in range(4)]
+    want = [torch.cat([o[h].data for o in outs]) for h in range(2)]
+    pp = PipelinedPredictor(spec, params, mode, n_stages=2, microbatch=1,
+                            devices=[dev, dev])
+    runs = [[h.data for h in pp(x)[0]] for _ in range(50)]
+    torch.cuda.synchronize()
+    for got in runs:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kw", ["mesh", "pp", "pp_tp"])
+def test_pipeline_on_positions_equals_single(dev, kw):
+    """DetectionPipeline (device NMS) under data2 x model2, pp2 and pp2 x
+    tp2 on one card: the single-device pipeline's detections, frame by
+    frame."""
+    from yolo2_light_tpu_torch.parallel import mesh as M
+    from yolo2_light_tpu_torch.pipeline import DetectionPipeline
+    spec, params, mode = _mini_int8()
+    frames = (np.random.RandomState(2).rand(2, 96, 128, 3) * 255).astype(
+        np.uint8)
+    args = dict(thresh=0.3, nms=0.4, k=2048, device_nms=True)
+    single = DetectionPipeline(spec, params, mode, device=dev, **args)
+    want = [single(frames[i:i + 1])[0] for i in range(2)]
+    extra = {"mesh": dict(mesh=M.make_mesh(4, data=2, model=2,
+                                           devices=[dev] * 4)),
+             "pp": dict(pp_stages=2, pp_devices=[dev] * 2),
+             "pp_tp": dict(pp_stages=2, pp_tp=2, pp_devices=[dev] * 4)}[kw]
+    got = DetectionPipeline(spec, params, mode, device=dev, **args,
+                            **extra)(frames)
+    assert sum(d.n for d in got) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.prob, b.prob)
+        np.testing.assert_array_equal(a.bbox, b.bbox)

@@ -125,9 +125,45 @@ def test_map_without_cuda_fails_with_a_message(dataset, capsys):
 
 @pytest.mark.parametrize("flag", [["-pp", "2"], ["-parallel", "2"],
                                   ["-device_resize"],
-                                  ["-params_cache", "/tmp/x"]])
-def test_map_unported_flags_exit_nonzero(dataset, capsys, flag):
-    rc, _, err = _run(torch_main, capsys,
-                      ["detector", "map", dataset["data"], CFG,
-                       dataset["weights"], "-device", "cpu"] + flag)
-    assert rc != 0 and "not yet ported" in err
+                                  ["-params_cache", "CACHE"],
+                                  ["-parallel", "2", "-sp", "2", "-tp", "2"],
+                                  ["-parallel", "4"],
+                                  ["-pp", "2", "-pp_tp", "2"]])
+def test_map_unported_flags_exit_nonzero(dataset, capsys, flag, tmp_path):
+    """Every flag of the JAX CLI's map is ported: the mesh axes (on
+    ``-device cpu`` every position is the CPU; the JAX CLI's are virtual
+    host devices), the pipeline stages, ``-params_cache`` (JAX's cache key
+    and file) and ``-device_resize`` (ignored by map, as in JAX). Each
+    prints the JAX CLI's report and progress, at ``test_map_report_matches_
+    jax_cli``'s ``-batch 3`` (under ``-parallel 2`` cut to 2, a multiple of
+    the data axis; under ``-parallel 4`` raised to 4, the tail batch of 2
+    padded with zero images whose detections are dropped; under ``-pp 2`` a
+    microbatch of 3 // 2 = 1)."""
+    flag = [str(tmp_path / "cache") if f == "CACHE" else f for f in flag]
+    args = ["detector", "map", dataset["data"], CFG, dataset["weights"],
+            "-thresh", "0.24", "-batch", "3", "-k", "4096"] + flag
+    rc_j, out_j, err_j = _run(jax_main, capsys, args)
+    rc_t, out_t, err_t = _run(torch_main, capsys, args + ["-device", "cpu"])
+    assert rc_j == rc_t == 0, err_t[-2000:]
+    block = _block(out_t)
+    assert block and block == _block(out_j)
+    assert _progress(err_t) == _progress(err_j) == ["4", "8"]
+    if "-params_cache" in flag:
+        # the JAX run wrote the cache under its key; the port read it back
+        assert len(os.listdir(flag[-1])) == 1
+        rc_t, out_t, _ = _run(torch_main, capsys,
+                              args + ["-device", "cpu"])
+        assert rc_t == 0 and _block(out_t) == block
+
+
+def test_map_pp_tail_batch_error_matches_jax(dataset, capsys):
+    """-pp 2 at the default -batch 8 over 6 images: the one batch of 6 does
+    not divide by the microbatch of 4, and both CLIs exit 1 with the same
+    error."""
+    args = ["detector", "map", dataset["data"], CFG, dataset["weights"],
+            "-pp", "2"]
+    rc_j, _, err_j = _run(jax_main, capsys, args)
+    rc_t, _, err_t = _run(torch_main, capsys, args + ["-device", "cpu"])
+    assert rc_j == rc_t == 1
+    want = "Error: batch 6 not divisible by microbatch 4"
+    assert want in err_j and want in err_t

@@ -463,10 +463,28 @@ def test_autogrow_from_small_k_matches_jax(tmp_path, capsys, device_nms):
 
 
 def test_pipeline_refuses_what_is_not_ported(tmp_path):
-    spec, params, mode = build_params(os.path.join(DATA, "mini-yolo3.cfg"),
-                                      None, echo=False)
-    for kw, item in (({"mesh": object()}, "#12"), ({"pp_stages": 2}, "#12"),
-                     ({"pp_tp": 2}, "#12"),
-                     ({"pp_stages": 2, "pp_tp": 2}, "#12")):
-        with pytest.raises(NotImplementedError, match=item):
-            DetectionPipeline(spec, params, mode, device="cpu", **kw)
+    """The pipeline takes a mesh and pipeline stages (their parity with
+    JAX: tests/test_torch_parallel.py, tests/test_torch_pp.py); as in the
+    JAX package it refuses both together, and ``serve_scan`` under either,
+    with JAX's messages."""
+    from yolo2_light_tpu.parallel.mesh import make_mesh as jax_mesh
+    from yolo2_light_tpu_torch.parallel.mesh import make_mesh
+    cfg = os.path.join(DATA, "mini-yolo3.cfg")
+    spec, params, mode = build_params(cfg, None, echo=False)
+    jspec, jparams, _ = jax_build_params(cfg, None, echo=False)
+    mesh = make_mesh(2, data=2, device="cpu")
+    for cls, sp, p, m, kw in (
+            (JaxPipeline, jspec, jparams, jax_mesh(2, data=2), {}),
+            (DetectionPipeline, spec, params, mesh, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="pp_stages and mesh are "
+                           "mutually exclusive"):
+            cls(sp, p, mode, mesh=m, pp_stages=2, **kw)
+        for par in ({"mesh": m}, {"pp_stages": 2},
+                    {"pp_stages": 2, "pp_tp": 2}):
+            pipe = cls(sp, p, mode, **par, **kw)
+            with pytest.raises(ValueError, match="serve_scan is the "
+                               "single-device serving loop"):
+                pipe.serve_scan(np.zeros((2, 64, 64, 3), np.uint8))
+    pipe = DetectionPipeline(spec, params, mode, device="cpu", pp_stages=2,
+                             pp_tp=2)
+    assert pipe._pp.tp == 2 and not pipe._cuda_graph

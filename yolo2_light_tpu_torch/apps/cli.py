@@ -6,11 +6,14 @@ main/run_detector, src/main.c:584-667):
         [-thresh T] [-dont_show] [-quantized] [-int8_impl xla|pallas|fused]
         [-xnor_kernel int8|pallas|pallas_mxu|auto] [-letterbox] [-save PATH]
         [-int8_policy cpu|gpu|cpu_old] [-bf16|-fp32] [-turbo|-turbo_int8]
-        [-params_cache DIR] [-profile DIR] [-i N] [-device cuda|cpu]
+        [-params_cache DIR] [-profile DIR] [-pp S [-pp_tp T]] [-i N]
+        [-device cuda|cpu]
     python -m yolo2_light_tpu_torch detector map <datacfg> <cfg> [weights]
         [-thresh T] [-iou_thresh F] [-quantized] [-int8_impl xla|pallas|fused]
         [-batch N] [-k N] [-device_nms] [-int8_policy cpu|gpu|cpu_old]
-        [-bf16|-fp32] [-turbo|-turbo_int8] [-i N] [-device cuda|cpu]
+        [-bf16|-fp32] [-turbo|-turbo_int8] [-params_cache DIR]
+        [-device_resize] [-parallel N] [-tp M] [-sp K] [-pp S [-pp_tp T]]
+        [-i N] [-device cuda|cpu]
     python -m yolo2_light_tpu_torch detector calibrate <datacfg> <cfg>
         [weights] [-input_calibration N] [-calib_method device|host]
         [-i N] [-device cuda|cpu]
@@ -19,7 +22,7 @@ main/run_detector, src/main.c:584-667):
         [-c CAM] [-s FRAME_SKIP] [-prefix P] [-out_filename F] [-batch N]
         [-k N] [-device_nms] [-device_resize] [-uint8_ingest|-no_uint8_ingest]
         [-params_cache DIR] [-int8_policy ..] [-int8_impl ..]
-        [-turbo|-turbo_int8] [-i N] [-device cuda|cpu]
+        [-turbo|-turbo_int8] [-pp S [-pp_tp T]] [-i N] [-device cuda|cpu]
 
 ``-int8_impl fused`` runs each darknet53 residual block as one launch of the
 fused kernel; ``xla`` and ``pallas`` run every int8 conv on the int8 conv
@@ -61,17 +64,19 @@ ingest); it needs OpenCV only for a codec, a window, ``-out_filename`` or
 demo, the JAX package's cache key); ``-profile DIR`` (test) writes a
 ``torch.profiler`` trace into DIR.
 
-The JAX CLI's mesh flags (``-pp``, ``-pp_tp``, ``-parallel``, ``-tp``,
-``-sp``), and ``-params_cache`` and ``-device_resize`` with ``map``, are not
-yet ported: they exit non-zero and say so.
+The multi-device flags, as the JAX CLI's (``parallel/``): ``-parallel N``,
+``-tp M`` and ``-sp K`` (map) run the pipeline on a mesh of N*K*M device
+positions (data, space and model axes); ``-pp S`` (test, map, demo) runs the
+network as S pipeline stages and ``-pp_tp T`` (with ``-pp`` only) makes each
+stage T positions wide. On ``-device cuda`` the positions are ``cuda:0 ..``,
+so the flags need that many GPUs (fewer exit 1 with the JAX CLI's message);
+on ``-device cpu`` every position is the CPU. ``map`` takes
+``-params_cache`` and ignores ``-device_resize``, as the JAX CLI does.
 """
 
 from __future__ import annotations
 
 import sys
-
-_NOT_PORTED = ("-pp", "-pp_tp", "-parallel", "-tp", "-sp")
-_NOT_PORTED_IN_MAP = ("-params_cache", "-device_resize")
 
 
 def _find_flag(args, name):
@@ -112,12 +117,6 @@ def _main(argv=None) -> int:
         print(f"Not an option: {args[0]}", file=sys.stderr)
         return 1
     args = args[1:]
-    refused = _NOT_PORTED + (_NOT_PORTED_IN_MAP if args[:1] == ["map"]
-                             else ())
-    for flag in refused:
-        if flag in args:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to yolo2_light_tpu_torch")
 
     dont_show = _find_flag(args, "-dont_show")
     bf16 = _find_flag(args, "-bf16")
@@ -163,7 +162,19 @@ def _main(argv=None) -> int:
     input_calibration = _find_value(args, "-input_calibration", 0, int)
     calib_method = _find_value(args, "-calib_method", "device")
     params_cache = _find_value(args, "-params_cache", None)
+    data_parallel = _find_value(args, "-parallel", 0, int)
+    tensor_parallel = _find_value(args, "-tp", 0, int)
+    spatial_parallel = _find_value(args, "-sp", 0, int)
+    pipeline_parallel = _find_value(args, "-pp", 0, int)
+    pp_tensor_parallel = _find_value(args, "-pp_tp", 1, int)
     profile_dir = _find_value(args, "-profile", None)
+    if pp_tensor_parallel > 1 and pipeline_parallel <= 1:
+        # -pp_tp is only consumed inside pipeline stages; silently ignoring
+        # it would give a user who asked for tensor sharding a one-device run
+        print("error: -pp_tp requires -pp S with S > 1 (tensor parallelism "
+              "inside pipeline stages); for a global tensor axis use -tp",
+              file=sys.stderr)
+        return 1
     if int8_impl not in ("xla", "pallas", "fused"):
         raise ValueError(f"unknown int8_impl {int8_impl!r} "
                          "(expected xla, pallas or fused)")
@@ -239,7 +250,13 @@ def _main(argv=None) -> int:
                               quantized=quantized, iou_thresh=iou_thresh,
                               int8_policy=int8_policy, device_nms=device_nms,
                               int8_impl=int8_impl, device=device,
-                              compute_dtype=compute_dtype, turbo=turbo, **kw)
+                              compute_dtype=compute_dtype, turbo=turbo,
+                              data_parallel=data_parallel,
+                              tensor_parallel=tensor_parallel,
+                              spatial_parallel=spatial_parallel,
+                              pipeline_parallel=pipeline_parallel,
+                              pp_tp=pp_tensor_parallel,
+                              params_cache=params_cache, **kw)
         return 0
     from ..datacfg import load_names
     names = load_names(obj_names)
@@ -252,6 +269,7 @@ def _main(argv=None) -> int:
              batch=batch, params_cache=params_cache, device_nms=device_nms,
              uint8_ingest=uint8_ingest, turbo=turbo, int8_impl=int8_impl,
              device_resize=device_resize, device=device,
+             pipeline_parallel=pipeline_parallel, pp_tp=pp_tensor_parallel,
              **({"k": topk} if topk > 0 else {}))
         return 0
     import contextlib
@@ -266,7 +284,8 @@ def _main(argv=None) -> int:
             save_path=save_path, letter=letterbox, int8_impl=int8_impl,
             xnor_impl=xnor_kernel, device=device,
             compute_dtype=compute_dtype, turbo=turbo,
-            params_cache=params_cache)
+            params_cache=params_cache, pp_stages=pipeline_parallel,
+            pp_tp=pp_tensor_parallel)
     return 0
 
 

@@ -88,7 +88,7 @@ def demo(cfgfile: str, weightfile, thresh: float, filename, names, *,
          batch: int = 0, params_cache=None, device_nms: bool = False,
          k: int = 256, uint8_ingest=None, turbo=False,
          int8_impl: str = "xla", device_resize: bool = False,
-         device="cuda") -> int:
+         device="cuda", pipeline_parallel: int = 0, pp_tp: int = 1) -> int:
     """Returns the number of frames processed. The float convs default to
     bfloat16 (``-bf16``, on the bf16 conv kernel); non-quantized frames then
     ship as uint8. ``compute_dtype=torch.float32`` (``-fp32``) is the
@@ -96,7 +96,9 @@ def demo(cfgfile: str, weightfile, thresh: float, filename, names, *,
     device step (default 4 for a file, 1 for a camera).
     ``device_resize``: ship frames at source resolution and resize them on
     the card (uint8 ingest is then exact and on by default). ``device``:
-    ``"cuda"`` (the default) or ``"cpu"`` (every kernel's plain version)."""
+    ``"cuda"`` (the default) or ``"cpu"`` (every kernel's plain version).
+    ``pipeline_parallel`` and ``pp_tp`` (``-pp``, ``-pp_tp``): the pipeline's
+    stages at microbatch 1, as in the JAX demo."""
     print("Demo", flush=True)  # main.c:456
     spec, params, mode = build_params(cfgfile, weightfile, quantized=quantized,
                                       params_cache=params_cache,
@@ -110,7 +112,9 @@ def demo(cfgfile: str, weightfile, thresh: float, filename, names, *,
     pipe = DetectionPipeline(spec, params, mode, thresh=thresh, nms=nms,
                              int8_policy=int8_policy, k=k, compute_dtype=cd,
                              device_nms=device_nms, turbo=turbo,
-                             int8_impl=int8_impl, device=device)
+                             int8_impl=int8_impl, device=device,
+                             pp_stages=max(0, pipeline_parallel),
+                             pp_tp=pp_tp, pp_microbatch=1)
     classes = pipe.classes
     if batch <= 0:
         batch = 4 if filename else 1

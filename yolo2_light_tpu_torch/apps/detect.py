@@ -80,21 +80,47 @@ def params_cache_path(cache_dir: str, cfgfile: str, weightfile: str,
     return os.path.join(cache_dir, f"params_{key}.npz")
 
 
+class _PipelinedAdapter:
+    """Predictor-interface shim over ``parallel.pp.PipelinedPredictor``:
+    heads-only ``__call__`` (the pipeline also returns its carried-state
+    aux, which the apps never read)."""
+
+    def __init__(self, ppred):
+        self._pp = ppred
+        self.spec = ppred.spec
+
+    def __call__(self, x):
+        heads, _aux = self._pp(x)
+        return heads
+
+    def head_specs(self):
+        return self._pp.head_specs()
+
+
 def build_predictor(cfgfile: str, weightfile, quantized: bool = False,
                     int8_policy: str = "cpu", int8_impl: str = "xla",
                     xnor_impl: str = "int8", device="cuda",
-                    compute_dtype=None, turbo=False, params_cache=None):
+                    compute_dtype=None, turbo=False, params_cache=None,
+                    pp_stages: int = 0, pp_tp: int = 1):
     """``compute_dtype``: None (float32) or torch.bfloat16 (``-bf16``);
     ``turbo``: False, True (``-turbo``) or "int8" (``-turbo_int8``);
-    ``params_cache``: :func:`build_params`'."""
+    ``params_cache``: :func:`build_params`'. ``pp_stages > 1``: the forward
+    runs as that many pipeline stages (``-pp``), each ``pp_tp`` positions
+    wide (``-pp_tp``), on ``device``'s kind: ``cuda:0 ..`` (that many GPUs)
+    or the CPU."""
     spec, params, mode = build_params(cfgfile, weightfile, quantized,
                                       quant_banner=True,
                                       params_cache=params_cache)
-    pred = Predictor(spec, params, mode, device=device,
-                     int8_policy=int8_policy, int8_impl=int8_impl,
-                     xnor_impl=xnor_impl, turbo=turbo,
-                     compute_dtype=(compute_dtype if compute_dtype is not None
-                                    else torch.float32))
+    cd = compute_dtype if compute_dtype is not None else torch.float32
+    kw = dict(int8_policy=int8_policy, int8_impl=int8_impl,
+              xnor_impl=xnor_impl, turbo=turbo, compute_dtype=cd)
+    if pp_stages and pp_stages > 1:
+        from ..parallel.pp import PipelinedPredictor
+        pred = _PipelinedAdapter(PipelinedPredictor(
+            spec, params, mode, n_stages=pp_stages, microbatch=1,
+            tp=max(1, pp_tp), device=torch.device(device).type, **kw))
+    else:
+        pred = Predictor(spec, params, mode, device=device, **kw)
     return spec, pred
 
 
@@ -141,7 +167,7 @@ def run(names, cfgfile: str, weightfile, filename, thresh: float = 0.24,
         int8_policy: str = "cpu", save_path: str = "predictions",
         letter: bool = False, int8_impl: str = "xla", xnor_impl: str = "int8",
         device="cuda", compute_dtype=None, turbo=False,
-        params_cache=None) -> str:
+        params_cache=None, pp_stages: int = 0, pp_tp: int = 1) -> str:
     """Single-image detect; with no filename, loops reading image paths from
     stdin (reference: test_detector_cpu while(1) fgets loop,
     src/main.c:176-186). Returns the last image's detection text."""
@@ -149,7 +175,8 @@ def run(names, cfgfile: str, weightfile, filename, thresh: float = 0.24,
                                  int8_policy=int8_policy, int8_impl=int8_impl,
                                  xnor_impl=xnor_impl, device=device,
                                  compute_dtype=compute_dtype, turbo=turbo,
-                                 params_cache=params_cache)
+                                 params_cache=params_cache,
+                                 pp_stages=pp_stages, pp_tp=pp_tp)
     nms = 0.2 if quantized else 0.4  # reference: src/main.c:174,213
     head_specs = pred.head_specs()
     classes = head_specs[-1].classes if head_specs else 0

@@ -8,6 +8,13 @@ DetectionPipeline runs each batch as one CUDA graph; matching and AP
 accounting run on the host in eval/map.py. One batch is in flight while the
 next one loads (``dispatch``/``collect``); batches are accounted in order,
 so the printed report is the serial one's.
+
+``data_parallel``, ``tensor_parallel`` and ``spatial_parallel`` (``-parallel``,
+``-tp``, ``-sp``) run the pipeline on a ``parallel.mesh`` of dp*sp*tp
+positions, ``pipeline_parallel`` and ``pp_tp`` (``-pp``, ``-pp_tp``) as
+pipeline stages, as the JAX package's map does: the batch is raised to the
+data axis and cut to a multiple of it, and a tail batch is padded with zero
+images whose detections are dropped.
 """
 
 from __future__ import annotations
@@ -38,7 +45,11 @@ def validate_detector_map(datacfg: str, cfgfile: str, weightfile, *,
                           batch: int = 8, nthreads: int = 4, k: int = 1024,
                           device_nms: bool = False, int8_impl: str = "xla",
                           device="cuda", compute_dtype=None,
-                          turbo=False) -> dict:
+                          turbo=False, data_parallel: int = 0,
+                          tensor_parallel: int = 0,
+                          spatial_parallel: int = 0,
+                          pipeline_parallel: int = 0, pp_tp: int = 1,
+                          params_cache=None) -> dict:
     options = read_data_cfg(datacfg)
     valid_images = options.get("valid", "data/train.txt")
     difficult_images = options.get("difficult")
@@ -47,13 +58,27 @@ def validate_detector_map(datacfg: str, cfgfile: str, weightfile, *,
     # (src/additionally.c:4549-4550 reads it, then passes map=0 at :4664)
     options.get("map")
 
-    spec, params, mode = build_params(cfgfile, weightfile, quantized=quantized)
+    spec, params, mode = build_params(cfgfile, weightfile, quantized=quantized,
+                                      params_cache=params_cache)
+    mesh = None
+    dp = max(1, data_parallel)
+    tp = max(1, tensor_parallel)
+    sp = max(1, spatial_parallel)
+    if dp * tp * sp > 1:
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh(dp * sp * tp, data=dp, model=tp, space=sp,
+                         device=torch.device(device).type)
+        batch = max(batch, dp)
+        batch -= batch % dp  # keep shards even
+    pp = max(0, pipeline_parallel)
     pipe = DetectionPipeline(spec, params, mode, thresh=0.005, nms=0.45, k=k,
                              int8_policy=int8_policy, device_nms=device_nms,
                              int8_impl=int8_impl, device=device, turbo=turbo,
                              compute_dtype=(compute_dtype
                                             if compute_dtype is not None
-                                            else torch.float32))
+                                            else torch.float32),
+                             mesh=mesh, pp_stages=pp, pp_tp=pp_tp,
+                             pp_microbatch=max(1, batch // max(1, pp)))
     classes = pipe.classes
 
     with open(valid_images) as f:
@@ -91,6 +116,13 @@ def validate_detector_map(datacfg: str, cfgfile: str, weightfile, *,
                 j = min(i + batch, len(paths))
                 imgs = np.stack(list(pool.map(
                     lambda p: _load_one(p, netw, neth), paths[i:j])))
+                if imgs.shape[0] % pipe.data_parallel:
+                    # pad the tail batch to a shardable size; the padding's
+                    # detections are dropped in account()
+                    pad = (pipe.data_parallel
+                           - imgs.shape[0] % pipe.data_parallel)
+                    imgs = np.concatenate(
+                        [imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
                 nxt = (pipe.dispatch(imgs), i, j)
                 i = j
             if inflight is not None:

@@ -394,7 +394,8 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                   int8_policy: str = "cpu", int8_impl: str = "xla",
                   xnor_impl: str = "int8", compute_dtype=torch.float32,
                   turbo=False, int8_chain: bool = True,
-                  capture_conv_inputs: bool = False, layer_hook=None):
+                  capture_conv_inputs: bool = False, layer_hook=None,
+                  layer_range=None, carry_out=None, int8_targets=None):
     """Return ``forward(params, x) -> (heads, aux)``.
 
     ``x``: [B, H, W, C] float32, NHWC, values in [0,1]. ``params``: the
@@ -405,11 +406,37 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
     module docstring. ``layer_hook(i)``, where given, is called after each
     layer i has been issued (``utils/profiling.profile_layers`` records its
     per-layer times there).
+
+    ``layer_range=(start, stop)`` (pipeline stages, ``parallel/pp.py``, and
+    the runs between collectives of ``parallel/mesh.py``): run only
+    ``spec.layers[start:stop]``. ``x`` is then the previous range's running
+    activation and ``forward`` takes a third argument ``carried``, a dict
+    {layer index: output} of the earlier outputs that routes and shortcuts
+    in the range read; ``carry_out`` (a set of indices) names the outputs
+    returned in ``aux["outputs"]`` for later ranges. As in the JAX package,
+    an int8 chain or ``turbo="int8"`` trunk target outside the range is
+    dropped (the tensor crosses as float: the consumer's own quantize,
+    bit-identical to the producer's), and a fused residual run that
+    straddles ``stop`` runs on the int8 conv kernel. ``cpu_old``'s legacy
+    chain takes no range (its JAX counterpart takes none either).
+
+    ``int8_targets=(start, stop)`` (the runs between the collectives of
+    ``parallel/mesh.py``, whose positions hold the params of every layer in
+    that wider range): the chain and trunk targets in it are kept, and the
+    int8 state crosses the run's ends, so that the runs compute the wider
+    range's function under ``turbo="int8"`` too: ``forward`` takes a fourth
+    argument and returns ``aux["i8"]``, {"cur": the running (int8 tensor or
+    None, target) pair, "outputs": {j: pair} of the route sources in
+    ``carry_out``}.
     """
     int8_set = _check_ported(spec, mode, int8_policy, int8_impl, xnor_impl,
                              compute_dtype, turbo)
     plain = int8_impl in ("plain", "fused_plain")
     if mode == "int8" and int8_policy == "cpu_old":
+        if layer_range is not None:
+            raise ValueError(
+                "the legacy int8 chain (-int8_policy cpu_old) runs as one "
+                "forward: it takes no layer range (-pp stages, -tp/-sp runs)")
         return build_forward_int8_old(spec, plain=plain)
     residual_dtype = resolve_residual_dtype(turbo)
     int8_resid = residual_dtype == "int8"
@@ -425,14 +452,25 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                   if mode == "int8" and int8_impl in ("fused", "fused_plain")
                   and int8_policy == "cpu" and not capture_conv_inputs
                   else {})
+    lo, hi = (0, spec.n) if layer_range is None else layer_range
+    if layer_range is not None:
+        fused_runs = {st: r for st, r in fused_runs.items()
+                      if st >= lo and r[-1][2] < hi}
+        # a range holds only its own layers' params: a trunk or chain
+        # target in a later range has none here
+        tlo, thi = int8_targets or layer_range
+        trunk = {i: t for i, t in trunk.items()
+                 if t is not None and tlo <= t < thi}
+        chain = {i: t for i, t in chain.items()
+                 if t is not None and tlo <= t < thi}
     fused_skip = {idx for run in fused_runs.values()
                   for blk in run for idx in blk} - set(fused_runs)
-    # outputs a route or a shortcut reads; every other one is dropped once
-    # the next layer has consumed it
+    # outputs a route or a shortcut reads, and those a later range reads;
+    # every other one is dropped once the next layer has consumed it
     readers = _consumers(spec)
     kept = {j for j, rs in readers.items()
             if any(isinstance(spec.layers[c], (RouteSpec, ShortcutSpec))
-                   for c in rs)}
+                   for c in rs)} | set(carry_out or ())
     route_srcs = {j for j, rs in readers.items()
                   if any(isinstance(spec.layers[c], RouteSpec) for c in rs)}
     L.set_fp32_precision()
@@ -444,16 +482,17 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                 and l.size == 3 and l.stride == 1 and l.pad == 1
                 and l.activation in ("leaky", "linear"))
 
-    def forward(params, x):
-        outputs: dict[int, torch.Tensor] = {}
+    def forward(params, x, carried=None, i8=None):
+        outputs: dict[int, torch.Tensor] = dict(carried or {})
         # idx -> (int8 tensor or None, target conv idx): the int8 chain's
         # pairs of the layers a route reads; None stands for the target's
         # quantize of the layer's float output
-        i8_outputs: dict[int, tuple] = {}
+        i8_outputs: dict[int, tuple] = dict((i8 or {}).get("outputs", {}))
         heads: list[HeadOutput] = []
         conv_inputs: list[torch.Tensor] = []
         cur = x
-        cur_i8 = None                        # (tensor or None, target) or None
+        # (tensor or None, target) or None
+        cur_i8 = (i8 or {}).get("cur")
 
         def mult(t: int) -> float:
             return params[t]["input_quant_multipler"]
@@ -498,7 +537,7 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                 return view, pair
             return view, emit_i8(i)
 
-        for l in spec.layers:
+        for l in spec.layers[lo:hi]:
             i = l.index
             if i in fused_runs:
                 run = fused_runs[i]
@@ -571,15 +610,19 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
                     cur, cur_i8 = finish_conv(i, cur)
             elif isinstance(l, MaxpoolSpec):
                 # quantize commutes with max: pool the int8 chain directly
+                # the output extent from the input's (the spec's for a
+                # whole map; a row slab's under parallel/mesh.py)
+                out_h, out_w = [(n + l.pad - l.size) // l.stride + 1
+                                for n in cur.shape[1:3]]
                 if cur_i8 is not None and chain.get(i) == cur_i8[1]:
                     if cur_i8[0] is not None:
                         cur_i8 = (L.maxpool(cur_i8[0], l.size, l.stride,
-                                            l.pad, l.out_w, l.out_h),
+                                            l.pad, out_w, out_h),
                                   cur_i8[1])
                     i8_outputs[i] = cur_i8
                 else:
                     cur_i8 = None
-                cur = L.maxpool(cur, l.size, l.stride, l.pad, l.out_w, l.out_h)
+                cur = L.maxpool(cur, l.size, l.stride, l.pad, out_w, out_h)
             elif isinstance(l, RouteSpec):
                 t = chain.get(i)
                 srcs = [i8_outputs.get(j) for j in l.layers]
@@ -661,6 +704,12 @@ def build_forward(spec: ModelSpec, mode: str = "fp32", *,
         aux = {"final": cur}
         if capture_conv_inputs:
             aux["conv_inputs"] = conv_inputs
+        if carry_out is not None:
+            aux["outputs"] = {j: outputs[j] for j in carry_out}
+        if int8_targets is not None:
+            aux["i8"] = {"cur": cur_i8,
+                         "outputs": {j: i8_outputs[j] for j in carry_out or ()
+                                     if j in i8_outputs}}
         return tuple(heads), aux
 
     return forward

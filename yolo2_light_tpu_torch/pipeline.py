@@ -16,6 +16,13 @@ pool. On the CPU ``run`` stays eager.
 Transfers: inputs ship as uint8 (or planar YUV420, half of that) and are
 normalized on the device; the device returns ONE packed [K, 4+1+classes]
 candidate buffer per image instead of full head maps.
+
+Under a device mesh (``mesh=``, ``parallel/mesh.py``) or pipeline stages
+(``pp_stages > 1``, ``parallel/pp.py``) the program runs eagerly across the
+positions' streams (one graph across positions is not captured yet): each
+``data`` position ingests its images, or stage 0's device ingests the batch,
+and decode and NMS run on the first position's (the last stage's) device
+after the heads are gathered there.
 """
 
 from __future__ import annotations
@@ -89,12 +96,6 @@ def _source_sizes(shape, spec: ModelSpec):
     return None
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to "
-                               f"yolo2_light_tpu_torch (ROADMAP Queue 1 "
-                               f"{item})")
-
-
 class _Graph:
     """One captured ``run``: its graph and static input and output."""
 
@@ -120,7 +121,14 @@ class DetectionPipeline:
 
     ``device``: ``"cuda"`` (default; raises where CUDA is missing) or
     ``"cpu"``, which runs every kernel's plain version. ``cuda_graph=False``
-    runs ``run`` eagerly on the card too (the graph's reference). ``params``:
+    runs ``run`` eagerly on the card too (the graph's reference); a ``mesh``
+    or ``pp_stages > 1`` runs it eagerly always. ``mesh``: a
+    ``parallel.mesh.Mesh`` (its positions' devices replace ``device``); the
+    batch must divide by its ``data`` axis (``data_parallel``). ``pp_stages``,
+    ``pp_microbatch`` and ``pp_tp``: ``parallel.pp.PipelinedPredictor``'s
+    stages, microbatch and tensor-parallel width, on ``pp_devices`` (a list
+    that may repeat a device) or else ``device``'s kind; not together with a
+    mesh. ``params``:
     the per-layer host params of ``apps/detect.build_params``, or the
     converted params of another pipeline on the same device (converted for
     the same ``compute_dtype``). ``compute_dtype``, ``turbo`` and
@@ -136,11 +144,12 @@ class DetectionPipeline:
                  device_nms: bool = False, turbo=False, int8_impl: str = "xla",
                  pp_stages: int = 0, pp_microbatch: int = 1, pp_tp: int = 1,
                  device="cuda", cuda_graph: bool = True,
-                 int8_chain: bool = True):
+                 int8_chain: bool = True, pp_devices=None, _parallel=None):
+        if pp_stages > 1 and mesh is not None:
+            raise ValueError("pp_stages and mesh are mutually exclusive "
+                             "(pipeline stages own whole devices)")
         if mesh is not None:
-            raise _not_ported("a device mesh (-parallel/-tp/-sp)", "#12")
-        if pp_stages > 1 or pp_tp > 1:
-            raise _not_ported("pipeline parallelism (-pp/-pp_tp)", "#12")
+            device = mesh.positions[0].device
         self.spec = spec
         self.thresh = thresh
         self.nms = nms
@@ -158,18 +167,49 @@ class DetectionPipeline:
         self._compute_dtype = compute_dtype
         self._turbo = turbo
         self._int8_chain = int8_chain
-        self._cuda_graph = cuda_graph and self.device.type == "cuda"
+        self._mesh = mesh
+        self._pp_stages = int(pp_stages)
+        self._pp_microbatch = int(pp_microbatch)
+        self._pp_tp = max(1, int(pp_tp))
+        self._cuda_graph = (cuda_graph and self.device.type == "cuda"
+                            and mesh is None and pp_stages <= 1)
         self._grow_lock = threading.Lock()
         self._run_lock = threading.Lock()
-        self._fwd = build_forward(spec, mode, int8_policy=int8_policy,
-                                  xnor_impl=xnor_impl, int8_impl=int8_impl,
-                                  compute_dtype=compute_dtype, turbo=turbo,
-                                  int8_chain=int8_chain)
-        self.params = (params if _converted(params)
-                       else device_params(spec, params, mode, self.device,
-                                          int8_policy=int8_policy,
-                                          xnor_impl=xnor_impl,
-                                          compute_dtype=compute_dtype))
+        kw = dict(int8_policy=int8_policy, xnor_impl=xnor_impl,
+                  int8_impl=int8_impl, compute_dtype=compute_dtype,
+                  turbo=turbo)
+        convert = dict(int8_policy=int8_policy, xnor_impl=xnor_impl,
+                       compute_dtype=compute_dtype)
+        # the parallel engines; a grown pipeline shares its parent's, and
+        # its params as the parent holds them
+        self._pp, self._sharded = _parallel or (None, None)
+        if self._pp is not None or self._sharded is not None:
+            self.params = params
+        elif pp_stages > 1:
+            from .parallel.pp import PipelinedPredictor
+            self._pp = PipelinedPredictor(
+                spec, params, mode, n_stages=pp_stages,
+                microbatch=max(1, pp_microbatch), tp=self._pp_tp,
+                devices=pp_devices, device=self.device, **kw)
+            self.params = params
+        elif mesh is not None:
+            from .parallel.mesh import ShardedForward, shard_params
+            self._sharded = ShardedForward(spec, mesh, mode,
+                                           int8_chain=int8_chain, **kw)
+            self.params = shard_params(
+                spec, params if _converted(params)
+                else device_params(spec, params, mode, "cpu", **convert),
+                mesh)
+        else:
+            self._fwd = build_forward(spec, mode, int8_chain=int8_chain,
+                                      **kw)
+            self.params = (params if _converted(params)
+                           else device_params(spec, params, mode,
+                                              self.device, **convert))
+        if self._pp is not None:
+            # the heads, and so decode and NMS, end on the last stage
+            self.device = self._pp.positions[-1].device
+        self.data_parallel = mesh.shape["data"] if mesh is not None else 1
         self.head_specs = [l for l in spec.layers
                            if isinstance(l, (YoloSpec, RegionSpec))]
         self.classes = self.head_specs[-1].classes
@@ -187,8 +227,7 @@ class DetectionPipeline:
             self.head_specs, [(None, l.out_h, l.out_w, l.n, None)
                               for l in self.head_specs],
             spec.net.w, spec.net.h, thresh, k, self.device, decode_order=True)
-        self._255 = torch.tensor(255.0, dtype=torch.float32,
-                                 device=self.device)
+        self._255: dict = {}
         self._resizers: dict = {}
         self._graphs: dict = {}
         self._serve_out: dict = {}
@@ -206,11 +245,11 @@ class DetectionPipeline:
 
     # ---- the program ----------------------------------------------------
 
-    def _resizer(self, ih: int, iw: int) -> Resizer:
-        r = self._resizers.get((ih, iw))
+    def _resizer(self, ih: int, iw: int, device) -> Resizer:
+        r = self._resizers.get((ih, iw, device))
         if r is None:
-            r = Resizer(ih, iw, self.spec.net.h, self.spec.net.w, self.device)
-            self._resizers[(ih, iw)] = r
+            r = Resizer(ih, iw, self.spec.net.h, self.spec.net.w, device)
+            self._resizers[(ih, iw, device)] = r
         return r
 
     def ingest(self, x: torch.Tensor) -> torch.Tensor:
@@ -221,12 +260,16 @@ class DetectionPipeline:
         if x.dtype == torch.uint8:
             # /255 as the host loader and the reference divide
             # (load_image_stb), by a device tensor (ROADMAP F9)
-            x = x.to(torch.float32) / self._255
+            c = self._255.get(x.device)
+            if c is None:
+                c = self._255[x.device] = torch.tensor(
+                    255.0, dtype=torch.float32, device=x.device)
+            x = x.to(torch.float32) / c
         if x.shape[1] != self.spec.net.h or x.shape[2] != self.spec.net.w:
             # source-resolution frames: darknet-exact bilinear resize ON
             # DEVICE (the reference resizes every input on the host,
             # src/main.c:188, additionally.c:3021)
-            x = self._resizer(x.shape[1], x.shape[2])(x)
+            x = self._resizer(x.shape[1], x.shape[2], x.device)(x)
         return x
 
     def post(self, head_datas) -> torch.Tensor:
@@ -251,8 +294,17 @@ class DetectionPipeline:
         return torch.cat([packed, extra], dim=1)
 
     def run(self, x: torch.Tensor) -> torch.Tensor:
-        """The whole device program on a device batch, eagerly."""
-        heads, _ = self._fwd(self.params, self.ingest(x))
+        """The whole device program on a batch, eagerly."""
+        if self._pp is not None:
+            # ingest on stage 0's device, decode and NMS on the last's
+            x = self.ingest(x.to(self._pp.positions[0].device))
+            heads, _ = self._pp(x)
+        elif self._sharded is not None:
+            # each data position ingests its images
+            heads, _ = self._sharded(self.params, x.to(self.device),
+                                     prepare=self.ingest)
+        else:
+            heads, _ = self._fwd(self.params, self.ingest(x.to(self.device)))
         return self.post([h.data for h in heads])
 
     def _graph_for(self, x: torch.Tensor) -> _Graph:
@@ -291,7 +343,7 @@ class DetectionPipeline:
         x = _as_input(images)
         with torch.inference_mode(), self._run_lock:
             if not self._cuda_graph:
-                return self.run(x.to(self.device))
+                return self.run(x)
             x = x.to(self.device)
             return self._replay(self._graph_for(x), x)
 
@@ -369,6 +421,9 @@ class DetectionPipeline:
         calls. ``frames``: [N, H, W, C] f32/uint8 or planar YUV420
         [N, H*3/2, W], any source size. Returns list[Detections], saturation
         auto-grow included."""
+        if self._pp is not None or self._mesh is not None:
+            raise ValueError("serve_scan is the single-device serving loop; "
+                             "compose pp/mesh with batch dispatch instead")
         if self._promoted is not None:
             return self._promoted.serve_scan(frames, im_sizes)
         ring = _as_input(frames)
@@ -407,8 +462,9 @@ class DetectionPipeline:
 
     def _grown(self, new_k: int) -> "DetectionPipeline":
         """A pipeline identical to this one but with a larger candidate
-        buffer, sharing this one's converted params (cached, so repeated
-        saturation does not capture again every batch)."""
+        buffer, sharing this one's converted params and parallel engine
+        (cached, so repeated saturation does not capture again every
+        batch)."""
         cached = self._grown_cache
         if cached is None or cached.k != new_k:
             cached = DetectionPipeline(
@@ -418,7 +474,9 @@ class DetectionPipeline:
                 xnor_impl=self._xnor_impl, device_nms=self.device_nms,
                 turbo=self._turbo, int8_impl=self._int8_impl,
                 device=self.device, cuda_graph=self._cuda_graph,
-                int8_chain=self._int8_chain)
+                int8_chain=self._int8_chain, mesh=self._mesh,
+                pp_stages=self._pp_stages, pp_microbatch=self._pp_microbatch,
+                pp_tp=self._pp_tp, _parallel=(self._pp, self._sharded))
             self._grown_cache = cached
         return cached
 
