@@ -198,7 +198,21 @@ Phases, each reported on its own lines:
    run bit-identical (cross-stream lifetimes). ``detector test -pp 2`` on
    the one card exits 1 with "need 2 devices, have 1". Walls beside the
    single-device ones, labelled "one card, n positions": they show the cost
-   of the extra launches and copies, not scaling.
+   of the extra launches and copies, not scaling. Then the communication
+   account (``parallel/commvol.py``): with the recorder on, yolov3-416 int8
+   ``xla`` at b=2 under dp2, tp2, sp2, tp4, tp8, sp4, sp8 and dp2 x sp2 x
+   tp2, ``-turbo_int8`` under sp2 x tp2, and int8 ``fused`` as pp2 and pp4,
+   each entry counted as if every position had its own GPU; the entries
+   equal the count from layer shapes (``tests/commvol_count.py``: gathers,
+   halo rows, the input's rows, the heads' rows onto the first position,
+   ``-turbo_int8``'s int8 trunk tensors beside the float32 ones at 1 byte
+   an element; each stage boundary's live tensors, as
+   ``pp_boundary_bytes``), and the heads and every launch count equal those
+   of the same call with the recorder off; ``-bf16`` under sp2 moves what
+   int8 sp2 does. The compute anchors: one position's device ms per image
+   at b=8 (CUDA events behind a device sleep) in int8 ``xla`` and
+   ``-bf16``; the projected table on NVIDIA's published H100 SXM NVLink
+   figure (not measured), printed and on a ``{"commvol": ...}`` line.
 
 Every kernel time is printed beside the least time the card could take for
 the same work: the bytes the function must move (each input read once, each
@@ -217,7 +231,8 @@ device NMS's K7 and walk (after
 a ``{"slice11": ...}`` line with phase 11's numbers, a
 ``{"pipeline": ...}`` line with phase 8's numbers and the NMS kernels' rows, a
 ``{"precision": ...}`` line with phase 9's, a ``{"cpu_old": ...}`` line
-with phase 10's and a ``{"parallel": ...}`` line with phase 12's): its launches on the main path, its time, the plain
+with phase 10's, a ``{"parallel": ...}`` line with phase 12's and a
+``{"commvol": ...}`` line with its communication account): its launches on the main path, its time, the plain
 version's, the bound (sums over the shapes timed) and the library call's
 where there is one, and a row for each of K1's forms on the precision
 modes' and the cpu_old path, with its launches there. Two Pallas functions
@@ -252,6 +267,7 @@ from yolo2_light_tpu_torch.io.rawvideo import write_rawvideo
 from yolo2_light_tpu_torch.ops import (_build, bf16_conv, fused_res,
                                        int8_conv, nms_order, nms_walk,
                                        xnor_gemm)
+from yolo2_light_tpu_torch.parallel import commvol
 from yolo2_light_tpu_torch.parallel import mesh as par_mesh
 from yolo2_light_tpu_torch.parallel import pp as par_pp
 from yolo2_light_tpu_torch.params import save_random_weights
@@ -260,6 +276,7 @@ from yolo2_light_tpu_torch.post import device_nms
 from yolo2_light_tpu_torch.utils import profiling
 from yolo2_light_tpu_torch.weights import random_params, save_weights
 from yolo2_light_tpu_torch.xnor import pack_sign_weights
+from tests import commvol_count
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
@@ -3239,6 +3256,7 @@ def phase_parallel(tmp: str, weights: str, names_file: str, names: list,
 
     out["pipeline"] = _par_pipeline(tmp, names)
     out["wavefront"] = _par_wavefront(spec, params, mode)
+    out["commvol"] = _par_commvol(spec, params, mode, weights, smi_line)
 
     # the CLI on one card: -pp 2 needs two GPUs
     rc, stdout, err = run_cli(["detector", "test", names_file, CFG, weights,
@@ -3329,6 +3347,196 @@ def _par_wavefront(spec, params, mode) -> dict:
         f"every run's heads bit-identical to the single-device forward's; "
         f"{wall:.3f} ms a run")
     return {"runs": PAR_RUNS, "all_bit_identical": True, "ms_a_run": wall}
+
+
+# the meshes whose communication phase 12 records (int8 xla, b=PAR_B) and
+# the stage counts of its fused pipelines
+COMM_MESHES = [dict(data=2), dict(model=2), dict(space=2), dict(model=4),
+               dict(model=8), dict(space=4), dict(space=8),
+               dict(data=2, space=2, model=2)]
+# -turbo_int8's int8 trunk tensors cross beside the float32 ones, at 1 byte
+COMM_TURBO = dict(space=2, model=2)
+COMM_STAGES = (2, 4)
+COMM_ANCHOR_B = 8        # images a forward of the compute anchors
+COMM_LABELS = {"data": "dp", "space": "sp", "model": "tp"}
+
+
+def _comm_label(axes: dict) -> str:
+    """tp, sp or dp for one axis (the JAX table's rows), else each axis with
+    its size."""
+    if len(axes) == 1:
+        return COMM_LABELS[next(iter(axes))]
+    return " x ".join(f"{COMM_LABELS[a]}{v}" for a, v in axes.items())
+
+
+def _all_counts() -> tuple:
+    return (dict(int8_conv.LAUNCH_COUNTS), dict(int8_conv.FORM_LAUNCHES),
+            dict(int8_conv.PRE_LAUNCHES), dict(bf16_conv.PLAN_LAUNCHES))
+
+
+def _off_and_on(name: str, call) -> tuple:
+    """``call()`` with the recorder off and on (after a warm call): the
+    heads and every launch count must be the same; returns (log,
+    launches)."""
+    call()
+    torch.cuda.synchronize()
+    runs = []
+    for on in (False, True):
+        int8_conv.reset_launch_counts()
+        bf16_conv.reset_plan_launches()
+        with (commvol.recording() if on else contextlib.nullcontext()) as log:
+            heads = call()
+        torch.cuda.synchronize()
+        runs.append((heads, log, _all_counts()))
+    (off, _, c_off), (on, log, c_on) = runs
+    check(c_on == c_off, f"commvol {name}: launches with the recorder on "
+          f"{c_on[0]} differ from those with it off {c_off[0]}")
+    check(_same(on, off), f"commvol {name}: heads with the recorder on "
+          "differ from those with it off")
+    check(commvol.current() is None, f"commvol {name}: recorder left on")
+    return log, c_on[0]
+
+
+def anchor_ms(spec, params, mode: str, **kw) -> float:
+    """One position's compute anchor: the card's ms per image of a
+    ``network.Predictor`` forward (``kw``: its keywords) at
+    ``COMM_ANCHOR_B`` images, input on the card, 10 forwards queued behind
+    a device sleep twice as long as the host takes to issue them."""
+    iters = 10
+    pred = network.Predictor(spec, params, mode, device="cuda", **kw)
+    x = torch.from_numpy(np.random.RandomState(SEED).rand(
+        COMM_ANCHOR_B, spec.net.h, spec.net.w, spec.net.c).astype(
+            np.float32)).cuda()
+    with torch.inference_mode():
+        pred(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred(x)
+        torch.cuda.synchronize()
+        cycles = int(max(SLEEP_CYCLES,
+                         2 * iters * (time.perf_counter() - t0) * 2.0e9))
+        return event_ms(lambda: pred(x), iters=iters, warmup=1,
+                        sleep_cycles=cycles) / COMM_ANCHOR_B
+
+
+def _par_commvol(spec, params, mode, weights: str, smi_line: str) -> dict:
+    """The communication account (``parallel/commvol.py``): the recorder's
+    entries of yolov3-416 int8 xla under ``COMM_MESHES``, of its
+    ``-turbo_int8`` under ``COMM_TURBO`` (the int8 trunk at 1 byte an
+    element) and of the fused pipelines of ``COMM_STAGES`` equal the count
+    from layer shapes (``tests/commvol_count.py``); heads and
+    launches the same with it on and off; the compute anchors (one
+    position's device ms per image at b=8) and the projection on NVIDIA's
+    published NVLink figure."""
+    x = np.random.RandomState(SEED + 15).rand(
+        PAR_B, spec.net.h, spec.net.w, spec.net.c).astype(np.float32)
+    res = {"meshes": [], "pp": []}
+    wire = {}
+    twins = commvol_count.int8_twins(spec)
+    for axes, kw in ([(a, {}) for a in COMM_MESHES]
+                     + [(COMM_TURBO, dict(turbo="int8"))]):
+        name = _comm_label(axes)
+        n = int(np.prod(list(axes.values())))
+        config = name if len(axes) > 1 else f"{name}{n}"
+        if kw:
+            config = f"turbo_int8 {config}"
+        mesh = par_mesh.make_mesh(n, **axes, devices=_cards(n))
+        fn, sh = par_mesh.make_sharded_predict(spec, params, mesh, mode, **kw)
+        log, launches = _off_and_on(config, lambda: fn(sh, x))
+        got = commvol_count.recorded(log)
+        want = commvol_count.expected_mesh(spec, axes, PAR_B,
+                                           twins=twins if kw else ())
+        check(got == want, f"commvol {config}: recorded "
+              f"{sorted(got.items())[:6]} ... differ from the count from "
+              f"layer shapes {sorted(want.items())[:6]} ...")
+        if kw:
+            check(got != commvol_count.expected_mesh(spec, axes, PAR_B),
+                  f"commvol {config}: no int8 tensor crossed")
+        vols, per_img = commvol.mesh_volumes(log, mesh, PAR_B)
+        pace = commvol.pacing_position(log, mesh.size)
+        by_what = collections.Counter()
+        for e in log.entries:
+            if e.position == pace:
+                by_what[e.what] += e.nbytes
+        if not kw:
+            wire[(name, n)] = per_img
+        res["meshes"].append({
+            "config": config, "positions": n, "launches": launches,
+            "entries": len(log.entries), "pacing_position": list(pace),
+            "wire_bytes_img": per_img,
+            "pacing_bytes_by_kind": dict(by_what), "volumes": vols})
+        images = PAR_B // axes.get("data", 1)
+        say("commvol", f"int8 {config}: "
+            f"{len(log.entries)} entries = the count from layer shapes; heads "
+            f"and launches ({launches}) the same with the recorder on and "
+            f"off; pacing position {pace}: {per_img / 1e6:.3f} MB of wire a "
+            "image (" + ", ".join(f"{k} {v / images / 1e6:.3f} MB"
+                                  for k, v in sorted(by_what.items())) + ")")
+        del fn, sh
+    # -bf16 under space2 moves the bytes int8 xla does (float32 crosses)
+    fspec, fparams, fmode = detect.build_params(CFG, weights, echo=False)
+    mesh = par_mesh.make_mesh(2, space=2, devices=_cards(2))
+    fn, sh = par_mesh.make_sharded_predict(fspec, fparams, mesh, fmode,
+                                           compute_dtype=torch.bfloat16)
+    log, _ = _off_and_on("bf16 sp2", lambda: fn(sh, x))
+    check(commvol.mesh_volumes(log, mesh, PAR_B)[1] == wire[("sp", 2)],
+          "commvol bf16 sp2: wire bytes differ from int8 sp2's")
+    del fn, sh
+    # the fused pipelines: each boundary's live set once a microbatch
+    pp_bytes = {}
+    for n in COMM_STAGES:
+        pp = par_pp.PipelinedPredictor(spec, params, mode, n_stages=n,
+                                       microbatch=1, int8_impl="fused",
+                                       devices=_cards(n))
+        log, launches = _off_and_on(
+            f"fused pp{n}", lambda: [h.data for h in pp(x)[0]])
+        bb = commvol.pp_boundary_bytes(spec, pp.ranges)
+        got = collections.Counter()
+        count = collections.Counter()
+        for e in log.entries:
+            check(e.what == "handoff", f"commvol pp{n}: a {e.what} entry "
+                  "(every head lies in the last stage)")
+            got[e.position[0]] += e.nbytes
+            count[e.position[0]] += 1
+        live = [len(par_pp.carried_for_boundary(spec, stop))
+                for _, stop in pp.ranges[:-1]]
+        check([got[s] for s in range(1, n)] == [v * PAR_B for v in bb]
+              and [count[s] for s in range(1, n)] == [v * PAR_B
+                                                      for v in live],
+              f"commvol pp{n}: handoffs {dict(got)} in {dict(count)} "
+              f"entries, the live sets give {bb} in {live} a microbatch")
+        pp_bytes[n] = bb
+        res["pp"].append({"stages": n, "ranges": pp.ranges,
+                          "launches": launches,
+                          "boundary_bytes_img": bb, "live_tensors": live})
+        say("commvol", f"int8 fused pp{n} {pp.ranges}: handoffs "
+            + " / ".join(f"{v / 1e6:.3f}" for v in bb)
+            + f" MB a image in {live} tensors = pp_boundary_bytes; heads "
+            f"and launches ({launches}) the same with the recorder on and off")
+        del pp
+    # the compute anchors: one position, b=8, device time
+    anchors = {"int8": anchor_ms(spec, params, mode),
+               "bf16": anchor_ms(fspec, fparams, fmode,
+                                 compute_dtype=torch.bfloat16)}
+    del fparams
+    labels = {key[0]: anchors["bf16" if key[0] == "sp" else "int8"]
+              for key in wire}
+    labels["pp"] = anchors["int8"]
+    link = commvol.NVLINK_BW_H100_SXM
+    rows = commvol.scaling_rows(wire, pp_bytes, labels, link)
+    say("commvol", f"anchors on {smi_line}, b={COMM_ANCHOR_B}, one position: "
+        f"int8 xla {anchors['int8']:.4f} ms a image, -bf16 "
+        f"{anchors['bf16']:.4f}; link {link:.3g} B/s (NVIDIA's published "
+        "H100 SXM NVLink figure, not measured: one card here)")
+    for line in commvol.table_markdown(rows).splitlines():
+        say("commvol", line)
+    res.update({"card": smi_line, "anchors_ms_img": anchors,
+                "anchor_batch": COMM_ANCHOR_B, "link_bw": link,
+                "link_bw_source": "NVIDIA's published H100 SXM NVLink "
+                                  "bandwidth (900 GB/s both directions; "
+                                  "450e9 B/s received), not measured",
+                "rows": rows})
+    return res
 
 
 def main() -> int:
@@ -3480,7 +3688,9 @@ def main() -> int:
     print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"precision": precision}), flush=True)
     print(json.dumps({"cpu_old": old}), flush=True)
+    comm = parallel.pop("commvol")
     print(json.dumps({"parallel": parallel}), flush=True)
+    print(json.dumps({"commvol": comm}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

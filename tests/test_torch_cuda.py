@@ -1613,3 +1613,39 @@ def test_pipeline_on_positions_equals_single(dev, kw):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.prob, b.prob)
         np.testing.assert_array_equal(a.bbox, b.bbox)
+
+
+def test_comm_recorder_changes_no_head_and_no_launch(dev):
+    """yolov3-416 int8 under model2, both positions streams of the card: the
+    recorder on gives the heads and the kernel launches of the recorder
+    off, bit for bit and count for count, and one gather a position for
+    every sharded conv."""
+    from yolo2_light_tpu_torch.ops import bf16_conv
+    from yolo2_light_tpu_torch.parallel import commvol as CV
+    from yolo2_light_tpu_torch.parallel import mesh as M
+    spec, params, mode = build_params(os.path.join(DATA, "yolov3.cfg"), None,
+                                      quantized=True, seed=7, echo=False)
+    x = np.random.RandomState(3).rand(1, 416, 416, 3).astype(np.float32)
+    mesh = M.make_mesh(2, model=2, devices=[dev] * 2)
+    fn, sh = M.make_sharded_predict(spec, params, mesh, mode)
+    fn(sh, x)
+    runs = []
+    for on in (False, True, False):
+        K.reset_launch_counts()
+        bf16_conv.reset_plan_launches()
+        if on:
+            with CV.recording() as log:
+                heads = fn(sh, x)
+        else:
+            heads = fn(sh, x)
+        torch.cuda.synchronize()
+        # every hand kernel counts in K.LAUNCH_COUNTS (K1, K2, K6, ...)
+        runs.append((heads, dict(K.LAUNCH_COUNTS), dict(K.FORM_LAUNCHES),
+                     dict(K.PRE_LAUNCHES), dict(bf16_conv.PLAN_LAUNCHES)))
+    assert runs[0][1]["int8_conv"] == 2 * 71
+    for heads, *counts in runs[1:]:
+        assert counts == list(runs[0][1:])
+        for g, w in zip(heads, runs[0][0]):
+            assert torch.equal(g, w)
+    gathers = [e for e in log.entries if e.op == "all-gather"]
+    assert len(gathers) == 2 * len(M.sharded_layers(spec, mesh))

@@ -224,17 +224,23 @@ def test_sharded_heads_match_jax_and_single(name, quantized, kw, axes):
 
 
 def test_collectives_sit_between_runs():
-    """tp2 on mini-yolo3: one all-gather after every conv whose M is even,
-    and the runs between them cut there; sp2: a halo exchange before every
-    3x3 conv and the stride-1 maxpool, none before the 2x2/2 maxpools (their
-    slabs need no neighbour rows)."""
+    """tp2 on mini-yolo3: one all-gather for every conv whose M is even,
+    after the maxpool that alone reads its output (convs 0 and 4: the
+    pooled map crosses) or else right after the conv (conv 2, which route
+    12 reads too), and the runs between them cut there; sp2: a halo
+    exchange before every 3x3 conv and the stride-1 maxpool, none before
+    the 2x2/2 maxpools (their slabs need no neighbour rows)."""
     _, (spec, _, mode) = _both("mini-yolo3", False)
     tp = TM.ShardedForward(spec, TM.make_mesh(2, model=2, device="cpu"))
     gathered = [s.b - 1 for s in tp.segments if s.gather]
-    assert gathered == sorted(TM.sharded_layers(
+    shard = sorted(TM.sharded_layers(
         spec, TM.make_mesh(2, model=2, device="cpu")))
-    assert gathered == [l.index for l in spec.layers
-                        if isinstance(l, ConvSpec) and l.n % 2 == 0]
+    assert shard == [l.index for l in spec.layers
+                     if isinstance(l, ConvSpec) and l.n % 2 == 0]
+    assert shard == [0, 2, 4, 6, 7, 10, 13, 14]
+    assert gathered == [1, 2, 5, 6, 7, 10, 13, 14]
+    assert all(type(spec.layers[i]).__name__ == "MaxpoolSpec"
+               for i in (1, 5))
     sp = TM.ShardedForward(spec, TM.make_mesh(2, space=2, device="cpu"))
     halo = [s.a for s in sp.segments if s.halo is not None]
     kinds = {l.index: (type(l).__name__, l.size, l.stride)

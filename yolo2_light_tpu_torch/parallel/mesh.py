@@ -24,8 +24,10 @@ Axes:
 * ``model``: the output channels of the convs whose params shard
   (:func:`shard_params`): each model position computes its M/model
   channels from the full input, then an all-gather (the pieces handed to
-  every position of the group and a ``torch.cat`` in channel order). Every
-  other layer runs whole on each model position.
+  every position of the group and a ``torch.cat`` in channel order), right
+  after the conv or after the maxpools that alone read its output (they act
+  per channel on the pieces, and a pooled map is smaller). Every other layer
+  runs whole on each model position.
 * ``space``: activation rows. The partition is defined on the net's coarsest
   grid (13 rows at 416) and scaled by each map's height over it, so every
   slab boundary lines up with the stride-2 convs, upsample, reorg and
@@ -36,6 +38,9 @@ Axes:
   that the artificial padding at an interior edge produced; the global edges
   keep the op's own padding (the XNOR -1 border, maxpool's fill). Heads are
   gathered along rows at the end, onto the first position.
+
+Every collective here reports what it moves to ``commvol``'s recorder when
+that is on (``commvol.recording``).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from ..cfg import (ConvSpec, MaxpoolSpec, ModelSpec, RouteSpec, ShortcutSpec,
                    SoftmaxSpec)
 from ..models.network import (HeadOutput, _consumers, build_forward,
                               device_params, load_kernels)
+from . import commvol
 
 AXES = ("data", "space", "model")
 
@@ -332,12 +338,20 @@ class ShardedForward:
                     plan = self._halo_plan(l)
                     if plan is not None:
                         halo[l.index] = plan
-        cuts = {lo, hi}
-        for i in range(lo, hi):
-            if i in halo:
-                cuts |= {i, i + 1}
-            if i in shard:
-                cuts.add(i + 1)
+        consumers = _consumers(spec)
+        # where each sharded conv's channels are gathered: after the
+        # maxpools that alone read its output (they act per channel, and a
+        # pooled map is smaller), else right after the conv
+        gather_at = set()
+        for i in shard & set(range(lo, hi)):
+            while (i + 1 < hi and consumers[i] == [i + 1]
+                   and i not in (carry_out or ())
+                   and isinstance(spec.layers[i + 1], MaxpoolSpec)):
+                i += 1
+            gather_at.add(i)
+        cuts = {lo, hi} | {i + 1 for i in gather_at}
+        for i in halo:
+            cuts |= {i, i + 1}
         bounds = sorted(cuts)
         self.whole = (len(bounds) == 2 and layer_range is None
                       and carry_out is None)
@@ -347,7 +361,6 @@ class ShardedForward:
                 "-int8_policy cpu_old runs its legacy int8 chain as one "
                 "forward: it shards over the data axis (-parallel) only, "
                 "not over -tp/-sp or pipeline stages")
-        consumers = _consumers(spec)
         self.segments = []
         for a, b in zip(bounds, bounds[1:]):
             # what a later run of this range, or a later range, reads
@@ -360,7 +373,7 @@ class ShardedForward:
                                  **kw))
             self.segments.append(_Segment(
                 a, b, fwd, halo=halo.get(a) if b == a + 1 else None,
-                gather=(b - 1) in shard))
+                gather=(b - 1) in gather_at))
         if any(p.device.type == "cuda" for p in mesh.positions):
             load_kernels(spec, mode, **{k: v for k, v in kw.items()
                                         if k in ("int8_policy", "int8_impl",
@@ -378,7 +391,8 @@ class ShardedForward:
 
     def _halo_plan(self, l):
         """Per space index (input rows read, output rows kept of the local
-        output), or None where every slab's own rows suffice."""
+        output, the first input row a kept output reads), or None where
+        every slab's own rows suffice."""
         h_in = self.spec.net.h if l.index == 0 else \
             self.spec.layers[l.index - 1].out_h
         h_out = l.out_h
@@ -390,11 +404,12 @@ class ShardedForward:
             size, stride, origin = l.size, l.stride, _origin(l)
             # the first input row read, at a multiple of the stride so that
             # the local output rows fall on the global grid
-            e0 = max(0, (o0 * stride - origin) // stride * stride)
+            n0 = max(0, o0 * stride - origin)
+            e0 = n0 // stride * stride
             e1 = min(h_in, (o1 - 1) * stride - origin + size)
             keep = (o0 - e0 // stride, o1 - e0 // stride)
             assert _out_rows(l, e1 - e0) >= keep[1], (l.index, s)
-            plan.append(((e0, e1), keep))
+            plan.append(((e0, e1), keep, n0))
             if not ((s == 0 or o0 * stride - origin >= i0)
                     and (s == space - 1
                          or (o1 - 1) * stride - origin + size <= i1)
@@ -424,25 +439,35 @@ class ShardedForward:
         T = {}
         meta = {p: {"cur": None, "outputs": {}} for p in mesh.positions}
         heads = {p: [] for p in mesh.positions}
+        # the caller stands where the first position is: what it hands there
+        # crosses nothing
+        log = commvol.current()
+        lo = self.segments[0].a
         for d in range(D):
-            xd, src = x[d * b:(d + 1) * b], caller
+            xd, src, src_at = x[d * b:(d + 1) * b], caller, mesh.positions[0]
             if prepare is not None:
                 first = mesh.position(d, 0, 0)
                 xd = handoff(xd, caller, first)
+                if log is not None and first is not src_at:
+                    log.point("scatter", first.index, xd, -1)
                 with first.scope():
                     xd = prepare(xd)
-                src = first
+                src = src_at = first
             for s in range(S):
                 for m in range(M):
                     p = mesh.position(d, s, m)
-                    T[p] = {"x": self._piece(xd, s, src, p)}
+                    T[p] = {"x": self._piece(xd, s, src, p, src_at, lo - 1)}
                     for j, v in (carried or {}).items():
-                        T[p][("o", j)] = self._piece(v[d * b:(d + 1) * b], s,
-                                                     caller, p)
+                        # the running activation, carried too, crosses once
+                        T[p][("o", j)] = (
+                            T[p]["x"] if v is x and prepare is None else
+                            self._piece(v[d * b:(d + 1) * b], s, caller, p,
+                                        mesh.positions[0], j))
         for seg in self.segments:
             if seg.halo is not None:
                 self._apply(T, ("x", "q"),
-                            lambda t, p: self._extend(t, p, seg.halo))
+                            lambda t, p: self._extend(t, p, seg.halo,
+                                                      seg.a - 1))
             for p, pp in zip(mesh.positions, params):
                 with p.scope():
                     if self.whole:
@@ -457,15 +482,25 @@ class ShardedForward:
             if seg.halo is not None:
                 self._apply(T, last, lambda t, p: self._trim(t, p, seg.halo))
             if seg.gather:
-                self._apply(T, last, self._all_gather)
+                self._apply(T, last,
+                            lambda t, p: self._all_gather(t, p, seg.b - 1))
         first = mesh.positions[0]
         out = tuple(HeadOutput(h.index, h.kind, self._collect(
-            {p: heads[p][n].data for p in heads}))
+            {p: heads[p][n].data for p in heads}, h.index))
             for n, h in enumerate(heads[first]))
-        aux = {"final": self._collect({p: T[p]["x"] for p in T})}
+        last = self.segments[-1].b - 1
+        if out and out[-1].index == last:
+            # the final output is the last head's map: reshaped, not moved
+            # again
+            final = out[-1].data.reshape(*out[-1].data.shape[:3], -1)
+        else:
+            final = self._collect({p: T[p]["x"] for p in T}, last)
+        aux = {"final": final}
         if self.carry_out is not None:
-            aux["outputs"] = {j: self._collect({p: T[p][("o", j)] for p in T})
-                              for j in self.carry_out}
+            aux["outputs"] = {
+                j: final if T[first][("o", j)] is T[first]["x"] else
+                self._collect({p: T[p][("o", j)] for p in T}, j)
+                for j in self.carry_out}
         join([h.data for h in out] + [aux["final"]]
              + list(aux.get("outputs", {}).values()), first)
         return out, aux
@@ -497,42 +532,59 @@ class ShardedForward:
         with p.scope():
             return y[:, k0:k1].contiguous()
 
-    def _piece(self, t, s: int, src: Position, p: Position):
-        """Space position ``s``'s rows of ``t`` (made on ``src``), dense, on
-        ``p``."""
+    def _piece(self, t, s: int, src: Position, p: Position,
+               src_at: Position, layer: int):
+        """Space position ``s``'s rows of ``t`` (made on ``src``, which
+        stands where ``src_at`` is), dense, on ``p``."""
         if t.dim() == 4:
             r0, r1 = self.slab(t.shape[1], s)
             if (r0, r1) != (0, t.shape[1]):
                 t = t[:, r0:r1]
         t = handoff(t, src, p)
+        log = commvol.current()
+        if log is not None and p is not src_at:
+            log.point("scatter", p.index, t, layer)
         if t.is_contiguous():
             return t
         with p.scope():
             return t.contiguous()
 
-    def _extend(self, cur: dict, p: Position, plan) -> torch.Tensor:
+    def _extend(self, cur: dict, p: Position, plan,
+                layer: int) -> torch.Tensor:
         """The halo exchange: the input rows position ``p``'s windowed
-        layer reads, from its own slab and its neighbours' in the column."""
+        layer reads, from its own slab and its neighbours' in the column.
+        Rows above the first one a kept output reads (where the window
+        starts at a multiple of the stride, so that the output rows fall on
+        the global grid) feed only output rows that are dropped: they are
+        zeros made here, not rows moved."""
         d, s, m = p.index
-        e0, e1 = plan[s][0]
+        (e0, e1), _, n0 = plan[s]
         h = sum(cur[self.mesh.position(d, q, m)].shape[1]
                 for q in range(self.mesh.shape["space"]))
+        log = commvol.current()
         pieces = []
         for q in range(self.mesh.shape["space"]):
             qp = self.mesh.position(d, q, m)
             a, b = self.slab(h, q)
-            r0, r1 = max(e0, a), min(e1, b)
+            r0, r1 = max(n0, a), min(e1, b)
             if r0 < r1:
                 t = cur[qp]
                 if (r0, r1) != (a, b):
                     t = t[:, r0 - a:r1 - a]
                 pieces.append(handoff(t, qp, p))
+                if log is not None and q != s:
+                    log.point("halo", p.index, t, layer)
         with p.scope():
+            if n0 > e0:
+                t = pieces[0]
+                pieces.insert(0, t.new_zeros((t.shape[0], n0 - e0)
+                                             + tuple(t.shape[2:])))
             if len(pieces) == 1:
                 return pieces[0].contiguous()
             return torch.cat(pieces, dim=1)
 
-    def _all_gather(self, cur: dict, p: Position) -> torch.Tensor:
+    def _all_gather(self, cur: dict, p: Position,
+                    layer: int) -> torch.Tensor:
         """The model group's channel pieces of ``p``'s (data, space) cell,
         on ``p``, in channel order."""
         d, s, _ = p.index
@@ -541,18 +593,27 @@ class ShardedForward:
             q = self.mesh.position(d, s, m)
             pieces.append(handoff(cur[q], q, p))
         with p.scope():
-            return torch.cat(pieces, dim=-1)
+            out = torch.cat(pieces, dim=-1)
+        log = commvol.current()
+        if log is not None:
+            log.add("all-gather", "gather", p.index, commvol.nbytes(out),
+                    len(pieces), layer)
+        return out
 
-    def _collect(self, per_pos: dict) -> torch.Tensor:
+    def _collect(self, per_pos: dict, layer: int) -> torch.Tensor:
         """The model-0 positions' pieces joined along rows (space) and the
         batch (data), on the first position."""
         mesh = self.mesh
         first = mesh.positions[0]
+        log = commvol.current()
         groups = []
         for d in range(mesh.shape["data"]):
-            rows = [handoff(per_pos[mesh.position(d, s, 0)],
-                            mesh.position(d, s, 0), first)
-                    for s in range(mesh.shape["space"])]
+            rows = []
+            for s in range(mesh.shape["space"]):
+                q = mesh.position(d, s, 0)
+                rows.append(handoff(per_pos[q], q, first))
+                if log is not None and q is not first:
+                    log.point("collect", first.index, per_pos[q], layer)
             groups.append(rows)
         with first.scope():
             parts = [r[0] if len(r) == 1 else torch.cat(r, dim=1)

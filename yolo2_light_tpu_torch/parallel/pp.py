@@ -18,7 +18,9 @@ serially.
 A stage boundary needs no halo or replication logic: ``build_forward``'s
 ``layer_range``/``carried`` run a contiguous range given the outputs of
 earlier layers that it reads, and the split carries only the tensors a later
-route or shortcut reads (:func:`carried_for_boundary`).
+route or shortcut reads (:func:`carried_for_boundary`). Every hand-over
+between stages or replicas reports what it moves to ``commvol``'s recorder
+when that is on.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from ..cfg import ConvSpec, ModelSpec, RegionSpec, YoloSpec
 from ..models.network import (HeadOutput, _consumers, build_forward,
                               device_params, load_kernels)
+from . import commvol
 from .mesh import (Mesh, Position, ShardedForward, cuda_devices, handoff,
                    join, shard_params)
 
@@ -166,6 +169,7 @@ class PipelinedPredictor:
         M = B // mb
         n = self.n_stages
         caller = Position.current(x.device)
+        log = commvol.current()
         # wavefront schedule: at step k, stage s works on microbatch k-s.
         # Every step is issued on its stage's stream without waiting, so
         # the stages overlap in time.
@@ -183,10 +187,20 @@ class PipelinedPredictor:
                         xin = handoff(x[m * mb:(m + 1) * mb], caller, pos)
                     else:
                         xin = handoff(*cur[m], pos)
-                    car = {j: handoff(v, src, pos)
-                           for j, (v, src) in carried[m].items()
-                           if j in self._needed[s]}
-                    with pos.scope():
+                        if log is not None:
+                            log.point("handoff", self._where(s), xin,
+                                      self.ranges[s][0] - 1)
+                    car = {}
+                    for j, (v, src) in carried[m].items():
+                        if j not in self._needed[s]:
+                            continue
+                        if s > 0 and v is cur[m][0]:
+                            car[j] = xin    # the running activation, once
+                            continue
+                        car[j] = handoff(v, src, pos)
+                        if log is not None:
+                            log.point("handoff", self._where(s), v, j)
+                    with pos.scope(), commvol.within(s):
                         heads, aux = self.stage_fns[s](
                             self.stage_params[s], xin, car)
                     cur[m] = (aux["final"], pos)
@@ -199,13 +213,22 @@ class PipelinedPredictor:
             last = self.positions[-1]
             out = []
             for hi, (idx, kind) in enumerate(meta):
-                parts = [handoff(*head_datas[m][hi], last) for m in range(M)]
+                parts = []
+                for m in range(M):
+                    data, pos = head_datas[m][hi]
+                    parts.append(handoff(data, pos, last))
+                    if log is not None and pos is not last:
+                        log.point("collect", self._where(n - 1), data, idx)
                 with last.scope():
                     data = parts[0] if M == 1 else torch.cat(parts, dim=0)
                 out.append(HeadOutput(idx, kind, data))
             finals = [handoff(*c, last) for c in cur]
             join([h.data for h in out] + finals, last)
         return tuple(out), {"final": finals}
+
+    def _where(self, s: int) -> tuple:
+        """The recorder's name of stage ``s``'s first position."""
+        return (s,) if self.tp == 1 else (s, 0, 0, 0)
 
     def head_specs(self):
         return [l for l in self.spec.layers
@@ -248,17 +271,30 @@ class ReplicatedPipeline:
         if B % R:
             raise ValueError(f"batch {B} not divisible by {R} replicas")
         sh = B // R
+        log = commvol.current()
         # all replicas dispatch before any result is read: the R wavefronts
-        # overlap across their streams
-        outs = [rep(x[r * sh:(r + 1) * sh])
-                for r, rep in enumerate(self.replicas)]
-        anchor = self.replicas[0].positions[-1].device
+        # overlap across their streams. The caller stands where the first
+        # replica's first stage is.
+        outs = []
+        for r, rep in enumerate(self.replicas):
+            xr = x[r * sh:(r + 1) * sh]
+            with commvol.within(r):
+                if log is not None and r > 0:
+                    log.point("scatter", rep._where(0), xr, -1)
+                outs.append(rep(xr))
+        first = self.replicas[0]
+        anchor = first.positions[-1].device
         heads = []
         with torch.inference_mode():
             for hi, h0 in enumerate(outs[0][0]):
                 data = torch.cat([o[0][hi].data.to(anchor, non_blocking=True)
                                   for o in outs], dim=0)
                 heads.append(HeadOutput(h0.index, h0.kind, data))
+                if log is not None:
+                    for o in outs[1:]:
+                        log.point("collect",
+                                  (0,) + first._where(first.n_stages - 1),
+                                  o[0][hi].data, h0.index)
         finals = [f for o in outs for f in o[1]["final"]]
         return tuple(heads), {"final": finals}
 
