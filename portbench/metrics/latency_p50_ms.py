@@ -1,0 +1,7 @@
+"""latency_p50_ms: the median of every request of the window, from the
+frame in host memory to its detections in host memory."""
+from portbench.readers import latency_ms
+
+
+def read(ctx):
+    return latency_ms(ctx, 50)
