@@ -1,0 +1,10 @@
+"""idle_in_wait: the part of the profiled segment in which no kernel ran
+on the card while the host was in the program's ``collect.wait`` span
+(waiting for the end of the frame's replay: the graph's own gaps), in % of
+the segment: the exact overlap of the segment's idle gaps with those
+spans."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.idle_in(ctx, "collect.wait")

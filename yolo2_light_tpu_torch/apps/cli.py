@@ -13,7 +13,7 @@ main/run_detector, src/main.c:584-667):
         [-batch N] [-k N] [-device_nms] [-int8_policy cpu|gpu|cpu_old]
         [-bf16|-fp32] [-turbo|-turbo_int8] [-params_cache DIR]
         [-device_resize] [-parallel N] [-tp M] [-sp K] [-pp S [-pp_tp T]]
-        [-i N] [-device cuda|cpu]
+        [-profile DIR] [-i N] [-device cuda|cpu]
     python -m yolo2_light_tpu_torch detector calibrate <datacfg> <cfg>
         [weights] [-input_calibration N] [-calib_method device|host]
         [-i N] [-device cuda|cpu]
@@ -22,7 +22,8 @@ main/run_detector, src/main.c:584-667):
         [-c CAM] [-s FRAME_SKIP] [-prefix P] [-out_filename F] [-batch N]
         [-k N] [-device_nms] [-device_resize] [-uint8_ingest|-no_uint8_ingest]
         [-params_cache DIR] [-int8_policy ..] [-int8_impl ..]
-        [-turbo|-turbo_int8] [-pp S [-pp_tp T]] [-i N] [-device cuda|cpu]
+        [-turbo|-turbo_int8] [-pp S [-pp_tp T]] [-profile DIR] [-i N]
+        [-device cuda|cpu]
 
 ``-int8_impl fused`` runs each darknet53 residual block as one launch of the
 fused kernel; ``xla`` and ``pallas`` run every int8 conv on the int8 conv
@@ -61,8 +62,15 @@ the reference's bit-exact host sweep (``apps/calibrate.py``).
 pipeline's stream, in bfloat16 by default (``-fp32``: float32 and float
 ingest); it needs OpenCV only for a codec, a window, ``-out_filename`` or
 ``-prefix``. ``-params_cache DIR`` keeps the transformed params (test and
-demo, the JAX package's cache key); ``-profile DIR`` (test) writes a
-``torch.profiler`` trace into DIR.
+demo, the JAX package's cache key); ``-profile DIR`` (test, map, demo)
+writes a ``torch.profiler`` trace of the run into ``DIR/trace.json`` (host
+operations and, on the card, kernels and copies). Under map and demo,
+which run the serving pipeline, the same file holds the pipeline's own
+spans (each request's dispatch and collect and their parts) on a track
+named ``yolo2_light_tpu_torch spans``, and as counter events its counters
+(images, candidates, H2D bytes) and the device ms of each stage of each
+graph replay (``utils/profiling.py``); ``detector test`` runs the eager
+``Predictor``, which records no spans.
 
 The multi-device flags, as the JAX CLI's (``parallel/``): ``-parallel N``,
 ``-tp M`` and ``-sp K`` (map) run the pipeline on a mesh of N*K*M device
@@ -239,6 +247,11 @@ def _main(argv=None) -> int:
                            input_calibration=input_calibration,
                            method=calib_method, device=device)
         return 0
+    import contextlib
+    tracing = contextlib.nullcontext()
+    if profile_dir:
+        from ..utils.profiling import trace
+        tracing = trace(profile_dir)
     if sub == "map":
         from .map import validate_detector_map
         kw = {}
@@ -246,38 +259,35 @@ def _main(argv=None) -> int:
             kw["batch"] = batch
         if topk > 0:
             kw["k"] = topk
-        validate_detector_map(obj_names, cfg, weights, thresh=thresh,
-                              quantized=quantized, iou_thresh=iou_thresh,
-                              int8_policy=int8_policy, device_nms=device_nms,
-                              int8_impl=int8_impl, device=device,
-                              compute_dtype=compute_dtype, turbo=turbo,
-                              data_parallel=data_parallel,
-                              tensor_parallel=tensor_parallel,
-                              spatial_parallel=spatial_parallel,
-                              pipeline_parallel=pipeline_parallel,
-                              pp_tp=pp_tensor_parallel,
-                              params_cache=params_cache, **kw)
+        with tracing:
+            validate_detector_map(
+                obj_names, cfg, weights, thresh=thresh, quantized=quantized,
+                iou_thresh=iou_thresh, int8_policy=int8_policy,
+                device_nms=device_nms, int8_impl=int8_impl, device=device,
+                compute_dtype=compute_dtype, turbo=turbo,
+                data_parallel=data_parallel, tensor_parallel=tensor_parallel,
+                spatial_parallel=spatial_parallel,
+                pipeline_parallel=pipeline_parallel, pp_tp=pp_tensor_parallel,
+                params_cache=params_cache, **kw)
         return 0
     from ..datacfg import load_names
     names = load_names(obj_names)
     if sub == "demo":
         from .demo import demo
-        demo(cfg, weights, thresh, filename, names, quantized=quantized,
-             out_filename=out_filename, dont_show=dont_show,
-             int8_policy=int8_policy, compute_dtype=compute_dtype,
-             prefix=prefix, cam_index=cam_index, frame_skip=frame_skip,
-             batch=batch, params_cache=params_cache, device_nms=device_nms,
-             uint8_ingest=uint8_ingest, turbo=turbo, int8_impl=int8_impl,
-             device_resize=device_resize, device=device,
-             pipeline_parallel=pipeline_parallel, pp_tp=pp_tensor_parallel,
-             **({"k": topk} if topk > 0 else {}))
+        with tracing:
+            demo(cfg, weights, thresh, filename, names, quantized=quantized,
+                 out_filename=out_filename, dont_show=dont_show,
+                 int8_policy=int8_policy, compute_dtype=compute_dtype,
+                 prefix=prefix, cam_index=cam_index, frame_skip=frame_skip,
+                 batch=batch, params_cache=params_cache,
+                 device_nms=device_nms, uint8_ingest=uint8_ingest,
+                 turbo=turbo, int8_impl=int8_impl,
+                 device_resize=device_resize, device=device,
+                 pipeline_parallel=pipeline_parallel,
+                 pp_tp=pp_tensor_parallel,
+                 **({"k": topk} if topk > 0 else {}))
         return 0
-    import contextlib
     from .detect import run
-    tracing = contextlib.nullcontext()
-    if profile_dir:
-        from ..utils.profiling import trace
-        tracing = trace(profile_dir)
     with tracing:
         run(names, cfg, weights, filename, thresh=thresh, quantized=quantized,
             dont_show=dont_show, int8_policy=int8_policy,

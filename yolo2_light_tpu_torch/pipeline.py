@@ -23,6 +23,16 @@ positions' streams (one graph across positions is not captured yet): each
 ``data`` position ingests its images, or stage 0's device ingests the batch,
 and decode and NMS run on the first position's (the last stage's) device
 after the heads are gathered there.
+
+Tracing (``utils/profiling.py``): while a ``torch.profiler`` session is
+active, each request records its spans (``dispatch`` with ``dispatch.h2d``
+and ``dispatch.replay``, which holds ``trace.wait``; ``collect`` with
+``collect.wait``, ``collect.d2h``, ``collect.saturated``,
+``collect.regrow``, ``collect.finish`` and its ``finish.nms``), its
+counters (``images``, ``candidates``, ``h2d_bytes``) and the device ms of
+each stage (:data:`STAGES`) of each replay, from events captured at the
+stage bounds in a graph of its own; the graphs replayed untraced hold no
+such events. Each hook tests ``profiling.REC`` once.
 """
 
 from __future__ import annotations
@@ -40,9 +50,13 @@ from .post import boxes as post
 from .post.device_decode import Decoder
 from .post.device_nms import load_kernels as load_nms_kernels
 from .post.device_nms import nms_packed
+from .utils import profiling
 
 # eager runs on a side stream before a capture (PyTorch's recipe)
 _WARMUP_RUNS = 2
+
+# the device program's stages, between the events of a traced graph
+STAGES = ("ingest", "network", "decode", "nms")
 
 
 def _fetch_packed(raw: torch.Tensor) -> np.ndarray:
@@ -97,12 +111,16 @@ def _source_sizes(shape, spec: ModelSpec):
 
 
 class _Graph:
-    """One captured ``run``: its graph and static input and output."""
+    """One captured ``run``: its graph and static input and output; a graph
+    captured while tracing also holds the events at its stage bounds and
+    the (request, host ns) of the replay whose times they hold unread."""
 
-    def __init__(self, graph, static_in, static_out):
+    def __init__(self, graph, static_in, static_out, stages=None):
         self.graph = graph
         self.static_in = static_in
         self.static_out = static_out
+        self.stages = stages
+        self.unread = None
 
 
 class DetectionPipeline:
@@ -175,6 +193,7 @@ class DetectionPipeline:
                             and mesh is None and pp_stages <= 1)
         self._grow_lock = threading.Lock()
         self._run_lock = threading.Lock()
+        self._stage_lock = threading.Lock()
         kw = dict(int8_policy=int8_policy, xnor_impl=xnor_impl,
                   int8_impl=int8_impl, compute_dtype=compute_dtype,
                   turbo=turbo)
@@ -272,10 +291,15 @@ class DetectionPipeline:
             x = self._resizer(x.shape[1], x.shape[2], x.device)(x)
         return x
 
-    def post(self, head_datas) -> torch.Tensor:
-        """Head maps -> the packed [B, K(+1), 4+1+classes] buffer."""
+    def post(self, head_datas, stages=None) -> torch.Tensor:
+        """Head maps -> the packed [B, K(+1), 4+1+classes] buffer;
+        ``stages``: as :meth:`run`'s."""
         packed = self._decoder.packed(list(head_datas))
+        if stages is not None:
+            stages[3].record()
         if not self.device_nms:
+            if stages is not None:
+                stages[4].record()
             return packed
         # suppression zeroes probs, which would hide buffer saturation from
         # the host, so a PRE-NMS saturation FLAG (1.0 iff every slot held a
@@ -291,10 +315,15 @@ class DetectionPipeline:
         extra = torch.zeros((packed.shape[0], 1, packed.shape[2]),
                             dtype=packed.dtype, device=packed.device)
         extra[:, 0, 0] = saturated.to(packed.dtype)
-        return torch.cat([packed, extra], dim=1)
+        packed = torch.cat([packed, extra], dim=1)
+        if stages is not None:
+            stages[4].record()
+        return packed
 
-    def run(self, x: torch.Tensor) -> torch.Tensor:
-        """The whole device program on a batch, eagerly."""
+    def run(self, x: torch.Tensor, stages=None) -> torch.Tensor:
+        """The whole device program on a batch, eagerly. ``stages``: on one
+        device, CUDA events to record before and after each of
+        :data:`STAGES` (a traced capture's)."""
         if self._pp is not None:
             # ingest on stage 0's device, decode and NMS on the last's
             x = self.ingest(x.to(self._pp.positions[0].device))
@@ -303,17 +332,32 @@ class DetectionPipeline:
             # each data position ingests its images
             heads, _ = self._sharded(self.params, x.to(self.device),
                                      prepare=self.ingest)
+        elif stages is not None:
+            stages[0].record()
+            x = self.ingest(x.to(self.device))
+            stages[1].record()
+            heads, _ = self._fwd(self.params, x)
+            stages[2].record()
         else:
             heads, _ = self._fwd(self.params, self.ingest(x.to(self.device)))
-        return self.post([h.data for h in heads])
+        return self.post([h.data for h in heads], stages)
 
     def _graph_for(self, x: torch.Tensor) -> _Graph:
         """The graph of ``x``'s signature, captured at its first use
-        (``x``: a device batch of that signature, for the warm-up)."""
-        key = (tuple(x.shape), x.dtype)
+        (``x``: a device batch of that signature, for the warm-up); while
+        tracing, the traced graph of that signature."""
+        traced = profiling.REC is not None
+        key = (tuple(x.shape), x.dtype, traced)
         g = self._graphs.get(key)
-        if g is not None:
-            return g
+        if g is None:
+            g = self._graphs[key] = self._capture(x, [
+                torch.cuda.Event(enable_timing=True, external=True)
+                for _ in range(len(STAGES) + 1)] if traced else None)
+        return g
+
+    def _capture(self, x: torch.Tensor, stages=None) -> _Graph:
+        """Warm ``run`` up on ``x`` and capture it (``stages``: as
+        :meth:`run`'s, recorded in the graph)."""
         static_in = torch.empty(x.shape, dtype=x.dtype, device=self.device)
         static_in.copy_(x)
         side = torch.cuda.Stream(self.device)
@@ -325,27 +369,64 @@ class DetectionPipeline:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool,
                               capture_error_mode="thread_local"):
-            static_out = self.run(static_in)
-        g = _Graph(graph, static_in, static_out)
-        self._graphs[key] = g
-        return g
+            static_out = self.run(static_in, stages)
+        return _Graph(graph, static_in, static_out, stages)
 
-    def _replay(self, g: _Graph, x: torch.Tensor) -> torch.Tensor:
+    def _replay(self, g: _Graph, x: torch.Tensor, span,
+                out=None) -> torch.Tensor:
         """Copy ``x`` into the graph's input, replay, and clone the output
-        (the next replay overwrites the static output)."""
+        (the next replay overwrites the static output), or copy it into
+        ``out``; inside ``span``, the open ``dispatch.replay``. A traced
+        graph's stage times are read first, before the replay records its
+        events again, and it keeps the span's request and start for the
+        new ones."""
+        if g.unread is not None:
+            self._read_stages(g, "trace.wait")
         g.static_in.copy_(x)
         g.graph.replay()
-        return g.static_out.clone()
+        if g.stages is not None:
+            g.unread = (span.request, span.start)
+        if out is None:
+            return g.static_out.clone()
+        return out.copy_(g.static_out)
+
+    def _read_stages(self, g: _Graph, wait: str, request=None) -> None:
+        """Record the stage times of the replay that ``g``'s events hold
+        unread (where ``request`` is given, only if it is that request's),
+        waiting for its end inside a span named ``wait``."""
+        with self._stage_lock:
+            unread = g.unread
+            if unread is None or request not in (None, unread[0]):
+                return
+            g.unread = None
+            rec = profiling.REC
+            if rec is not None:
+                rec.stages(g.stages, STAGES, *unread, wait)
+
+    def _h2d(self, images) -> torch.Tensor:
+        """``images`` as a tensor on the device, inside a ``dispatch.h2d``
+        span."""
+        with profiling.span("dispatch.h2d"):
+            x = _as_input(images)
+            rec = profiling.REC
+            if rec is not None and x.device != self.device:
+                rec.count("h2d_bytes", x.numel() * x.element_size())
+            return x.to(self.device)
 
     def raw(self, images) -> torch.Tensor:
         """Packed device output [B, K(+1), 4+1+classes] — still on the
         device."""
-        x = _as_input(images)
-        with torch.inference_mode(), self._run_lock:
-            if not self._cuda_graph:
+        if not self._cuda_graph:
+            x = _as_input(images)
+            with torch.inference_mode(), self._run_lock:
                 return self.run(x)
-            x = x.to(self.device)
-            return self._replay(self._graph_for(x), x)
+        # the H2D touches no static buffer: it needs neither the lock nor
+        # inference mode; the replay's span holds both, and the graph's
+        # capture at a signature's first use
+        x = self._h2d(images)
+        with (profiling.span("dispatch.replay") as s, torch.inference_mode(),
+              self._run_lock):
+            return self._replay(self._graph_for(x), x, s)
 
     # ---- batches ----------------------------------------------------------
 
@@ -354,19 +435,43 @@ class DetectionPipeline:
         :meth:`collect`; host work between the two overlaps the device."""
         if self._promoted is not None:
             return self._promoted.dispatch(images)
-        return (self, self.raw(images), images)
+        with profiling.span("dispatch") as s:
+            return (self, self.raw(images), images, s.request)
 
     def collect(self, ticket, im_sizes=None):
         """Blocking half of :meth:`dispatch`: one D2H fetch, saturation
         handling (auto-grow re-run of the kept input batch), host finish."""
-        pipe, raw_dev, images = ticket
+        pipe, raw_dev, images, request = ticket
         if im_sizes is None:
             im_sizes = _source_sizes(tuple(images.shape), pipe.spec)
-        packed = _fetch_packed(raw_dev)        # one D2H transfer
-        if pipe._saturated(packed) and pipe.k < pipe._max_k:
-            grown = pipe._grow_and_promote()
-            return grown(images, im_sizes)
-        return pipe._finish_batch(packed, im_sizes)
+        return pipe._land(raw_dev, im_sizes,
+                          lambda grown: grown(images, im_sizes), request)
+
+    def _land(self, raw_dev, im_sizes, rerun, request=None):
+        """The blocking half of a request (``request``: its id while
+        tracing): one D2H fetch of the packed buffer ``raw_dev``, then,
+        where it saturated, ``rerun`` of the grown pipeline (its result is
+        returned), else the host finish."""
+        with profiling.span("collect", request) as s:
+            if s.request is not None:
+                # the traced graph's events of this request's replay
+                for g in list(self._graphs.values()):
+                    if g.unread is not None:
+                        self._read_stages(g, "collect.wait", s.request)
+            with profiling.span("collect.d2h"):
+                packed = _fetch_packed(raw_dev)        # one D2H transfer
+            with profiling.span("collect.saturated"):
+                regrow = self._saturated(packed) and self.k < self._max_k
+            if regrow:
+                with profiling.span("collect.regrow"):
+                    return rerun(self._grow_and_promote())
+            with profiling.span("collect.finish"):
+                out = self._finish_batch(packed, im_sizes)
+                rec = profiling.REC
+                if rec is not None:
+                    rec.count("images", len(out))
+                    rec.count("candidates", sum(d.n for d in out))
+            return out
 
     @property
     def _max_k(self) -> int:
@@ -427,27 +532,30 @@ class DetectionPipeline:
         if self._promoted is not None:
             return self._promoted.serve_scan(frames, im_sizes)
         ring = _as_input(frames)
-        with torch.inference_mode(), self._run_lock:
-            ring = ring.to(self.device)                  # one H2D transfer
-            if self._cuda_graph:
-                g = self._graph_for(ring[:1])
-                out = torch.empty((ring.shape[0],) + g.static_out.shape[1:],
-                                  dtype=g.static_out.dtype,
-                                  device=self.device)
-                for i in range(ring.shape[0]):
-                    g.static_in.copy_(ring[i:i + 1])
-                    g.graph.replay()
-                    out[i] = g.static_out[0]
-            else:
-                out = torch.cat([self.run(ring[i:i + 1])
-                                 for i in range(ring.shape[0])])
         if im_sizes is None:
             im_sizes = _source_sizes(tuple(ring.shape), self.spec)
-        packed = _fetch_packed(out)            # one D2H transfer
-        if self._saturated(packed) and self.k < self._max_k:
-            grown = self._grow_and_promote()
-            return grown.serve_scan(frames, im_sizes)
-        return self._finish_batch(packed, im_sizes)
+        with profiling.span("dispatch") as s:
+            out = self._scan(ring)
+        return self._land(out, im_sizes,
+                          lambda grown: grown.serve_scan(frames, im_sizes),
+                          s.request)
+
+    def _scan(self, ring: torch.Tensor) -> torch.Tensor:
+        """:meth:`serve_scan`'s device half: the ring's one H2D transfer and
+        a replay of the b=1 graph a frame into one packed buffer."""
+        with torch.inference_mode(), self._run_lock:
+            if not self._cuda_graph:
+                ring = ring.to(self.device)
+                return torch.cat([self.run(ring[i:i + 1])
+                                  for i in range(ring.shape[0])])
+            ring = self._h2d(ring)                     # one H2D transfer
+            g = self._graph_for(ring[:1])
+            out = torch.empty((ring.shape[0],) + g.static_out.shape[1:],
+                              dtype=g.static_out.dtype, device=self.device)
+            for i in range(ring.shape[0]):
+                with profiling.span("dispatch.replay") as s:
+                    self._replay(g, ring[i:i + 1], s, out[i:i + 1])
+            return out
 
     def __call__(self, images, im_sizes=None):
         """Full pipeline for a batch. ``im_sizes``: list of (w,h) original
@@ -497,13 +605,13 @@ class DetectionPipeline:
         # at most ONE old-K in-flight batch re-runs at a time
         rerun_lock = threading.Lock()
 
-        def finish_batch(pipe, packed_dev, sizes, xb):
-            packed = _fetch_packed(packed_dev)
-            if pipe._saturated(packed) and pipe.k < pipe._max_k:
-                grown = pipe._grow_and_promote()
+        def finish_batch(ticket, sizes):
+            pipe, packed_dev, xb, request = ticket
+
+            def rerun(grown):
                 with rerun_lock:
                     return grown(xb, sizes)
-            return pipe._finish_batch(packed, sizes)
+            return pipe._land(packed_dev, sizes, rerun, request)
 
         it = iter(batches)
         sizes_it = iter(im_sizes_iter) if im_sizes_iter is not None else None
@@ -518,11 +626,9 @@ class DetectionPipeline:
                         done = True
                         break
                     sizes = (next(sizes_it) if sizes_it is not None else None)
-                    src = self
-                    while src._promoted is not None:
-                        src = src._promoted
-                    inflight.append(pool.submit(finish_batch, src,
-                                                src.raw(xb), sizes, xb))
+                    # dispatch() follows the promotions to the grown K
+                    inflight.append(pool.submit(finish_batch,
+                                                self.dispatch(xb), sizes))
                 if not inflight:
                     return
                 yield inflight.popleft().result()
@@ -551,7 +657,8 @@ class DetectionPipeline:
                                obj.astype(np.float32),
                                probs.astype(np.float32))
         if self.nms and not self.device_nms:
-            post.do_nms_sort(dets, self.classes, self.nms)
+            with profiling.span("finish.nms"):
+                post.do_nms_sort(dets, self.classes, self.nms)
         return dets
 
 
