@@ -12,8 +12,10 @@ recording (``utils/profiling.recorded``) against it:
   for each one under 95% where the rest went: the host us before each
   child and after the last, and how much of it Python's garbage collector
   took;
-* the spans, counters and device times a request records, the host ns one
-  span and one counter cost, and the host ms a request of the tracer's own
+* the spans, counters and device times a request records, each counter's
+  total a request (``overlapped``: the share of requests whose host finish
+  began while a later replay was on the device), the host ns one span and
+  one counter cost, and the host ms a request of the tracer's own
   ``trace.wait`` (reading the last replay's stage times before a replay);
 * the segment's request rate under the profiler;
 * the host ms of each span a request, in the segment and in as many
@@ -224,7 +226,10 @@ def main() -> int:
         "counters": sum(1 for c in rec.counters
                         if seg.t0 <= c.at <= seg.t1) / requests,
         "device_times": sum(1 for d in rec.device
-                            if seg.t0 <= d.at <= seg.t1) / requests}
+                            if seg.t0 <= d.at <= seg.t1) / requests,
+        "counter_totals": {
+            n: spans.counted(seg, rec, n) / requests
+            for n in sorted({c.name for c in rec.counters})}}
     collected = trace.union([(max(a, seg.t0), min(b, seg.t1))
                              for a, b in collections if b > seg.t0
                              and a < seg.t1])

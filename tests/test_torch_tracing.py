@@ -116,6 +116,23 @@ def test_counters_equal_what_the_call_returned(device_nms):
     assert set(got) == {"images", "candidates"}
 
 
+def test_plain_path_records_no_overlapped():
+    """``overlapped`` belongs to the graph path's copy stream: the plain
+    path, batches dispatched ahead included, neither records it nor carries
+    a replay's event in its tickets."""
+    pipe = _pipe()
+    with _session():
+        a = pipe.dispatch(_frames(seed=11))
+        b = pipe.dispatch(_frames(seed=12))
+        pipe.collect(a)
+        pipe.collect(b)
+        list(pipe.stream(iter([_frames(seed=13)] * 3), depth=2))
+    assert a[2] is None and b[2] is None
+    got = _totals(profiling.recorded())
+    assert got["images"] == 10
+    assert "overlapped" not in got
+
+
 def test_requests_dispatched_ahead_keep_their_ids():
     """Two dispatches before their collects: each collect's spans take the
     request id its ticket carries."""
@@ -388,3 +405,30 @@ def test_untraced_replays_the_graph_without_stage_events(dev):
     assert untraced.stages is None and again is untraced
     assert traced.stages is not None and traced is not untraced
     assert len(pipe._graphs) == 2
+
+
+@pytest.mark.cuda
+def test_overlapped_counts_a_finish_under_a_later_replay(dev):
+    """``overlapped`` is 1 for a collect whose finish begins while a later
+    dispatch's replay is still on the device (held there behind a device
+    sleep of about half a second, which the collect's D2H on the copy
+    stream does not wait for), and 0 for the last collect and in a closed
+    loop."""
+    pipe = _pipe("cuda")
+    x = _frames(2, seed=10)
+    with _session():
+        pipe(x)                            # captures the traced graph
+        a = pipe.dispatch(x)
+        torch.cuda._sleep(1_000_000_000)
+        b = pipe.dispatch(_frames(2, seed=11))
+        pipe.collect(a)
+        assert not b[2].query()           # b's replay still held back
+        pipe.collect(b)
+        pipe(x)
+    rec = profiling.recorded()
+    flags = [(c.request, c.value) for c in rec.counters
+             if c.name == "overlapped"]
+    assert [v for _, v in flags] == [0, 1, 0, 0]
+    assert flags[1][0] == a[-1]
+    assert _totals(rec)["images"] == 8
+    _check_nesting(rec)

@@ -15,7 +15,14 @@ pool. On the CPU ``run`` stays eager.
 
 Transfers: inputs ship as uint8 (or planar YUV420, half of that) and are
 normalized on the device; the device returns ONE packed [K, 4+1+classes]
-candidate buffer per image instead of full head maps.
+candidate buffer per image instead of full head maps. On the graph path a
+transfer that would wait behind a replay it does not need runs on a copy
+stream of the pipeline's own, ordered against the replays by CUDA events: a
+batch's H2D, where the replays' stream is busy, runs while the replay
+dispatched before it runs, and a collect's D2H, where a later dispatch
+followed, waits for its own replay only, so the host finish of a batch runs
+while the next replay does. In a closed loop both stay on the replays'
+stream, which is then idle or holds the request's own replay.
 
 Under a device mesh (``mesh=``, ``parallel/mesh.py``) or pipeline stages
 (``pp_stages > 1``, ``parallel/pp.py``) the program runs eagerly across the
@@ -29,10 +36,12 @@ active, each request records its spans (``dispatch`` with ``dispatch.h2d``
 and ``dispatch.replay``, which holds ``trace.wait``; ``collect`` with
 ``collect.wait``, ``collect.d2h``, ``collect.saturated``,
 ``collect.regrow``, ``collect.finish`` and its ``finish.nms``), its
-counters (``images``, ``candidates``, ``h2d_bytes``) and the device ms of
-each stage (:data:`STAGES`) of each replay, from events captured at the
-stage bounds in a graph of its own; the graphs replayed untraced hold no
-such events. Each hook tests ``profiling.REC`` once.
+counters (``images``, ``candidates``, ``h2d_bytes``; on the graph path
+``overlapped``: 1 where a later replay of the pipeline was still on the
+device as the finish began, else 0) and the device ms of each stage
+(:data:`STAGES`) of each replay, from events captured at the stage bounds
+in a graph of its own; the graphs replayed untraced hold no such events.
+Each hook tests ``profiling.REC`` once.
 """
 
 from __future__ import annotations
@@ -253,6 +262,9 @@ class DetectionPipeline:
         self._pool = None
         self._promoted = None
         self._grown_cache = None
+        # the graph path's transfers, and the done event of its last dispatch
+        self._copy = None
+        self._last_done = None
         if self.device.type == "cuda":
             load_kernels(spec, mode, int8_policy=int8_policy,
                          int8_impl=int8_impl, xnor_impl=xnor_impl,
@@ -261,6 +273,7 @@ class DetectionPipeline:
                 load_nms_kernels(self.device)
             if self._cuda_graph:
                 self._pool = torch.cuda.graph_pool_handle()
+                self._copy = torch.cuda.Stream(self.device)
 
     # ---- the program ----------------------------------------------------
 
@@ -405,53 +418,93 @@ class DetectionPipeline:
 
     def _h2d(self, images) -> torch.Tensor:
         """``images`` as a tensor on the device, inside a ``dispatch.h2d``
-        span."""
+        span: where the current stream (the replays') still has work, copied
+        on the copy stream, which the current stream then waits for."""
         with profiling.span("dispatch.h2d"):
             x = _as_input(images)
             rec = profiling.REC
             if rec is not None and x.device != self.device:
                 rec.count("h2d_bytes", x.numel() * x.element_size())
-            return x.to(self.device)
+            main = torch.cuda.current_stream(self.device)
+            if main.query():
+                # nothing to wait behind: the pageable copy blocks the host
+                # for itself alone, and crossing streams would only cost
+                return x.to(self.device)
+            with torch.cuda.stream(self._copy):
+                x = x.to(self.device)
+            main.wait_stream(self._copy)
+            # allocated on the copy stream, read on the replays' stream: its
+            # block must not go to the next H2D before that read
+            x.record_stream(main)
+            return x
+
+    def _done(self) -> torch.cuda.Event:
+        """The event after what the current stream holds of the last
+        dispatch (its replay and output), kept as the pipeline's latest."""
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        self._last_done = done
+        return done
 
     def raw(self, images) -> torch.Tensor:
         """Packed device output [B, K(+1), 4+1+classes] — still on the
-        device."""
+        device, ordered on the current stream."""
+        return self._enqueue(images)[0]
+
+    def _enqueue(self, images):
+        """:meth:`raw`, and the event after its replay on the graph path
+        (None on the eager paths, where the output is the current
+        stream's)."""
         if not self._cuda_graph:
             x = _as_input(images)
             with torch.inference_mode(), self._run_lock:
-                return self.run(x)
+                return self.run(x), None
         # the H2D touches no static buffer: it needs neither the lock nor
         # inference mode; the replay's span holds both, and the graph's
         # capture at a signature's first use
         x = self._h2d(images)
         with (profiling.span("dispatch.replay") as s, torch.inference_mode(),
               self._run_lock):
-            return self._replay(self._graph_for(x), x, s)
+            out = self._replay(self._graph_for(x), x, s)
+            return out, self._done()
 
     # ---- batches ----------------------------------------------------------
 
     def dispatch(self, images):
         """Start a batch: H2D + enqueue the graph. Returns a ticket for
-        :meth:`collect`; host work between the two overlaps the device."""
+        :meth:`collect`; host work between the two overlaps the device, and
+        so does the next dispatch's H2D."""
         if self._promoted is not None:
             return self._promoted.dispatch(images)
         with profiling.span("dispatch") as s:
-            return (self, self.raw(images), images, s.request)
+            return (self, *self._enqueue(images), images, s.request)
 
     def collect(self, ticket, im_sizes=None):
         """Blocking half of :meth:`dispatch`: one D2H fetch, saturation
         handling (auto-grow re-run of the kept input batch), host finish."""
-        pipe, raw_dev, images, request = ticket
+        pipe, raw_dev, done, images, request = ticket
         if im_sizes is None:
             im_sizes = _source_sizes(tuple(images.shape), pipe.spec)
-        return pipe._land(raw_dev, im_sizes,
+        return pipe._land(raw_dev, done, im_sizes,
                           lambda grown: grown(images, im_sizes), request)
 
-    def _land(self, raw_dev, im_sizes, rerun, request=None):
+    def _fetch(self, raw_dev, done) -> np.ndarray:
+        """The D2H fetch of ``raw_dev``: where a later dispatch followed its
+        replay, on the copy stream after ``done`` (that replay's event) and
+        nothing later; else in the current stream's order."""
+        if done is None or done is self._last_done:
+            return _fetch_packed(raw_dev)
+        raw_dev.record_stream(self._copy)
+        with torch.cuda.stream(self._copy):
+            self._copy.wait_event(done)
+            return _fetch_packed(raw_dev)
+
+    def _land(self, raw_dev, done, im_sizes, rerun, request=None):
         """The blocking half of a request (``request``: its id while
-        tracing): one D2H fetch of the packed buffer ``raw_dev``, then,
-        where it saturated, ``rerun`` of the grown pipeline (its result is
-        returned), else the host finish."""
+        tracing): one D2H fetch of the packed buffer ``raw_dev`` (``done``:
+        its replay's event, or None), then, where it saturated, ``rerun`` of
+        the grown pipeline (its result is returned), else the host
+        finish."""
         with profiling.span("collect", request) as s:
             if s.request is not None:
                 # the traced graph's events of this request's replay
@@ -459,15 +512,20 @@ class DetectionPipeline:
                     if g.unread is not None:
                         self._read_stages(g, "collect.wait", s.request)
             with profiling.span("collect.d2h"):
-                packed = _fetch_packed(raw_dev)        # one D2H transfer
+                packed = self._fetch(raw_dev, done)    # one D2H transfer
             with profiling.span("collect.saturated"):
                 regrow = self._saturated(packed) and self.k < self._max_k
             if regrow:
                 with profiling.span("collect.regrow"):
                     return rerun(self._grow_and_promote())
             with profiling.span("collect.finish"):
-                out = self._finish_batch(packed, im_sizes)
                 rec = profiling.REC
+                if rec is not None and done is not None:
+                    # a later dispatch's replay still on the device
+                    later = self._last_done
+                    rec.count("overlapped",
+                              later is not done and not later.query())
+                out = self._finish_batch(packed, im_sizes)
                 if rec is not None:
                     rec.count("images", len(out))
                     rec.count("candidates", sum(d.n for d in out))
@@ -535,19 +593,20 @@ class DetectionPipeline:
         if im_sizes is None:
             im_sizes = _source_sizes(tuple(ring.shape), self.spec)
         with profiling.span("dispatch") as s:
-            out = self._scan(ring)
-        return self._land(out, im_sizes,
+            out, done = self._scan(ring)
+        return self._land(out, done, im_sizes,
                           lambda grown: grown.serve_scan(frames, im_sizes),
                           s.request)
 
-    def _scan(self, ring: torch.Tensor) -> torch.Tensor:
+    def _scan(self, ring: torch.Tensor):
         """:meth:`serve_scan`'s device half: the ring's one H2D transfer and
-        a replay of the b=1 graph a frame into one packed buffer."""
+        a replay of the b=1 graph a frame into one packed buffer; returns it
+        and, on the graph path, the event after the last replay."""
         with torch.inference_mode(), self._run_lock:
             if not self._cuda_graph:
                 ring = ring.to(self.device)
                 return torch.cat([self.run(ring[i:i + 1])
-                                  for i in range(ring.shape[0])])
+                                  for i in range(ring.shape[0])]), None
             ring = self._h2d(ring)                     # one H2D transfer
             g = self._graph_for(ring[:1])
             out = torch.empty((ring.shape[0],) + g.static_out.shape[1:],
@@ -555,7 +614,7 @@ class DetectionPipeline:
             for i in range(ring.shape[0]):
                 with profiling.span("dispatch.replay") as s:
                     self._replay(g, ring[i:i + 1], s, out[i:i + 1])
-            return out
+            return out, self._done()
 
     def __call__(self, images, im_sizes=None):
         """Full pipeline for a batch. ``im_sizes``: list of (w,h) original
@@ -606,12 +665,12 @@ class DetectionPipeline:
         rerun_lock = threading.Lock()
 
         def finish_batch(ticket, sizes):
-            pipe, packed_dev, xb, request = ticket
+            pipe, packed_dev, done, xb, request = ticket
 
             def rerun(grown):
                 with rerun_lock:
                     return grown(xb, sizes)
-            return pipe._land(packed_dev, sizes, rerun, request)
+            return pipe._land(packed_dev, done, sizes, rerun, request)
 
         it = iter(batches)
         sizes_it = iter(im_sizes_iter) if im_sizes_iter is not None else None
