@@ -59,9 +59,10 @@ def mfu(ctx: Context) -> float | None:
     """Every conv's operations at the peak of its arithmetic, times the
     images completed a second, in % of the card."""
     rate = images_per_s(ctx)
-    if rate is None:
+    peak_s = W.peak_s_per_image(ctx.work)
+    if rate is None or peak_s is None:
         return None
-    return 100.0 * W.peak_s_per_image(ctx.work) * rate
+    return 100.0 * peak_s * rate
 
 
 def kernel_roofline(ctx: Context, arith: str, pattern: str) -> float | None:
@@ -72,9 +73,10 @@ def kernel_roofline(ctx: Context, arith: str, pattern: str) -> float | None:
     if seg is None or not seg.images:
         return None
     spent = seg.kernel_s(pattern)
-    if spent <= 0:
+    least = W.least_s(ctx.work, arith, seg.images, seg.batch)
+    if spent <= 0 or least is None:
         return None
-    return 100.0 * W.least_s(ctx.work, arith, seg.images, seg.batch) / spent
+    return 100.0 * least / spent
 
 
 def kernel_ms_per_image(ctx: Context, pattern: str) -> float | None:

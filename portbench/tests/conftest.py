@@ -13,16 +13,32 @@ MINI_CFG = os.path.join(ROOT, "tests", "data", "mini-yolo3.cfg")
 MINI_SHAPE = {"input": [64, 64, 3], "layers": 16, "convs": 8,
               "classes": [3], "params": 31840}
 PROGRAM = {"int8": {"mode": "int8", "int8_policy": "cpu", "int8_impl": "xla",
-                    "compute_dtype": "float32"}}
+                    "compute_dtype": "float32"},
+           "f32": {"mode": "fp32", "compute_dtype": "float32"}}
+CONTROL = {"int8": "int4", "f32": "bf16"}
 
 
-def mini_files(tmp_path, arith: str, traffic: str, limits=None) -> dict:
-    """Configuration, traffic and limits files of the small net for a cell
-    of ``arith`` under the benchmark's ``traffic``, cut to a test's size."""
-    cfg = {"name": f"mini-{arith}", "cfg": MINI_CFG, "shape": MINI_SHAPE,
+def parsed(path: str = MINI_CFG):
+    """The default reference's net of the cfg at ``path``, carrying that
+    package (``net.ref``) as ``model.load_config`` hands a net on."""
+    from portbench import reference
+    net = reference.parse(path)
+    net.ref = reference
+    return net
+
+
+def mini_files(tmp_path, arith: str, traffic: str, limits=None,
+               cfg_path: str = MINI_CFG, reference=None) -> dict:
+    """Configuration, traffic and limits files of the small net (or of
+    another cfg of its shape) for a cell of ``arith`` under the
+    benchmark's ``traffic``, cut to a test's size; the configuration names
+    ``reference`` where given."""
+    cfg = {"name": f"mini-{arith}", "cfg": cfg_path, "shape": MINI_SHAPE,
            "reduced": [], "arith": arith,
-           "control": "int4",
+           "control": CONTROL[arith],
            "program": PROGRAM[arith], "kernels": []}
+    if reference is not None:
+        cfg["reference"] = reference
     with open(os.path.join(ROOT, "portbench", "traffic",
                            f"{traffic}.json")) as f:
         tr = json.load(f)
@@ -39,5 +55,5 @@ def mini_files(tmp_path, arith: str, traffic: str, limits=None) -> dict:
 
 @pytest.fixture
 def mini(tmp_path):
-    return lambda arith, traffic, limits=None: mini_files(
-        tmp_path, arith, traffic, limits)
+    return lambda arith, traffic, limits=None, **kw: mini_files(
+        tmp_path, arith, traffic, limits, **kw)

@@ -1,7 +1,8 @@
 """What the harness loads: never JAX, jaxlib, flax or the JAX package
 (names compared whole before the first dot, so the port's own name does
-not match), and the reference not even the port; and no fall-back to the
-CPU where there is no card."""
+not match), and a reference package (each that a configuration names, and
+the tests' own) not even the port; and no fall-back to the CPU where
+there is no card."""
 
 import ast
 import json
@@ -12,6 +13,7 @@ import sys
 import pytest
 import torch
 
+from portbench.model import DEFAULT_REFERENCE
 from portbench.tests.conftest import ROOT
 
 BANNED = {"jax", "jaxlib", "flax", "yolo2_light_tpu"}
@@ -39,22 +41,38 @@ def test_the_harness_and_the_program_it_drives_load_no_jax():
     assert not top & BANNED
 
 
-def test_the_reference_loads_neither_jax_nor_the_port():
-    top = _loaded("import portbench.reference.cfg, portbench.reference.net,"
-                  " portbench.reference.post")
+def _packages() -> list:
+    """The reference package of every configuration in BENCHMARK.json, and
+    the tests' own, by their names under ``portbench``."""
+    names = {"tests.ref_relu"}
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        configs = json.load(f)["configs"]
+    for c in configs:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            names.add(json.load(f).get("reference", DEFAULT_REFERENCE))
+    return sorted(names)
+
+
+@pytest.mark.parametrize("package", _packages())
+def test_the_reference_loads_neither_jax_nor_the_port(package):
+    ref = os.path.join(ROOT, "portbench", *package.split("."))
+    files = [os.path.relpath(os.path.join(d, n), ROOT)
+             for d, _, names in os.walk(ref) for n in names
+             if n.endswith(".py")]
+    mods = [f[:-3].replace(os.sep, ".").removesuffix(".__init__")
+            for f in files]
+    top = _loaded("import " + ", ".join(sorted(mods)))
     assert not top & (BANNED | {"yolo2_light_tpu_torch"})
-    ref = os.path.join(ROOT, "portbench", "reference")
-    for name in os.listdir(ref):
-        if name.endswith(".py"):
-            tree = ast.parse(open(os.path.join(ref, name)).read())
-            for node in ast.walk(tree):
-                mods = ([a.name for a in node.names]
-                        if isinstance(node, ast.Import) else
-                        [node.module or ""] if isinstance(node, ast.ImportFrom)
-                        and node.level == 0 else [])
-                for m in mods:
-                    assert m.split(".")[0] not in BANNED | {
-                        "yolo2_light_tpu_torch"}, (name, m)
+    for name in files:
+        tree = ast.parse(open(os.path.join(ROOT, name)).read())
+        for node in ast.walk(tree):
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import) else
+                    [node.module or ""] if isinstance(node, ast.ImportFrom)
+                    and node.level == 0 else [])
+            for m in mods:
+                assert m.split(".")[0] not in BANNED | {
+                    "yolo2_light_tpu_torch"}, (name, m)
 
 
 def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):

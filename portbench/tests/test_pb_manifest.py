@@ -72,9 +72,14 @@ def test_every_layer_metric_is_reported_where_the_metric_it_moves_is():
 
 def test_every_named_file_is_there():
     for c in M["configs"]:
-        config, _ = model.load_config(os.path.join(ROOT, c["file"]))
+        config, net = model.load_config(os.path.join(ROOT, c["file"]))
         assert config["name"] == c["name"]
         assert config["reduced"] == c["reduced"]
+        ref = net.ref
+        assert ref.__name__ == "portbench." + config.get(
+            "reference", model.DEFAULT_REFERENCE)
+        for name in model.INTERFACE:
+            assert callable(getattr(ref, name)), (ref.__name__, name)
     for w in M["workloads"]:
         files = bench.cell_files(M, w["name"])
         for path in files.values():

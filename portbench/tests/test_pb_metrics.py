@@ -5,9 +5,8 @@ import math
 import pytest
 
 from portbench import readers, trace, work
-from portbench.reference import cfg as ref_cfg
 from portbench.traffic import Record
-from portbench.tests.conftest import MINI_CFG, ROOT
+from portbench.tests.conftest import ROOT, parsed
 
 
 def test_union_of_kernel_intervals_and_the_gaps_between():
@@ -54,7 +53,7 @@ def test_percentiles_by_nearest_rank_over_every_request():
 
 
 def test_conv_work_roofline_and_mfu_from_shapes():
-    net = ref_cfg.parse(MINI_CFG)
+    net = parsed()
     w8 = work.conv_work(net, "int8")
     # the first conv and the linear head convs stay float32
     assert [c.arith for c in w8].count("f32") == 3
@@ -85,7 +84,7 @@ def test_conv_work_roofline_and_mfu_from_shapes():
 
 
 def test_yolov3_counts_the_published_work():
-    net = ref_cfg.parse(f"{ROOT}/portbench/configs/yolov3-416.cfg")
+    net = parsed(f"{ROOT}/portbench/configs/yolov3-416.cfg")
     w = work.conv_work(net, "bf16")
     # darknet prints 65.86 BFLOPs for yolov3-416
     assert math.isclose(2 * sum(c.macs for c in w) / 1e9, 65.864, rel_tol=1e-3)

@@ -7,10 +7,9 @@ import pytest
 import torch
 
 from portbench import model
-from portbench.reference import cfg as ref_cfg
 from portbench.reference import net as ref_net
 from portbench.reference import post as ref_post
-from portbench.tests.conftest import MINI_CFG
+from portbench.tests.conftest import MINI_CFG, parsed
 
 SEED = 2**31 + 17
 
@@ -35,7 +34,7 @@ def _port_heads(arith, host, x, device="cpu"):
 
 
 def _weights():
-    net = ref_cfg.parse(MINI_CFG)
+    net = parsed()
     raw = model.make_weights(net, SEED, "cpu")
     return net, model.set_obj_bias(net, raw, -1.5)
 

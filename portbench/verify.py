@@ -6,10 +6,11 @@ the pool and the detections the program returned for it (boxes ``[n, 4]``
 centre x, y, w, h relative to the frame; class scores ``[n, C]`` after the
 threshold and the NMS, zero where there is no detection).
 
-Once the window has closed and the program is freed, the plain reference
-(``reference/``) runs over the sampled frames from the same weights and
-gives every candidate of each frame: its box, its scores before the
-threshold and after the threshold and the NMS. Each served row
+Once the window has closed and the program is freed, the configuration's
+plain reference (``net.ref``: ``reference/`` unless the configuration
+names another) runs over the sampled frames from the same
+weights and gives every candidate of each frame: its box, its scores
+before the threshold and after the threshold and the NMS. Each served row
 is matched to the candidate whose box lies nearest (largest coordinate
 difference), and these numbers are taken over the whole sample:
 
@@ -37,8 +38,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .reference import net as ref_net
-from .reference import post as ref_post
 
 NUMBERS = ("unlike_pct", "frame_ratio_pct", "prob_gap", "prob_gap_p50")
 REF_BLOCK = 8       # frames a reference forward takes at once
@@ -101,21 +100,22 @@ def reference_truths(net, raw_params, pool, frames, arith: str,
     """frame index -> :class:`Truth`, the reference run over the frames of
     ``pool`` (uint8 ``[P, H, W, 3]`` host array) named in ``frames``, in
     blocks of :data:`REF_BLOCK`."""
-    prep = ref_net.prepare(net, raw_params, arith, device)
+    ref = net.ref
+    prep = ref.prepare(net, raw_params, arith, device)
     out = {}
     idx = sorted(set(frames))
     fh, fw = pool.shape[1], pool.shape[2]
     with torch.inference_mode():
         for s in range(0, len(idx), REF_BLOCK):
             block = idx[s:s + REF_BLOCK]
-            x = ref_post.ingest(torch.from_numpy(pool[block]).to(device),
-                                net.w, net.h)
-            heads = ref_net.forward(net, prep, x, arith)
+            x = ref.ingest(torch.from_numpy(pool[block]).to(device),
+                           net.w, net.h)
+            heads = ref.forward(net, prep, x, arith)
             boxes, raw, kept = (t.cpu().numpy() for t in
-                                ref_post.decode(net, heads, thresh))
+                                ref.decode(net, heads, thresh))
             for j, f in enumerate(block):
-                bx = ref_post.correct_boxes(boxes[j], fw, fh, net.w, net.h)
-                out[f] = Truth(bx, raw[j], ref_post.nms(bx, kept[j], nms))
+                bx = ref.correct_boxes(boxes[j], fw, fh, net.w, net.h)
+                out[f] = Truth(bx, raw[j], ref.nms(bx, kept[j], nms))
     del prep
     return out
 

@@ -1,19 +1,21 @@
 """The work of a network counted from its layer shapes, and the card's peaks.
 
 Nothing here reads the program: the convs and their shapes come from the
-reference's cfg parse, the arithmetic of each conv from the
-configuration's mode, and the least time of each conv from its operations
-and bytes at the published peaks of one NVIDIA H100 SXM (data sheet, dense
-rates, 700 W): the larger of bytes over the HBM bandwidth and operations
-over the peak of its arithmetic. Each input is read once and each output
-written once.
+configuration's reference (``net.ref``), its cfg parse and the arithmetic
+it gives each conv under the configuration's mode (``conv_arith``), and
+the least time of each conv from its operations and bytes at the
+published peaks of one NVIDIA H100 SXM (data sheet, dense rates, 700 W):
+the larger of bytes over the HBM bandwidth and operations over the peak of
+its arithmetic. Each input is read once and each output written once. A
+reference package that exports ``conv_work`` counts its convs' operations
+and bytes itself; the peaks stay this module's, and an arithmetic the data
+sheet gives no peak for has no least time (its convs' rooflines and the
+step's share of the peak read nothing).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-
-from .reference import net as ref_net
 
 PEAK_BYTES = 3.35e12                 # HBM3, bytes a second
 PEAK_OPS = {                         # operations a second, by arithmetic
@@ -50,22 +52,13 @@ class ConvWork:
         return self.ops() * images / PEAK_OPS[self.arith]
 
 
-def conv_arith(net, mode: str) -> dict:
-    """conv index -> the arithmetic it is computed in under ``mode``
-    (``int8``: yolo2_light's -quantized, the first and the linear convs in
-    float32; ``bf16``: every conv; ``f32``: every conv)."""
-    if mode == "int8":
-        ints = ref_net.integer_layers(net)
-        return {l.index: "int8" if l.index in ints else "f32"
-                for l in net.convs}
-    if mode not in ("bf16", "f32"):
-        raise ValueError(f"unknown mode {mode!r}")
-    return {l.index: mode for l in net.convs}
-
-
 def conv_work(net, mode: str) -> list:
+    """The :class:`ConvWork` of every conv of ``net`` under ``mode``."""
+    ref = net.ref
+    if hasattr(ref, "conv_work"):
+        return ref.conv_work(net, mode)
     out = []
-    for l, arith in zip(net.convs, conv_arith(net, mode).values()):
+    for l, arith in zip(net.convs, ref.conv_arith(net, mode).values()):
         k = l.size * l.size * l.c
         p = l.out_h * l.out_w
         wb = WEIGHT_BYTES[arith] * l.n * k + 4 * l.n
@@ -74,13 +67,19 @@ def conv_work(net, mode: str) -> list:
     return out
 
 
-def least_s(work: list, arith: str, images: int, batch: int) -> float:
+def least_s(work: list, arith: str, images: int,
+            batch: int) -> float | None:
     """The least time of the convs computed in ``arith`` over ``images``
-    images run ``batch`` to a launch."""
+    images run ``batch`` to a launch; None where ``arith`` has no peak."""
+    if arith not in PEAK_OPS:
+        return None
     launches = images / batch
     return sum(c.least_s(batch) * launches for c in work if c.arith == arith)
 
 
-def peak_s_per_image(work: list) -> float:
-    """Every conv's operations at the peak of its arithmetic, one image."""
+def peak_s_per_image(work: list) -> float | None:
+    """Every conv's operations at the peak of its arithmetic, one image;
+    None where a conv's arithmetic has no peak."""
+    if any(c.arith not in PEAK_OPS for c in work):
+        return None
     return sum(c.peak_s(1) for c in work)
