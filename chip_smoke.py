@@ -8,7 +8,7 @@ Phases, each reported on its own lines:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as nvidia-smi reports them.
-2. build: compiles the seven kernels of ``yolo2_light_tpu_torch/csrc``, one
+2. build: compiles the eight kernels of ``yolo2_light_tpu_torch/csrc``, one
    nvcc per source, all started together (each build and the phase timed).
 3. kernels: the int8 conv kernel in both input forms (f32 input quantized
    in its loader, the network's path; pre-quantized int8 input, the Pallas
@@ -213,6 +213,19 @@ Phases, each reported on its own lines:
    at b=8 (CUDA events behind a device sleep) in int8 ``xla`` and
    ``-bf16``; the projected table on NVIDIA's published H100 SXM NVLink
    figure (not measured), printed and on a ``{"commvol": ...}`` line.
+13. yolov4: K1's mish form (``csrc/int8_conv_mish.cu``) against its plain
+   twin (the linear epilogue's, then ``F.mish``, on the card), bit for bit,
+   in the cpu and the gpu epilogue, at the 25 classes of yolov4-416's 71
+   mish int8 convs (``portbench/configs/yolov4-416.cfg``, b=1); the cpu
+   form timed beside its bound, the leaky form at the same shape, the plain
+   twin and ``torch._int_mm``, summed over the 71. Then one yolov4-416 int8
+   forward (random weights, seed 7) with the launch counts zeroed just
+   before it: 71 launches of ``f32/cpu/f32/mish`` and 35 of
+   ``f32/cpu/f32``, nothing in front; heads equal to the plain path's;
+   under torch.profiler in a process of its own, 71 kernels of the mish
+   form and conv0's ``F.mish`` the only kernels named mish (no separate
+   mish pass). A
+   ``{"yolov4": ...}`` line after the ``{"commvol": ...}`` line.
 
 Every kernel time is printed beside the least time the card could take for
 the same work: the bytes the function must move (each input read once, each
@@ -232,10 +245,12 @@ a ``{"slice11": ...}`` line with phase 11's numbers, a
 ``{"pipeline": ...}`` line with phase 8's numbers and the NMS kernels' rows, a
 ``{"precision": ...}`` line with phase 9's, a ``{"cpu_old": ...}`` line
 with phase 10's, a ``{"parallel": ...}`` line with phase 12's and a
-``{"commvol": ...}`` line with its communication account): its launches on the main path, its time, the plain
+``{"commvol": ...}`` line with its communication account and a
+``{"yolov4": ...}`` line with phase 13's forward): its launches on the main path, its time, the plain
 version's, the bound (sums over the shapes timed) and the library call's
 where there is one, and a row for each of K1's forms on the precision
-modes' and the cpu_old path, with its launches there. Two Pallas functions
+modes', the cpu_old path and yolov4's mish convs, with its launches
+there. Two Pallas functions
 that compute one function share a Hopper kernel and its numbers.
 """
 
@@ -320,6 +335,10 @@ SHAPES = [
     ("3x3/s2 26x26x512->13x13x1024", (1, 26, 26, 512, 1024, 3, 2, 1)),
 ]
 IN_MULT, W_MULT = 40.0, 16.0
+# phase 13: yolov4-416 (the benchmark's cfg), K1's mish form
+V4_CFG = os.path.join(ROOT, "portbench", "configs", "yolov4-416.cfg")
+V4_FORMS = {"f32/cpu/f32/mish": 71, "f32/cpu/f32": 35}
+MISH_SOURCE = "yolo2_light_tpu_torch/csrc/int8_conv_mish.cu"
 KERNEL_SOURCE = "yolo2_light_tpu_torch/csrc/int8_conv.cu"
 REPLACES = "yolo2_light_tpu/ops/pallas_int8.py:141"        # conv3x3_int8_tiled
 ALSO_REPLACES = "yolo2_light_tpu/ops/pallas_int8.py:71"    # conv3x3_int8_fused
@@ -359,6 +378,7 @@ XNOR_THRESH = "0.1"     # with random weights no box reaches 0.25
 # every kernel of csrc/ and the call that binds it
 KERNEL_LOADERS = {
     "int8_conv": int8_conv.load_kernel,
+    "int8_conv_mish": lambda: int8_conv.load_kernel(mish=True),
     "fused_res": fused_res.load_kernel,
     "xnor_gemm": lambda: xnor_gemm.load_kernel("xnor_gemm"),
     "xnor_gemm_mxu": lambda: xnor_gemm.load_kernel("xnor_gemm_mxu"),
@@ -1649,7 +1669,7 @@ def _pipeline_mode(name: str, cfg: str, quantized: bool, kw: dict,
         row[f"b{b}_eager_ms"] = wall_ms(
             lambda: pipeline._fetch_packed(eager.raw(x)), iters=10)
         xd = torch.from_numpy(x).cuda()
-        g = graphed._graphs[(tuple(x.shape), torch.uint8)]
+        g = graphed._graphs[(tuple(x.shape), torch.uint8, False)]
         row[f"b{b}_busy_graph_ms"] = busy_ms(g.graph.replay,
                                              row[f"b{b}_captured_ms"])
         row[f"b{b}_busy_eager_ms"] = busy_ms(lambda: eager.run(xd),
@@ -2256,7 +2276,7 @@ def _old_pipeline(spec, params) -> dict:
         lambda: pipeline._fetch_packed(graphed.raw(x)))}
     row["eager_ms"] = wall_ms(lambda: pipeline._fetch_packed(eager.raw(x)),
                               iters=10)
-    g = graphed._graphs[(tuple(x.shape), torch.uint8)]
+    g = graphed._graphs[(tuple(x.shape), torch.uint8, False)]
     row["busy_graph_ms"] = busy_ms(g.graph.replay, row["captured_ms"])
     xd = torch.from_numpy(x).cuda()
     row["busy_eager_ms"] = busy_ms(lambda: eager.run(xd), row["eager_ms"])
@@ -3539,6 +3559,147 @@ def _par_commvol(spec, params, mode, weights: str, smi_line: str) -> dict:
     return res
 
 
+def _v4_mish_classes() -> collections.Counter:
+    """(B, H, W, C, M, ks, stride, pad) at b=1 -> how many of yolov4-416's
+    int8 convs with mish have it (71 convs in 25 classes)."""
+    spec = parse_network_cfg(V4_CFG, batch=1, quantized=True,
+                             echo_table=False)
+    ints = network._int8_layer_set(spec, "cpu")
+    return collections.Counter(
+        (1, l.h, l.w, l.c, l.n, l.size, l.stride, l.pad)
+        for l in spec.conv_layers()
+        if l.index in ints and l.activation == "mish")
+
+
+def phase_v4_kernels() -> list:
+    """K1's mish form (``csrc/int8_conv_mish.cu``) against its plain twin
+    (``conv2d_int8_f32_plain(..., "mish")``: the linear epilogue, then
+    ``F.mish``, on the card), bit for bit, in the cpu and the gpu epilogue,
+    at yolov4-416's 25 mish classes; the cpu form (the path's) timed beside
+    its bound, the leaky form at the same shape, the plain twin and
+    ``torch._int_mm``."""
+    dev = torch.device("cuda")
+    rows = []
+    for i, (shape, n) in enumerate(sorted(_v4_mish_classes().items())):
+        b, h, w, c, m, ks, s, pad = shape
+        label = f"{ks}x{ks}/s{s} {h}x{w}x{c}->{m}"
+        xin, wt, bias = _form_operands(dev, SEED + i, shape, "f32")
+        err = 0.0
+        for form in ("f32/cpu/f32", "f32/gpu/f32"):
+            out = _run_form(form, False, xin, wt, bias, s, pad, "mish")
+            ref = _run_form(form, True, xin, wt, bias, s, pad, "mish")
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref),
+                  f"K1 mish form {form} != plain at {label}")
+            err = max(err, float((out - ref).abs().max()))
+        x8 = int8_conv.quantize_i8(xin, IN_MULT)
+        a = im2col_int8(x8, ks, s, pad)
+        wmat = wt.view(m, -1).t()
+        row = {"shape": label, "count": n, "max_abs_err": err}
+        row["ms"] = event_ms(lambda: _run_form(
+            "f32/cpu/f32", False, xin, wt, bias, s, pad, "mish"))
+        row["leaky_ms"] = event_ms(lambda: _run_form(
+            "f32/cpu/f32", False, xin, wt, bias, s, pad, "leaky"))
+        row["plain_ms"] = event_ms(lambda: _run_form(
+            "f32/cpu/f32", True, xin, wt, bias, s, pad, "mish"), iters=10)
+        row["library_ms"] = event_ms(lambda: torch._int_mm(a, wmat))
+        oh, ow = ref.shape[1:3]
+        p = b * oh * ow
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * xin.numel() + wt.numel() + 4 * m + 4 * p * m,
+            2.0 * p * m * ks * ks * c)
+        rows.append(row)
+
+    def total(key):
+        return sum(r[key] * r["count"] for r in rows)
+    say("yolov4", f"K1 mish form: bit-identical to plain (cpu and gpu "
+        f"epilogue) at {len(rows)} classes of "
+        f"{sum(r['count'] for r in rows)} convs; over the 71 at b=1 kernel {total('ms'):.4f} ms (leaky form "
+        f"{total('leaky_ms'):.4f}), plain {total('plain_ms'):.4f}, "
+        f"torch._int_mm {total('library_ms'):.4f} ms; bound "
+        f"{total('bound_ms') * 1e3:.2f} us, "
+        f"{100 * total('bound_ms') / total('ms'):.1f}% of it")
+    return rows
+
+
+def count_v4_mish_kernels() -> dict:
+    """The device kernels with mish in their names in one warm yolov4-416
+    int8 forward (random weights, seed 7) under torch.profiler, by kind:
+    for a process of its own (``phase_yolov4``; profiler sessions late in
+    a long process lost kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    spec, params, mode = detect.build_params(V4_CFG, None, quantized=True,
+                                             seed=SEED, echo=False)
+    pred = network.Predictor(spec, params, mode, device="cuda")
+    x = np.random.RandomState(SEED).rand(1, 416, 416, 3).astype(np.float32)
+    pred(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # queued behind a device sleep, as in k6_profile
+        torch.cuda._sleep(SLEEP_CYCLES // 5)
+        pred(x)
+        torch.cuda.synchronize()
+    mish = collections.Counter()
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "mish" in e.name.lower()):
+            mish["int8_conv_mish_kernel" if "int8_conv_mish_kernel" in e.name
+                 else "other"] += 1
+    return dict(mish)
+
+
+def phase_yolov4() -> dict:
+    """One yolov4-416 int8 forward at b=1 (random weights, seed 7): its
+    K1 launches by form, counted from zero just before it (71
+    ``f32/cpu/f32/mish``, 35 ``f32/cpu/f32``, nothing in front of them),
+    the kernel path's heads equal to the plain path's on the card, and, in
+    a fresh process, the device kernels with mish in their names: the 71
+    of K1's mish form and conv0's ``F.mish`` (no separate mish pass)."""
+    spec, params, mode = detect.build_params(V4_CFG, None, quantized=True,
+                                             seed=SEED, echo=False)
+    kernel = network.Predictor(spec, params, mode, device="cuda")
+    plain = network.Predictor(spec, params, mode, device="cuda",
+                              int8_impl="plain")
+    x = np.random.RandomState(SEED).rand(1, 416, 416, 3).astype(np.float32)
+    hk = kernel(x)
+    torch.cuda.synchronize()
+    int8_conv.reset_launch_counts()
+    hk2 = kernel(x)
+    torch.cuda.synchronize()
+    forms = dict(int8_conv.FORM_LAUNCHES)
+    launches = int8_conv.LAUNCH_COUNTS["int8_conv"]
+    pre = dict(int8_conv.PRE_LAUNCHES)
+    check(forms == V4_FORMS, f"yolov4 K1 launches by form {forms}, "
+          f"expected {V4_FORMS}")
+    check(launches == 106 and not any(pre.values()),
+          f"yolov4: {launches} int8_conv launches, {pre} in front")
+    hp = plain(x)
+    check([h.index for h in hk] == [139, 150, 161], "yolov4 head layers")
+    for a, b, c in zip(hk, hp, hk2):
+        check(bool(torch.isfinite(a.data).all()),
+              f"yolov4 head {a.index} has non-finite values")
+        check(torch.equal(a.data, b.data),
+              f"yolov4 head {a.index}: kernel path != plain path")
+        check(torch.equal(a.data, c.data),
+              f"yolov4 head {a.index}: two kernel-path runs differ")
+    k_ms = forward_ms(kernel, x)
+    res = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke as cs; "
+         "print(json.dumps(cs.count_v4_mish_kernels()))"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, "counting yolov4's mish kernels failed: "
+          + res.stderr[-2000:])
+    mish = json.loads(res.stdout.strip().splitlines()[-1])
+    check(mish == {"int8_conv_mish_kernel": 71, "other": 1},
+          f"yolov4 kernels named mish in a forward: {mish} (expected 71 of "
+          "K1's mish form and conv0's F.mish)")
+    say("yolov4", f"one forward: K1 {forms}, no launch in front; heads of "
+        f"the kernel path == plain path (3 heads); device kernels named "
+        f"mish {mish} (a process of its own); warm b=1 forward {k_ms:.3f} "
+        "ms")
+    return {"forms": forms, "launches": launches, "mish_kernels": mish,
+            "forward_ms": k_ms}
+
 def main() -> int:
     smi_line = phase_device()
     phase_build()
@@ -3571,6 +3732,8 @@ def main() -> int:
                    "profile": phase_profile(tmp, weights, names_file)}
         phase_nms_ops()
         parallel = phase_parallel(tmp, weights, names_file, names, smi_line)
+        v4_rows = phase_v4_kernels()
+        v4 = phase_yolov4()
         for mode, r in slice11["demo"].items():
             say("demo", f"{mode}: {r['fps']:.1f} frames per second over "
                 f"{r['fps_frames']} frames (quarters "
@@ -3684,6 +3847,20 @@ def main() -> int:
         "shapes": bf16_rows})
     # the device NMS's two hand kernels (phase 8)
     kernels += piped["nms_kernels"]
+    # K1's mish form (phase 13): the same TPU kernel as K1's row, its
+    # launches in yolov4-416's forward
+    kernels.append({
+        "name": "conv3x3_int8_tiled [f32/cpu/f32/mish]",
+        "kernel": "int8_conv_mish", "form": "f32/cpu/f32/mish",
+        "what": "mish epilogue (yolov4's CSPDarknet53)", "route": "cuda",
+        "source": MISH_SOURCE, "replaces": REPLACES,
+        "launches": v4["forms"]["f32/cpu/f32/mish"],
+        "max_abs_err": max(r["max_abs_err"] for r in v4_rows),
+        **{k: sum(r[k] * r["count"] for r in v4_rows)
+           for k in ("ms", "leaky_ms", "plain_ms", "library_ms")},
+        **row_bound([dict(r, bound_ms=r["bound_ms"] * r["count"])
+                     for r in v4_rows]),
+        "library": k1["library"], "shapes": v4_rows})
     print(json.dumps({"slice11": slice11}), flush=True)
     print(json.dumps({"pipeline": piped}), flush=True)
     print(json.dumps({"precision": precision}), flush=True)
@@ -3691,6 +3868,7 @@ def main() -> int:
     comm = parallel.pop("commvol")
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"commvol": comm}), flush=True)
+    print(json.dumps({"yolov4": v4}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -61,7 +61,7 @@ def profile_mode(name: str, seed: int, top: int) -> None:
         x = torch.from_numpy(frames[:b]).cuda()
         with torch.inference_mode():
             pipe.raw(x)
-            g = pipe._graphs[(tuple(x.shape), torch.uint8)]
+            g = pipe._graphs[(tuple(x.shape), torch.uint8, False)]
             xin = pipe.ingest(x)
             heads = [h.data for h in pipe._fwd(pipe.params, xin)[0]]
             packed = pipe._decoder.packed(heads)

@@ -1,7 +1,7 @@
 """Where a block of the int8 conv kernel (K1) spends its time, on the GPU.
 
 Builds a copy of ``yolo2_light_tpu_torch/csrc/int8_conv.cu`` into
-``build/trace/`` with timestamps added (``%globaltimer`` at a block's start
+``build/trace/``, its body (``csrc/int8_conv.cuh``) with timestamps added (``%globaltimer`` at a block's start
 and end, ``clock64`` after its prologue, after its main loop and after its
 epilogue; the kernel's own code is unchanged), checks it against the plain
 version, and prints for each of yolov3-416's 15 int8 conv classes and both
@@ -34,7 +34,7 @@ from yolo2_light_tpu_torch.ops import int8_conv as K  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "trace")
 MAX_BLOCKS = 8192
-# (anchor in int8_conv.cu, what is inserted after it)
+# (anchor in int8_conv.cuh, what is inserted after it)
 PATCHES = [
     ("namespace {\n",
      f"__device__ unsigned long long g_trace[{MAX_BLOCKS} * 6];\n"
@@ -65,14 +65,18 @@ PATCHES = [
 
 
 def build_traced() -> ctypes.CDLL:
-    src = open(os.path.join(_build.CSRC_DIR, "int8_conv.cu")).read()
+    body = open(os.path.join(_build.CSRC_DIR, "int8_conv.cuh")).read()
     for anchor, insert in PATCHES:
-        if src.count(anchor) != 1:
+        if body.count(anchor) != 1:
             raise RuntimeError(f"anchor not found once: {anchor!r}")
-        src = src.replace(anchor, anchor + insert)
+        body = body.replace(anchor, anchor + insert)
+    src = open(os.path.join(_build.CSRC_DIR, "int8_conv.cu")).read()
     src += ('extern "C" int read_trace(void* host, int n) {\n'
             '  return (int)cudaMemcpyFromSymbol(host, g_trace, n * 48);\n}\n')
     os.makedirs(OUT, exist_ok=True)
+    # the traced body beside the copy: its #include finds this one first
+    with open(os.path.join(OUT, "int8_conv.cuh"), "w") as f:
+        f.write(body)
     path = os.path.join(OUT, "int8_conv_traced.cu")
     with open(path, "w") as f:
         f.write(src)
@@ -96,7 +100,7 @@ def main() -> int:
     entry = lib.int8_conv_nhwc
     bound = K.load_kernel()
     entry.restype, entry.argtypes = bound.restype, bound.argtypes
-    K.load_kernel = lambda: entry
+    K.load_kernel = lambda mish=False: entry
     dev = torch.device("cuda")
     alpha = K.alpha_f32(cs.IN_MULT, cs.W_MULT)
     for i, (label, (b, h, w, c, m, ks, s, pad)) in enumerate(cs.SHAPES):

@@ -34,9 +34,29 @@ from yolo2_light_tpu_torch.io import image as TI
 from yolo2_light_tpu_torch.post import boxes as TB
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
-CFGS = sorted(glob.glob(os.path.join(DATA, "*.cfg")))
+# cfgs of what the port adds to the JAX package's parser (yolov4's mish and
+# [yolo] options), which the JAX package parses otherwise
+PORT_ONLY_CFGS = {"mini-yolov4.cfg"}
+CFGS = sorted(p for p in glob.glob(os.path.join(DATA, "*.cfg"))
+              if os.path.basename(p) not in PORT_ONLY_CFGS)
+# fields the port's specs add, at the value that keeps the JAX package's
+# behaviour: a spec holding that value equals the JAX spec without the field
+PORT_ONLY_FIELDS = {"scale_x_y": 1.0}
 IMAGE = os.path.join(DATA, "dog160.png")
 NET_CFGS = ["mini-yolo3", "mini-yolo2", "mini-res", "mini-xnor"]
+
+
+def _port_asdict(spec) -> dict:
+    """``dataclasses.asdict`` of a port spec without :data:`PORT_ONLY_FIELDS`
+    where they hold the JAX package's behaviour (their value there)."""
+    def strip(v):
+        if isinstance(v, dict):
+            return {k: strip(x) for k, x in v.items()
+                    if PORT_ONLY_FIELDS.get(k, object()) != x}
+        if isinstance(v, (list, tuple)):
+            return type(v)(strip(x) for x in v)
+        return v
+    return strip(dataclasses.asdict(spec))
 
 
 def _assert_same(a, b, where="value"):
@@ -71,7 +91,7 @@ def test_every_cfg_parses_to_the_same_spec(path, quantized):
     t = TC.parse_network_cfg(path, batch=1, quantized=quantized)
     assert [type(l).__name__ for l in t.layers] == [
         type(l).__name__ for l in j.layers]
-    _assert_same(dataclasses.asdict(t), dataclasses.asdict(j))
+    _assert_same(_port_asdict(t), dataclasses.asdict(j))
 
 
 def test_yolov2_voc_cfg_parses_as_jax_and_regenerates(tmp_path):

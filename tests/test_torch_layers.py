@@ -22,6 +22,9 @@ from yolo2_light_tpu_torch.models import layers as TL
 EXACT_ACTS = ["linear", "relu", "relie", "ramp", "leaky", "plse", "stair",
               "hardtan", "lhtan"]
 EXP_ACTS = ["logistic", "loggy", "elu", "selu", "tanh"]
+# what the port adds to the JAX package's activations: yolov4's mish, held
+# to the benchmark's plain yolov4 reference in tests/test_torch_yolov4.py
+PORT_ONLY_ACTS = {"mish"}
 
 
 def _rand(seed, *shape, scale=1.0):
@@ -30,7 +33,7 @@ def _rand(seed, *shape, scale=1.0):
 
 
 def test_every_activation_is_ported():
-    assert set(TL.ACTIVATION_FNS) == set(JL.ACTIVATION_FNS)
+    assert set(TL.ACTIVATION_FNS) == set(JL.ACTIVATION_FNS) | PORT_ONLY_ACTS
     assert sorted(EXACT_ACTS + EXP_ACTS) == sorted(JL.ACTIVATION_FNS)
 
 

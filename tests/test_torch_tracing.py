@@ -15,7 +15,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from yolo2_light_tpu_torch.apps.detect import build_params
-from yolo2_light_tpu_torch.pipeline import STAGES, DetectionPipeline
+from yolo2_light_tpu_torch.pipeline import SPLIT, STAGES, DetectionPipeline
 from yolo2_light_tpu_torch.utils import profiling
 
 CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -349,7 +349,9 @@ def test_replay_events_and_stage_times_on_the_card(dev):
     """yolov3-416 in float32 at b=1: each replay of the traced graph records
     its four stage times, in order, and they add up to the replay's device
     time as an event pair around it measures it, within 5% (the pair also
-    holds the launch)."""
+    holds the launch); the network stage's two parts on either side of its
+    split event (after layer 84, before the first upsample) follow them and
+    add up to it."""
     spec, params, mode = build_params(
         os.path.join(os.path.dirname(CFG), "yolov3.cfg"), None,
         quantized=False, seed=3, echo=False)
@@ -373,16 +375,20 @@ def test_replay_events_and_stage_times_on_the_card(dev):
             pipe(x)
     rec = profiling.recorded()
     _check_nesting(rec)
+    names = ["stage." + s for s in STAGES + SPLIT]
     stages = [d for d in rec.device if d.name.startswith("stage.")]
-    assert len(stages) == 4 * len(STAGES)
+    assert len(stages) == 4 * len(names)
     assert all(d.ms > 0 for d in stages)
     replays = sorted({d.at for d in stages})[1:]
     assert len(replays) == len(timed.pairs) == 3
     for at, (a, b) in zip(replays, timed.pairs):
         mine = [d for d in stages if d.at == at]
-        assert [d.name for d in mine] == ["stage." + s for s in STAGES]
+        assert [d.name for d in mine] == names
+        whole = mine[:len(STAGES)]
         pair = a.elapsed_time(b)
-        assert abs(sum(d.ms for d in mine) - pair) <= 0.05 * pair
+        assert abs(sum(d.ms for d in whole) - pair) <= 0.05 * pair
+        down, up = mine[len(STAGES):]
+        assert abs(down.ms + up.ms - whole[1].ms) <= 1e-3 * whole[1].ms
 
 
 @pytest.mark.cuda

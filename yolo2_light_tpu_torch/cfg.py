@@ -1,5 +1,5 @@
 # Mirrors yolo2_light_tpu/cfg.py: a copy, so that the port imports
-# nothing of the JAX package.
+# nothing of the JAX package; it adds yolov4's mish and [yolo] options.
 """Darknet ``.cfg`` model-description parser.
 
 Produces a typed, immutable :class:`ModelSpec` (a list of per-layer dataclasses with
@@ -35,10 +35,12 @@ from typing import Optional
 # ---------------------------------------------------------------------------
 
 # the string mapping recognizes 13 names (src/additionally.h:108-123); notably
-# "selu" has an activate() case but is NOT reachable from a cfg file
+# "selu" has an activate() case but is NOT reachable from a cfg file. The
+# port adds "mish", which AlexeyAB/darknet's yolov4.cfg uses
+# (activate_array_mish, src/activations.c there; yolo2_light has none)
 ACTIVATIONS = (
     "logistic", "loggy", "relu", "elu", "relie", "plse", "hardtan", "lhtan",
-    "linear", "ramp", "leaky", "tanh", "stair",
+    "linear", "ramp", "leaky", "tanh", "stair", "mish",
 )
 
 
@@ -232,6 +234,8 @@ class YoloSpec(LayerSpec):
     focal_loss: int = 0
     class_map: tuple = None     # map= file contents (src/additionally.c:3662-3663);
                                 # parsed but unused in yolo decode, like the reference
+    scale_x_y: float = 1.0      # AlexeyAB/darknet's (yolov4): x, y after the
+                                # logistic become x * s - (s - 1) / 2
 
 
 @dataclass(frozen=True)
@@ -422,6 +426,33 @@ def _conv_quant_eligible(index: int, activation: str, stride: int, size: int,
     return quantized
 
 
+# [yolo] keys of AlexeyAB/darknet (parse_yolo, src/parser.c there) that only
+# its training reads; yolov4.cfg sets them, and they are accepted quietly
+_YOLO_TRAINING_KEYS = ("iou_thresh", "iou_normalizer", "iou_loss",
+                       "cls_normalizer", "obj_normalizer", "max_delta",
+                       "beta_nms")
+
+
+def _yolo_v4_options(s: Section, index: int) -> float:
+    """The [yolo] options AlexeyAB/darknet adds (its parse_yolo): returns
+    ``scale_x_y`` (default 1). ``nms_kind`` may be its default or
+    ``greedynms``, whose suppression is do_nms_sort's (IoU above the
+    threshold zeroes the class); ``diounms`` and ``cornersnms`` suppress by
+    other measures and are refused, as is ``new_coords=1``, which decodes
+    the boxes without the logistic."""
+    nms_kind = s.find_str("nms_kind", "default")
+    if nms_kind not in ("default", "greedynms"):
+        raise ValueError(f"[yolo] layer {index}: nms_kind={nms_kind} is not "
+                         "supported (the port's NMS is greedynms, darknet's "
+                         "do_nms_sort)")
+    if s.find_int("new_coords", 0):
+        raise ValueError(f"[yolo] layer {index}: new_coords=1 (the scaled "
+                         "yolov4 box decode) is not supported")
+    for k in _YOLO_TRAINING_KEYS:
+        s.find(k)
+    return s.find_float("scale_x_y", 1.0)
+
+
 def parse_network_cfg(path: str, batch: int = 0, quantized: bool = False,
                       echo_table: bool = False) -> ModelSpec:
     """Parse a darknet cfg into a ModelSpec.
@@ -591,6 +622,7 @@ def parse_network_cfg(path: str, batch: int = 0, quantized: bool = False,
                 vals = _parse_float_list(anchors_str)
                 for i, v in enumerate(vals[: 2 * total]):
                     anchors[i] = v
+            scale_x_y = _yolo_v4_options(s, count)
             out_c = num * (classes + 4 + 1)
             layer = YoloSpec(**common, out_w=w, out_h=h, out_c=out_c,
                              n=num, total=total, mask=mask, classes=classes,
@@ -601,7 +633,8 @@ def parse_network_cfg(path: str, batch: int = 0, quantized: bool = False,
                              truth_thresh=truth_thresh,
                              random=rand,
                              focal_loss=focal_loss,
-                             class_map=class_map)
+                             class_map=class_map,
+                             scale_x_y=scale_x_y)
             if layer.outputs != inputs:
                 raise ValueError(
                     "filters= in the [convolutional]-layer doesn't correspond to "

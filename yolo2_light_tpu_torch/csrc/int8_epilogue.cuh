@@ -82,3 +82,11 @@ __device__ __forceinline__ float old_epilogue(int acc, int shift, float mult,
   if (leaky && !(y > 0.0f)) y = truncf(__fdiv_rn(y, 10.0f));
   return y;
 }
+
+// mish: y * tanh(softplus(y)) as PyTorch's CUDA F.mish computes it,
+// y * tanhf(log1pf(expf(y))), with the same math functions (no fast-math)
+// and the product rounded once. AlexeyAB/darknet's softplus threshold of 20
+// changes no float32 result (ops/int8_conv.mish_plain says why).
+__device__ __forceinline__ float mish(float y) {
+  return __fmul_rn(y, tanhf(log1pf(expf(y))));
+}

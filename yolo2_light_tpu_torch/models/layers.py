@@ -52,6 +52,10 @@ ACTIVATION_FNS = {
     "hardtan": lambda x: torch.clamp(x, -1.0, 1.0),
     "lhtan": lambda x: torch.where(
         x < 0, 0.001 * x, torch.where(x > 1, 0.001 * (x - 1) + 1.0, x)),
+    # x * tanh(softplus(x)) (AlexeyAB/darknet's activate_array_mish, whose
+    # softplus threshold of 20 changes nothing in float32: see
+    # ops/int8_conv.mish_plain)
+    "mish": F.mish,
 }
 
 
@@ -169,18 +173,19 @@ def conv2d_int8(x, weights_int8, biases, stride: int, pad: int,
 
     Each call is one launch of the int8 kernel (``ops/int8_conv``: its
     float- or int8-input entry, the epilogue and the store fused) for a
-    CUDA tensor, where the activation is leaky or linear; ``plain=True``
+    CUDA tensor, where the activation is leaky or linear, or mish on a
+    float32 input stored as float32 (``int8_conv.fuses``); ``plain=True``
     runs its plain PyTorch version instead (the reference the kernel is
-    checked against). ``weights_int8``: ``[M, kh, kw, C]``.
+    checked against). Any other activation, and mish beside another input
+    or store, runs as a PyTorch op on the kernel's float32 linear result,
+    then the store. ``weights_int8``: ``[M, kh, kw, C]``.
     """
-    epilogue = activation if activation in ("leaky", "linear") else "linear"
-    # the kernel stores in out_dtype only where its epilogue is the whole
-    # activation; any other activation runs on the float32 result
-    fused = epilogue == activation
+    xin = x if x_int8 is None else x_int8
+    fused = int8_conv.fuses(activation, xin.dtype, out_dtype, semantics)
+    epilogue = activation if fused else "linear"
     store = dict(semantics=semantics,
                  out_dtype=out_dtype if fused and out_dtype else torch.float32,
                  out_mult=out_mult if fused else None)
-    xin = x if x_int8 is None else x_int8
     if not (plain or xin.is_contiguous()):
         # a conv output seen through its NHWC permute need not be
         # NHWC-dense; the kernel reads dense NHWC rows

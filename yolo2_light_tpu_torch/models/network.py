@@ -870,6 +870,9 @@ def load_kernels(spec: ModelSpec, mode: str, *, int8_policy: str = "cpu",
         int8_conv.load_kernel()
         if int8_policy == "cpu_old":   # the old chain runs K1 alone
             return
+        if any(l.activation == "mish" for l in spec.conv_layers()
+               if l.index in int8_set):
+            int8_conv.load_kernel(mish=True)
         if int8_impl == "fused":
             fused_res.load_kernel()
     if any(isinstance(l, ConvSpec) and l.xnor and _bit_path(l)

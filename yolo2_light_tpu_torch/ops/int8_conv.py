@@ -12,6 +12,7 @@ src/yolov2_forward_network_quantized.c:527-631):
     q = clamp(trunc_div(acc, R_MULT), +-32767)
     y = q * alpha + bias,   alpha = R_MULT / (input_mult * weights_mult)
     y = y > 0 ? y : y / 10          (leaky; linear skips it)
+    y = y * tanh(log1p(exp(y)))     (mish, yolov4's; PyTorch's F.mish)
 
 ``semantics="gpu"`` (``-int8_policy gpu``, the reference's cuDNN INT8x4
 path, forward_convolutional_layer_gpu_cudnn_quantized,
@@ -45,6 +46,12 @@ kernel's loader: one launch per int8 conv) and the int8-input one
 int8 chain's). :func:`plan_launch` picks each launch's tiles, its copy-ring
 depth and its split of K across a thread-block cluster.
 
+Mish is the kernel's third activation, a form of its own (``csrc/
+int8_conv_mish.cu``, a separate library whose kernel the device trace names
+``int8_conv_mish_kernel``), taken where the network's int8 path meets it:
+a float32 input stored as float32 under the "cpu" or "gpu" epilogue
+(:func:`fuses`). Its plain twin is the linear epilogue's, then ``F.mish``.
+
 Dispatch: :func:`conv2d_int8` and :func:`conv2d_int8_f32` run the kernel for
 a CUDA tensor and the plain version for a CPU tensor. The CUDA path launches
 the kernel or raises; it never falls back. PyTorch has no usable int8
@@ -75,21 +82,24 @@ LAUNCH_COUNTS: collections.Counter = collections.Counter()
 # made dense); the network's kernel path makes neither
 PRE_LAUNCHES: collections.Counter = collections.Counter()
 # the kernel's launches by form, "<input>/<semantics>/<store>", such as
-# "f32/cpu/f32" (the network's int8 path) or "bf16/cpu/bf16" (-turbo)
+# "f32/cpu/f32" (the network's int8 path) or "bf16/cpu/bf16" (-turbo), with
+# "/mish" after the mish form's ("f32/cpu/f32/mish")
 FORM_LAUNCHES: collections.Counter = collections.Counter()
 
 _KERNEL = "int8_conv"
-_EPILOGUES = ("leaky", "linear")
+_MISH_KERNEL = "int8_conv_mish"
+# the epilogue's activations, by the kernel's code (csrc/int8_conv.cuh)
+_EPILOGUES = ("linear", "leaky", "mish")
 SEMANTICS = ("cpu", "gpu", "old")
 # the "old" epilogue's two stores in one launch: (float32 q / 16, int8 q)
 OLD_BOTH = (torch.float32, torch.int8)
-# the kernel's input forms and stores (csrc/int8_conv.cu's enums)
+# the kernel's input forms and stores (csrc/int8_conv.cuh's enums)
 _X_FORMS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 _STORES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, OLD_BOTH: 3}
 _DTYPE_NAMES = {torch.int8: "int8", torch.float32: "f32",
                 torch.bfloat16: "bf16", OLD_BOTH: "f32+int8"}
 
-# the kernel's fixed geometry (csrc/int8_conv.cu)
+# the kernel's fixed geometry (csrc/int8_conv.cuh)
 SM_COUNT = 132           # H100 SXM
 TILE_PIXELS = 64         # output pixels per block
 TILE_CHANNELS = 64       # output channels per block
@@ -244,6 +254,18 @@ def _shift_of(r_mult: int) -> int:
     return r_mult.bit_length() - 1
 
 
+def fuses(activation: str, x_dtype, out_dtype=None,
+          semantics: str = "cpu") -> bool:
+    """Whether the kernel's epilogue takes ``activation`` whole at this
+    input type and store (None: float32): leaky and linear always, mish on
+    a float32 input stored as float32 under the "cpu" or "gpu" epilogue
+    (its form's only instantiation)."""
+    if activation in ("leaky", "linear"):
+        return True
+    return (activation == "mish" and x_dtype == torch.float32
+            and out_dtype in (None, torch.float32) and semantics != "old")
+
+
 def _check_epilogue(activation: str, semantics: str = "cpu") -> None:
     if activation not in _EPILOGUES:
         raise ValueError(f"int8 conv epilogue must be one of {_EPILOGUES}, "
@@ -251,6 +273,9 @@ def _check_epilogue(activation: str, semantics: str = "cpu") -> None:
     if semantics not in SEMANTICS:
         raise ValueError(f"int8 conv semantics must be one of {SEMANTICS}, "
                          f"got {semantics!r}")
+    if activation == "mish" and semantics == "old":
+        raise ValueError("the old epilogue is leaky or linear: it takes no "
+                         "mish")
 
 
 def _check_store(out_dtype, out_mult, semantics: str = "cpu") -> None:
@@ -297,15 +322,33 @@ def requantize(acc: torch.Tensor, r_mult: int = 32) -> torch.Tensor:
     return q.clamp(-32767, 32767)
 
 
+def mish_plain(y: torch.Tensor) -> torch.Tensor:
+    """Mish of the float32 ``y``: ``y * tanh(log1p(exp(y)))``, PyTorch's
+    ``F.mish``, which the kernel's mish epilogue computes with the same
+    CUDA math functions. AlexeyAB/darknet's activate_array_mish takes the
+    softplus as ``y`` above 20 and as ``exp(y)`` below -20: there
+    ``log1p(exp(y))`` differs from those by under 2**-28 of their value,
+    below half an ulp, and tanh is 1 (above 20) or its argument (below -20)
+    in float32, so the threshold changes no float32 result. Between them
+    darknet writes ``logf(expf(y) + 1)`` and ``2 / (1 + expf(-2 t)) - 1``
+    for the tanh: a few ulps from these where ``y`` is near 0 or above,
+    more the further ``y`` lies below 0, where ``expf(y) + 1`` rounds away
+    a growing share of ``expf(y)``."""
+    return F.mish(y)
+
+
 def epilogue_plain(q: torch.Tensor, bias: torch.Tensor, alpha: float,
                    activation: str) -> torch.Tensor:
-    """``q * alpha + bias`` with two roundings, then the x/10 leaky. The
-    divisor is a tensor on ``q``'s device: PyTorch's CUDA division by a
-    Python scalar multiplies by its reciprocal, which is not IEEE ``/ 10``."""
+    """``q * alpha + bias`` with two roundings, then the x/10 leaky or
+    mish. The divisor is a tensor on ``q``'s device: PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal, which is not
+    IEEE ``/ 10``."""
     y = q.to(torch.float32) * alpha + bias
     if activation == "leaky":
         ten = torch.tensor(10.0, dtype=torch.float32, device=y.device)
         y = torch.where(y > 0, y, y / ten)
+    elif activation == "mish":
+        y = mish_plain(y)
     return y
 
 
@@ -313,11 +356,13 @@ def gpu_epilogue_plain(acc: torch.Tensor, bias: torch.Tensor, inv: float,
                        activation: str) -> torch.Tensor:
     """The "gpu" flavor: ``acc * inv + bias`` with two roundings, then the
     0.1 * y leaky (the product with a float32 0.1, as JAX's weak-typed
-    ``0.1 * x`` rounds it)."""
+    ``0.1 * x`` rounds it) or mish."""
     y = acc.to(torch.float32) * inv + bias
     if activation == "leaky":
         tenth = torch.tensor(0.1, dtype=torch.float32, device=y.device)
         y = torch.where(y > 0, y, y * tenth)
+    elif activation == "mish":
+        y = mish_plain(y)
     return y
 
 
@@ -397,11 +442,13 @@ def conv2d_int8_f32_plain(x, w, bias, input_mult: float, alpha: float,
 
 
 @functools.cache
-def load_kernel():
-    """Build (first use) and load ``csrc/int8_conv.cu``; returns its bound
-    entry point, once per process."""
+def load_kernel(mish: bool = False):
+    """Build (first use) and load ``csrc/int8_conv.cu`` (the leaky and
+    linear forms) or, with ``mish``, ``csrc/int8_conv_mish.cu``; returns its
+    bound entry point, once per process."""
     from . import _build
-    fn = _build.load(_KERNEL).int8_conv_nhwc
+    lib = _build.load(_MISH_KERNEL if mish else _KERNEL)
+    fn = lib.int8_conv_mish_nhwc if mish else lib.int8_conv_nhwc
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
@@ -451,6 +498,10 @@ def _launch(name: str, x, w, bias, input_mult, alpha: float, stride: int,
     if b * oh * ow >= 2 ** 31 or b * h * wd >= 2 ** 31:
         raise ValueError(f"{name}: B*H*W and B*OH*OW must stay below 2**31")
     x_form = _DTYPE_NAMES[x.dtype]
+    mish = activation == "mish"
+    if mish and not fuses(activation, x.dtype, out_dtype, semantics):
+        raise ValueError(f"{name}: the mish form takes a float32 input and "
+                         f"stores float32, got {x.dtype} and {out_dtype}")
     if plan is None:
         plan = plan_launch(b, h, wd, c, m, ks, stride, pad, x_form)
     shift = _shift_of(r_mult)
@@ -459,16 +510,17 @@ def _launch(name: str, x, w, bias, input_mult, alpha: float, stride: int,
                       else out_dtype, device=x.device)
     out2 = (torch.empty((b, oh, ow, m), dtype=torch.int8, device=x.device)
             if both else None)
-    kernel = load_kernel()
+    kernel = load_kernel(mish)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     LAUNCH_COUNTS[_KERNEL] += 1
-    FORM_LAUNCHES[f"{x_form}/{semantics}/{_DTYPE_NAMES[out_dtype]}"] += 1
+    FORM_LAUNCHES[f"{x_form}/{semantics}/{_DTYPE_NAMES[out_dtype]}"
+                  + ("/mish" if mish else "")] += 1
     rc = kernel(
         x.data_ptr(), _X_FORMS[x.dtype],
         1.0 if input_mult is None else float(input_mult), w.data_ptr(),
         bias.data_ptr(), out.data_ptr(), None if out2 is None
         else out2.data_ptr(), b, h, wd, c, m, oh, ow, ks, stride, pad, alpha,
-        shift, int(activation == "leaky"), SEMANTICS.index(semantics),
+        shift, _EPILOGUES.index(activation), SEMANTICS.index(semantics),
         _STORES[out_dtype],
         1.0 if out_mult is None else float(out_mult), plan.tile_h,
         plan.tile_w, plan.split, plan.stages, x.device.index, stream)

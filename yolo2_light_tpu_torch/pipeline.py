@@ -41,7 +41,10 @@ counters (``images``, ``candidates``, ``h2d_bytes``; on the graph path
 device as the finish began, else 0) and the device ms of each stage
 (:data:`STAGES`) of each replay, from events captured at the stage bounds
 in a graph of its own; the graphs replayed untraced hold no such events.
-Each hook tests ``profiling.REC`` once.
+Where the net has an ``[upsample]``, one more event splits the network
+stage after the last layer before the first of them (:data:`SPLIT`: the
+backbone's way down, then the way back up to the heads). Each hook tests
+``profiling.REC`` once.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ import threading
 import numpy as np
 import torch
 
-from .cfg import ModelSpec, RegionSpec, YoloSpec
+from .cfg import ModelSpec, RegionSpec, UpsampleSpec, YoloSpec
 from .models.network import build_forward, device_params, load_kernels
 from .ops.resize import Resizer
 from .post import boxes as post
@@ -66,6 +69,8 @@ _WARMUP_RUNS = 2
 
 # the device program's stages, between the events of a traced graph
 STAGES = ("ingest", "network", "decode", "nms")
+# the network stage's two parts, on either side of its split event
+SPLIT = ("network.down", "network.up")
 
 
 def _fetch_packed(raw: torch.Tensor) -> np.ndarray:
@@ -119,10 +124,19 @@ def _source_sizes(shape, spec: ModelSpec):
     return None
 
 
+def _split_layer(spec: ModelSpec):
+    """The last layer before the net's first ``[upsample]``, or None where
+    it has none (or the upsample comes first)."""
+    first = next((l.index for l in spec.layers
+                  if isinstance(l, UpsampleSpec)), 0)
+    return first - 1 if first > 0 else None
+
+
 class _Graph:
     """One captured ``run``: its graph and static input and output; a graph
-    captured while tracing also holds the events at its stage bounds and
-    the (request, host ns) of the replay whose times they hold unread."""
+    captured while tracing also holds the events at its stage bounds (and
+    its split event, last) and the (request, host ns) of the replay whose
+    times they hold unread."""
 
     def __init__(self, graph, static_in, static_out, stages=None):
         self.graph = graph
@@ -229,8 +243,8 @@ class DetectionPipeline:
                 else device_params(spec, params, mode, "cpu", **convert),
                 mesh)
         else:
-            self._fwd = build_forward(spec, mode, int8_chain=int8_chain,
-                                      **kw)
+            self._fwd_kw = dict(int8_chain=int8_chain, **kw)
+            self._fwd = build_forward(spec, mode, **self._fwd_kw)
             self.params = (params if _converted(params)
                            else device_params(spec, params, mode,
                                               self.device, **convert))
@@ -349,11 +363,27 @@ class DetectionPipeline:
             stages[0].record()
             x = self.ingest(x.to(self.device))
             stages[1].record()
-            heads, _ = self._fwd(self.params, x)
+            heads, _ = self._split_forward(stages)(self.params, x)
             stages[2].record()
         else:
             heads, _ = self._fwd(self.params, self.ingest(x.to(self.device)))
         return self.post([h.data for h in heads], stages)
+
+    def _split_forward(self, stages):
+        """The forward of a traced capture: where ``stages`` holds a split
+        event (past the :data:`STAGES` bounds), one that records it after
+        the split layer (or, where the fused engine runs that layer inside a
+        block, after the block)."""
+        if len(stages) == len(STAGES) + 1:
+            return self._fwd
+        at, marked = _split_layer(self.spec), []
+
+        def mark(i):
+            if i >= at and not marked:
+                stages[-1].record()
+                marked.append(i)
+        return build_forward(self.spec, self._mode, layer_hook=mark,
+                             **self._fwd_kw)
 
     def _graph_for(self, x: torch.Tensor) -> _Graph:
         """The graph of ``x``'s signature, captured at its first use
@@ -363,9 +393,10 @@ class DetectionPipeline:
         key = (tuple(x.shape), x.dtype, traced)
         g = self._graphs.get(key)
         if g is None:
+            events = len(STAGES) + 1 + (_split_layer(self.spec) is not None)
             g = self._graphs[key] = self._capture(x, [
                 torch.cuda.Event(enable_timing=True, external=True)
-                for _ in range(len(STAGES) + 1)] if traced else None)
+                for _ in range(events)] if traced else None)
         return g
 
     def _capture(self, x: torch.Tensor, stages=None) -> _Graph:
@@ -414,7 +445,11 @@ class DetectionPipeline:
             g.unread = None
             rec = profiling.REC
             if rec is not None:
-                rec.stages(g.stages, STAGES, *unread, wait)
+                bounds = g.stages[:len(STAGES) + 1]
+                inner = (list(zip(SPLIT, (bounds[1], g.stages[-1]),
+                                  (g.stages[-1], bounds[2])))
+                         if len(g.stages) > len(bounds) else ())
+                rec.stages(bounds, STAGES, *unread, wait, inner)
 
     def _h2d(self, images) -> torch.Tensor:
         """``images`` as a tensor on the device, inside a ``dispatch.h2d``

@@ -1,5 +1,5 @@
 # Mirrors yolo2_light_tpu/post/boxes.py: a copy, so that the port imports
-# nothing of the JAX package.
+# nothing of the JAX package; the yolo decode adds yolov4's scale_x_y.
 """Detection decode + NMS (host reference implementation, NumPy).
 
 Exact value/order parity with the reference decode stack:
@@ -75,13 +75,17 @@ def correct_boxes(bbox: np.ndarray, w: int, h: int, netw: int, neth: int,
 
 def get_yolo_detections(head: np.ndarray, mask, anchors, classes: int,
                         w: int, h: int, netw: int, neth: int, thresh: float,
-                        relative: bool = True, letter: bool = False) -> Detections:
+                        relative: bool = True, letter: bool = False,
+                        scale_x_y: float = 1.0) -> Detections:
     """Decode one yolo head (reference: get_yolo_detections, src/additionally.c:4328).
 
     ``head``: [H,W,n,5+classes] post-activation (x,y sigmoid; w,h raw; obj/cls sigmoid).
     Box: x=(col+sx)/W, y=(row+sy)/H, w=exp(tw)*anchor_w/netw, h=exp(th)*anchor_h/neth
     (reference: get_yolo_box, src/additionally.c:4317-4325).
     prob_j = objectness*class_j, zeroed when <= thresh.
+    ``scale_x_y`` (a port extension: AlexeyAB/darknet's yolov4 heads) maps
+    sx and sy to ``sx * s - 0.5 * (s - 1)`` first, in float32
+    (``device_decode.scale_xy_terms``); at 1 the decode is unchanged.
     """
     lh, lw, n = head.shape[:3]
     obj = head[..., 4]
@@ -91,8 +95,13 @@ def get_yolo_detections(head: np.ndarray, mask, anchors, classes: int,
     anchors = np.asarray(anchors, dtype=np.float32)
     aw = anchors[2 * np.asarray(mask)]
     ah = anchors[2 * np.asarray(mask) + 1]
-    bx = (cols + head[..., 0]) / lw
-    by = (rows + head[..., 1]) / lh
+    sx, sy = head[..., 0], head[..., 1]
+    if scale_x_y != 1.0:
+        from .device_decode import scale_xy_terms
+        s, b = scale_xy_terms(scale_x_y)
+        sx, sy = sx * s + b, sy * s + b
+    bx = (cols + sx) / lw
+    by = (rows + sy) / lh
     bw = np.exp(head[..., 2]) * aw[None, None, :] / netw
     bh = np.exp(head[..., 3]) * ah[None, None, :] / neth
     keep = obj > thresh
@@ -201,7 +210,7 @@ def get_network_boxes(head_outputs, head_specs, w: int, h: int,
         if isinstance(spec, YoloSpec):
             parts.append(get_yolo_detections(
                 out, spec.mask, spec.anchors, spec.classes, w, h, netw, neth,
-                thresh, relative, letter))
+                thresh, relative, letter, spec.scale_x_y))
         elif isinstance(spec, RegionSpec):
             cm = class_map if class_map is not None else spec.class_map
             parts.append(get_region_detections(

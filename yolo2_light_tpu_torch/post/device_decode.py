@@ -53,6 +53,10 @@ class _HeadConsts:
             self.aw = _f32(anchors[2 * mask], device)[None, None, None, :]
             self.ah = _f32(anchors[2 * mask + 1], device)[None, None, None, :]
             self.netw, self.neth = _f32(netw, device), _f32(neth, device)
+            # scale_x_y's multiplier and offset (None at 1: no op at all)
+            self.sxy = scale_xy_terms(spec.scale_x_y)
+            if self.sxy is not None:
+                self.sxy = tuple(_f32(v, device) for v in self.sxy)
             return
         self.aw = _f32(anchors[0::2][:n], device)[None, None, None, :]
         self.ah = _f32(anchors[1::2][:n], device)[None, None, None, :]
@@ -77,12 +81,29 @@ class _HeadConsts:
                 np.asarray(spec.class_map, np.int64)).to(device)
 
 
+def scale_xy_terms(scale_x_y: float):
+    """(multiplier, offset) of a yolo head's ``scale_x_y`` as float32
+    values, or None at 1: AlexeyAB/darknet's forward_yolo_layer maps x and
+    y after the logistic to ``x * s + b``, ``b = -0.5 * (s - 1)``
+    (scal_add_cpu, float32 operands, two roundings). At ``s = 1`` that is
+    ``x`` exactly, so a head without the key keeps yolo2_light's decode."""
+    s = np.float32(scale_x_y)
+    if s == 1:
+        return None
+    return s, np.float32(-0.5) * (s - np.float32(1))
+
+
 def _decode_yolo(h, spec: YoloSpec, c: _HeadConsts, thresh: float):
     """[B,H,W,n,5+classes] -> boxes [B,N,4], obj [B,N], probs [B,N,C]
-    (reference math: get_yolo_box, src/additionally.c:4317-4325)."""
+    (reference math: get_yolo_box, src/additionally.c:4317-4325; x and y
+    through ``scale_x_y`` first where the head has one)."""
     b, lh, lw, n, _ = h.shape
-    bx = (c.cols + h[..., 0]) / c.lw
-    by = (c.rows + h[..., 1]) / c.lh
+    sx, sy = h[..., 0], h[..., 1]
+    if c.sxy is not None:
+        sx = sx * c.sxy[0] + c.sxy[1]
+        sy = sy * c.sxy[0] + c.sxy[1]
+    bx = (c.cols + sx) / c.lw
+    by = (c.rows + sy) / c.lh
     bw = torch.exp(h[..., 2]) * c.aw / c.netw
     bh = torch.exp(h[..., 3]) * c.ah / c.neth
     obj = h[..., 4]

@@ -237,14 +237,16 @@ class Recording:
         self.counters.append(Counter(name, time.time_ns(), int(value),
                                      -1 if cur is None else cur.request))
 
-    def stages(self, events: list, names, request, at, wait: str) -> None:
+    def stages(self, events: list, names, request, at, wait: str,
+               inner=()) -> None:
         """Record ``stage.<name>``: the device ms between each two of
         ``events`` (one more than ``names``), of the replay of ``request``
         enqueued at ``at``, inside a span named ``wait`` that waits for the
-        last event first."""
+        last event first; then the same of each ``(name, start event, end
+        event)`` of ``inner``, parts of those stages."""
         with self.span(wait):
             events[-1].synchronize()
-            for name, a, b in zip(names, events, events[1:]):
+            for name, a, b in [*zip(names, events, events[1:]), *inner]:
                 self.device.append(DeviceTime("stage." + name, at,
                                               a.elapsed_time(b), request))
 
